@@ -1,0 +1,178 @@
+"""Embedding runner: length-bucketed batching over the MPNet module.
+
+The port of ``arxiv_rag_tpu/embed/runner.py``: tokenize on the host,
+group rows by length bucket, pad each batch to an allowed height (pad
+rows carry one CLS token so pooling never divides by zero), run the
+encoder on the device, and restore the original order by position.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from arxiv_rag_tpu_torch.logging_utils import METRICS
+from arxiv_rag_tpu_torch.models.mpnet import MPNet
+from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+
+@dataclass
+class EmbedStats:
+    texts: int = 0
+    batches: int = 0
+    padded_slots: int = 0
+    tokens: int = 0
+
+
+class Embedder:
+    """Batched sentence embeddings on the model's device.
+
+    Args:
+        model: the MPNet module (its parameters' device is where batches run).
+        tokenizer: WordPiece tokenizer with MPNet specials.
+        buckets: padded sequence lengths, ascending.
+        batch_size / batch_sizes: allowed padded batch heights; a batch
+            pads to the smallest height that fits.
+        normalize: L2-normalize the pooled embeddings.
+    """
+
+    def __init__(
+        self,
+        model: MPNet,
+        tokenizer: WordPieceTokenizer,
+        *,
+        buckets: Sequence[int] = (64, 128, 256, 384),
+        batch_size: int = 512,
+        batch_sizes: Sequence[int] | None = None,
+        normalize: bool = True,
+    ) -> None:
+        self.model = model
+        self.cfg = model.cfg
+        self.tokenizer = tokenizer
+        self.buckets = tuple(sorted(buckets))
+        self.batch_sizes = tuple(sorted(batch_sizes)) if batch_sizes else (batch_size,)
+        self.batch_size = max(self.batch_sizes)
+        self.normalize = normalize
+        self.stats = EmbedStats()
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.word.weight.device
+
+    # -- host side -------------------------------------------------------
+
+    def _bucket_for(self, n_tokens: int) -> int:
+        for b in self.buckets:
+            if n_tokens <= b:
+                return b
+        return self.buckets[-1]
+
+    def tokenize_bucketed(
+        self, texts: Sequence[str]
+    ) -> dict[int, tuple[list[int], np.ndarray, np.ndarray]]:
+        """{bucket: (original positions, ids [n, bucket], mask)}."""
+        max_b = self.buckets[-1]
+        per_bucket: dict[int, list[tuple[int, list[int]]]] = {b: [] for b in self.buckets}
+        for pos, text in enumerate(texts):
+            enc = self.tokenizer.encode(text, max_len=max_b)
+            per_bucket[self._bucket_for(len(enc))].append((pos, enc))
+        out = {}
+        for bucket, rows in per_bucket.items():
+            if not rows:
+                continue
+            ids = np.full((len(rows), bucket), self.tokenizer.pad_id, np.int32)
+            mask = np.zeros((len(rows), bucket), np.int32)
+            positions = []
+            for r, (pos, enc) in enumerate(rows):
+                ids[r, : len(enc)] = enc
+                mask[r, : len(enc)] = 1
+                positions.append(pos)
+                self.stats.tokens += len(enc)
+            out[bucket] = (positions, ids, mask)
+        return out
+
+    def _padded_height(self, n: int) -> int:
+        for b in self.batch_sizes:
+            if n <= b:
+                return b
+        return self.batch_sizes[-1]
+
+    def _iter_batches(self, positions, ids, mask):
+        """(bpos, bids, bmask, n) padded to an allowed batch height; pad
+        rows get one CLS token."""
+        for start in range(0, len(positions), self.batch_size):
+            bpos = positions[start : start + self.batch_size]
+            bids = ids[start : start + self.batch_size]
+            bmask = mask[start : start + self.batch_size]
+            n = len(bpos)
+            height = self._padded_height(n)
+            if n < height:
+                pad = height - n
+                bids = np.pad(bids, ((0, pad), (0, 0)),
+                              constant_values=self.tokenizer.pad_id)
+                bmask = np.pad(bmask, ((0, pad), (0, 0)))
+                bids[n:, 0] = self.tokenizer.cls_id
+                bmask[n:, 0] = 1
+                self.stats.padded_slots += pad
+            self.stats.batches += 1
+            yield bpos, bids, bmask, n
+
+    # -- device side -----------------------------------------------------
+
+    def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        dev = self.device
+        x_ids = torch.from_numpy(ids.astype(np.int64)).to(dev, non_blocking=True)
+        x_mask = torch.from_numpy(mask).to(dev, non_blocking=True)
+        return self.model.encode(x_ids, x_mask, normalize=self.normalize)
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """[len(texts), hidden] fp32 embeddings, original order."""
+        if not len(texts):
+            return np.zeros((0, self.cfg.hidden_size), np.float32)
+        out = np.empty((len(texts), self.cfg.hidden_size), np.float32)
+        bucketed = self.tokenize_bucketed(texts)
+        pending: list[tuple[list[int], torch.Tensor, int]] = []
+        with METRICS.timer("embed.device"):
+            for bucket, (positions, ids, mask) in bucketed.items():
+                for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
+                    # launches are asynchronous: the host pads the next
+                    # batch while the device runs this one
+                    pending.append((bpos, self._run_batch(bids, bmask), n))
+            for bpos, emb, n in pending:
+                out[np.asarray(bpos)] = emb[:n].cpu().numpy()
+        self.stats.texts += len(texts)
+        METRICS.inc("embed.texts", len(texts))
+        return out
+
+    def encode_window_device(self, texts: Sequence[str]):
+        """(embeddings [H, hidden] on the device, real row count) for one
+        serving window: every text tokenizes at one bucket (the largest
+        any of them needs) and the batch pads to an allowed height, so
+        order holds by construction and the tensor feeds the scan
+        directly. None when the window exceeds the largest batch height
+        (the caller uses ``encode_texts``)."""
+        n = len(texts)
+        if n == 0 or n > self.batch_size:
+            return None
+        max_b = self.buckets[-1]
+        encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
+        lengths = np.asarray([len(e) for e in encs])
+        bucket = self._bucket_for(int(lengths.max()))
+        height = self._padded_height(n)
+        ids = np.full((height, bucket), self.tokenizer.pad_id, np.int32)
+        mask = np.zeros((height, bucket), np.int32)
+        for r, enc in enumerate(encs):
+            ids[r, : len(enc)] = enc
+            mask[r, : len(enc)] = 1
+        ids[n:, 0] = self.tokenizer.cls_id  # pad rows: one real token
+        mask[n:, 0] = 1
+        self.stats.tokens += int(lengths.sum())
+        self.stats.padded_slots += height - n
+        self.stats.batches += 1
+        self.stats.texts += n
+        METRICS.inc("embed.texts", n)
+        with METRICS.timer("embed.device"):
+            return self._run_batch(ids, mask), n

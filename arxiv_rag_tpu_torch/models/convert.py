@@ -1,0 +1,163 @@
+"""Weights into the port's MPNet: the JAX params pytree, HF state dicts,
+and the reference's native checkpoint (``params.msgpack`` +
+``model_config.json``).
+
+The port of ``arxiv_rag_tpu/models/convert.py``. The reference stores
+dense kernels stacked over layers as ``[L, d_in, d_out]``; ``nn.Linear``
+keeps ``[d_out, d_in]`` per layer, so kernels are split and transposed.
+The msgpack checkpoint is decoded with ``msgpack`` alone (flax's array
+encoding, bf16 included), never with flax or ml_dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from arxiv_rag_tpu_torch.device import default_device
+from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig, compute_dtype_of
+
+
+def to_tensor(arr: Any) -> torch.Tensor:
+    """numpy (bf16 included, as ml_dtypes or raw bits) → CPU tensor,
+    without importing ml_dtypes."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.array(arr, order="C")  # a writable copy: leaves may be read-only views
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The reference's params pytree (``np.asarray`` leaves; stacked
+    ``[L, d_in, d_out]`` kernels) → this package's ``MPNet`` state dict."""
+    emb, layers = tree["embeddings"], tree["layers"]
+    sd = {
+        "word.weight": to_tensor(emb["word"]),
+        "position.weight": to_tensor(emb["position"]),
+        "emb_ln.weight": to_tensor(emb["ln"]["scale"]),
+        "emb_ln.bias": to_tensor(emb["ln"]["bias"]),
+        "rel_bias": to_tensor(tree["rel_bias"]),
+    }
+    blocks = {
+        "attn.q": layers["attn"]["q"], "attn.k": layers["attn"]["k"],
+        "attn.v": layers["attn"]["v"], "attn.o": layers["attn"]["o"],
+        "ffn.inp": layers["ffn"]["in"], "ffn.out": layers["ffn"]["out"],
+    }
+    norms = {"attn.ln": layers["attn"]["ln"], "ffn.ln": layers["ffn"]["ln"]}
+    for i in range(cfg.num_hidden_layers):
+        for name, p in blocks.items():
+            sd[f"layers.{i}.{name}.weight"] = to_tensor(p["kernel"])[i].T.contiguous()
+            sd[f"layers.{i}.{name}.bias"] = to_tensor(p["bias"])[i]
+        for name, p in norms.items():
+            sd[f"layers.{i}.{name}.weight"] = to_tensor(p["scale"])[i]
+            sd[f"layers.{i}.{name}.bias"] = to_tensor(p["bias"])[i]
+    return sd
+
+
+_HF_PREFIXES = ("0.auto_model.", "auto_model.", "mpnet.")
+
+
+def from_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """An HF ``MPNetModel`` state dict (or a sentence-transformers
+    checkpoint wrapping one) → this package's ``MPNet`` state dict."""
+    sd = {}
+    for key, value in state.items():
+        for prefix in _HF_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        sd[key] = value
+
+    def t(key: str) -> torch.Tensor:
+        return to_tensor(sd[key])
+
+    out = {
+        "word.weight": t("embeddings.word_embeddings.weight"),
+        "position.weight": t("embeddings.position_embeddings.weight"),
+        "emb_ln.weight": t("embeddings.LayerNorm.weight"),
+        "emb_ln.bias": t("embeddings.LayerNorm.bias"),
+        "rel_bias": t("encoder.relative_attention_bias.weight"),
+    }
+    names = {
+        "attn.q": "attention.attn.q", "attn.k": "attention.attn.k",
+        "attn.v": "attention.attn.v", "attn.o": "attention.attn.o",
+        "attn.ln": "attention.LayerNorm", "ffn.inp": "intermediate.dense",
+        "ffn.out": "output.dense", "ffn.ln": "output.LayerNorm",
+    }
+    for i in range(cfg.num_hidden_layers):
+        for ours, theirs in names.items():
+            for leaf in ("weight", "bias"):
+                out[f"layers.{i}.{ours}.{leaf}"] = t(f"encoder.layer.{i}.{theirs}.{leaf}")
+    return out
+
+
+def build_model(state: Mapping[str, torch.Tensor], cfg: ModelConfig, *,
+                compute_dtype: str | torch.dtype = torch.float32,
+                device=None) -> MPNet:
+    """``MPNet`` holding ``state`` (parameters keep the state's dtype) on
+    ``device`` (the card by default)."""
+    dev = default_device(device)
+    param_dtype = next(iter(state.values())).dtype
+    model = MPNet(cfg, compute_dtype).to(param_dtype)
+    model.load_state_dict(dict(state))
+    return model.to(dev).eval()
+
+
+# --- the reference's native checkpoint ----------------------------------------
+
+
+def _tensor_from_msgpack(data: bytes) -> torch.Tensor:
+    """A leaf in flax's array encoding: (shape, dtype name, raw bytes)."""
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":  # raw 16-bit patterns
+        bits = np.frombuffer(buffer, np.int16).reshape(shape).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    arr = np.frombuffer(buffer, np.dtype(dtype_name.decode())).reshape(shape)
+    return torch.from_numpy(arr.copy())
+
+
+def _unchunk(node: Any) -> Any:
+    """Undo flax's chunking of leaves above 1 GiB."""
+    if isinstance(node, dict):
+        if node.get("__msgpack_chunked_array__"):
+            shape = tuple(node["shape"][str(i)] for i in range(len(node["shape"])))
+            parts = [node["chunks"][str(i)] for i in range(len(node["chunks"]))]
+            return torch.cat([p.reshape(-1) for p in parts]).reshape(shape)
+        return {k: _unchunk(v) for k, v in node.items()}
+    return node
+
+
+def load_checkpoint(directory: str | Path) -> tuple[dict[str, torch.Tensor], ModelConfig]:
+    """(state dict, config) from ``params.msgpack`` + ``model_config.json``
+    written by the reference's ``save_checkpoint``."""
+    import msgpack
+
+    directory = Path(directory)
+    raw = json.loads((directory / "model_config.json").read_text())
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in raw.items() if k in known})
+
+    def ext_hook(code: int, data: bytes):
+        if code in (1, 3):  # ndarray, numpy scalar
+            return _tensor_from_msgpack(data)
+        return msgpack.ExtType(code, data)
+
+    tree = msgpack.unpackb((directory / "params.msgpack").read_bytes(),
+                           ext_hook=ext_hook, raw=False)
+    return from_jax_params(_unchunk(tree), cfg), cfg
+
+
+def load_model(directory: str | Path, *, compute_dtype: str | torch.dtype = torch.bfloat16,
+               device=None) -> tuple[MPNet, ModelConfig]:
+    state, cfg = load_checkpoint(directory)
+    return build_model(state, cfg, compute_dtype=compute_dtype_of(compute_dtype),
+                       device=device), cfg

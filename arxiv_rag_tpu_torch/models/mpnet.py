@@ -1,0 +1,299 @@
+"""MPNet sentence encoder as a PyTorch ``nn.Module``.
+
+The port of ``arxiv_rag_tpu/models/mpnet.py`` (all-mpnet-base-v2:
+768-d, mean-pooled, L2-normalized). It carries over the reference's
+numerics exactly:
+
+- dense layers and both attention products take operands in the
+  compute dtype and give an fp32 result (``_matmul_f32``); a dense
+  layer adds its bias in fp32, then casts back (``_dense``, :153-162).
+  fp32 compute is full fp32;
+- LayerNorm in fp32 with eps 1e-5, cast back to the compute dtype
+  (:134-141); exact GELU in fp32 (:318); softmax in fp32, cast to the
+  compute dtype (:306);
+- T5-style relative position buckets shared across layers (:234-267),
+  RoBERTa position ids ``cumsum(mask)*mask+pad`` (:323-327) and the
+  ``finfo(float32).min`` additive mask bias (:348-350);
+- attention is matmul → softmax → matmul (the reference's default
+  ``fused=False``); no fused attention operator is used.
+
+Weights have the PyTorch ``nn.Linear`` layout ([out, in]); see
+``models/convert.py`` for loading the reference's params pytree and HF
+state dicts.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from arxiv_rag_tpu_torch.device import default_device
+
+PAD_TOKEN_ID = 1  # MPNet convention: <pad>=1 (HF MPNetEmbeddings.padding_idx)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Subset of HF MPNetConfig the forward pass needs.
+
+    Defaults match sentence-transformers/all-mpnet-base-v2.
+    """
+
+    vocab_size: int = 30527
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_eps: float = 1e-5
+    pad_token_id: int = PAD_TOKEN_ID
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def compute_dtype_of(name: str | torch.dtype) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[name]
+
+
+def relative_position_bucket(
+    relative_position: np.ndarray, num_buckets: int = 32, max_distance: int = 128
+) -> np.ndarray:
+    """T5-style bidirectional bucketing (HF MPNetEncoder.relative_position_bucket).
+
+    numpy on purpose, as in the reference: the bucket matrix depends only
+    on the padded length and is built once per length.
+    """
+    n = -relative_position
+    num_buckets //= 2
+    ret = (n < 0).astype(np.int64) * num_buckets
+    n = np.abs(n)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        np.log(np.maximum(n, 1).astype(np.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).astype(np.int64)
+    val_if_large = np.minimum(val_if_large, num_buckets - 1)
+    return ret + np.where(is_small, n, val_if_large)
+
+
+def compute_position_bias(
+    rel_bias: torch.Tensor, seq_len: int, cfg: ModelConfig
+) -> torch.Tensor:
+    """[1, heads, q, k] fp32 additive attention bias, shared across layers.
+    ``rel_bias`` is the [buckets, heads] table."""
+    pos = np.arange(seq_len, dtype=np.int64)
+    rel = pos[None, :] - pos[:, None]  # memory - context
+    buckets = relative_position_bucket(
+        rel, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance
+    )
+    return _gather_bias(rel_bias, torch.from_numpy(buckets).to(rel_bias.device))
+
+
+def _gather_bias(rel_bias: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
+    values = rel_bias[buckets]  # [q, k, heads]
+    return values.permute(2, 0, 1)[None].to(torch.float32)
+
+
+def create_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
+    """RoBERTa/MPNet position ids: pad positions get padding_idx; real
+    tokens count up from padding_idx+1 (HF create_position_ids_from_input_ids)."""
+    mask = (input_ids != pad_token_id).to(torch.int64)
+    return torch.cumsum(mask, dim=1) * mask + pad_token_id
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """fp32 LayerNorm whatever the compute dtype, cast back."""
+    out = F.layer_norm(
+        x.to(torch.float32), ln.normalized_shape,
+        ln.weight.to(torch.float32), ln.bias.to(torch.float32), ln.eps,
+    )
+    return out.to(x.dtype)
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an fp32 result that is never rounded to the operand
+    dtype (the reference's ``preferred_element_type=float32``). ``b`` is
+    2-D (a dense kernel) or batched like ``a``. fp32 operands run in full
+    fp32 (TF32 is off, see device.py). bf16 operands on the card run the
+    bf16 GEMM with an fp32 output (``out_dtype``); the CPU's GEMMs have no
+    ``out_dtype``, so there they are cast up first, which forms the same
+    exact products and sums them in fp32."""
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    lead, (m, kk), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, kk), b, out_dtype=torch.float32)
+    else:
+        out = torch.bmm(a.reshape(-1, m, kk), b.reshape(-1, kk, n),
+                        out_dtype=torch.float32)
+    return out.reshape(*lead, m, n)
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """x @ W^T in the compute dtype with an fp32 result, + fp32 bias, cast
+    back to the compute dtype: one rounding, after the bias."""
+    y = _matmul_f32(x, lin.weight.to(x.dtype).T)
+    return (y + lin.bias.to(torch.float32)).to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.q = nn.Linear(h, h)
+        self.k = nn.Linear(h, h)
+        self.v = nn.Linear(h, h)
+        self.o = nn.Linear(h, h)
+        self.ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+
+    def forward(self, x, bias, mask_bias):
+        b, s, h = x.shape
+        nh, hd = self.cfg.num_attention_heads, self.cfg.head_dim
+
+        def split_heads(t):
+            return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+        q = split_heads(_dense(x, self.q))
+        k = split_heads(_dense(x, self.k))
+        v = split_heads(_dense(x, self.v))
+        scores = _matmul_f32(q, k.transpose(-1, -2))
+        scores = scores / math.sqrt(hd) + bias + mask_bias
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+        ctx = _matmul_f32(probs, v)
+        ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, h)
+        out = _dense(ctx, self.o)
+        return _layer_norm(out + x, self.ln)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x):
+        y = _dense(x, self.inp)
+        y = F.gelu(y.to(torch.float32), approximate="none").to(x.dtype)
+        y = _dense(y, self.out)
+        return _layer_norm(y + x, self.ln)
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        self.attn = Attention(cfg)
+        self.ffn = FeedForward(cfg)
+
+    def forward(self, x, bias, mask_bias):
+        return self.ffn(self.attn(x, bias, mask_bias))
+
+
+class MPNet(nn.Module):
+    """MPNet encoder. ``forward`` gives fp32 token states
+    [batch, seq, hidden]; ``encode`` gives fp32 sentence embeddings."""
+
+    def __init__(self, cfg: ModelConfig, compute_dtype: str | torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        h = cfg.hidden_size
+        self.word = nn.Embedding(cfg.vocab_size, h)
+        self.position = nn.Embedding(cfg.max_position_embeddings, h)
+        self.emb_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.rel_bias = nn.Parameter(
+            torch.zeros(cfg.relative_attention_num_buckets, cfg.num_attention_heads)
+        )
+        self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_hidden_layers))
+        # bucket matrices per (length, device): they depend on no weight
+        self._buckets: dict[tuple, torch.Tensor] = {}
+
+    def reset_parameters(self, generator: torch.Generator, std: float = 0.02) -> "MPNet":
+        """HF's init scheme (normal(0, std) weights, zero biases, unit
+        LayerNorm scales), drawn from ``generator`` on its device."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith("ln.weight"):
+                    p.fill_(1.0)
+                elif name.endswith("bias") and name != "rel_bias":
+                    p.zero_()
+                else:
+                    noise = torch.randn(p.shape, generator=generator,
+                                        device=generator.device, dtype=torch.float32)
+                    p.copy_(noise * std)
+        return self
+
+    def _position_bias(self, seq_len: int) -> torch.Tensor:
+        key = (seq_len, self.rel_bias.device)
+        buckets = self._buckets.get(key)
+        if buckets is None:
+            pos = np.arange(seq_len, dtype=np.int64)
+            buckets = torch.from_numpy(relative_position_bucket(
+                pos[None, :] - pos[:, None],
+                self.cfg.relative_attention_num_buckets,
+                self.cfg.relative_attention_max_distance,
+            )).to(self.rel_bias.device)
+            self._buckets[key] = buckets
+        return _gather_bias(self.rel_bias, buckets)
+
+    @torch.no_grad()
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
+        x = self.word(input_ids) + self.position(pos_ids)
+        x = _layer_norm(x.to(self.compute_dtype), self.emb_ln)
+        bias = self._position_bias(input_ids.shape[1])
+        mask_bias = (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * \
+            torch.finfo(torch.float32).min
+        for layer in self.layers:
+            x = layer(x, bias, mask_bias)
+        return x.to(torch.float32)
+
+    @torch.no_grad()
+    def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+               normalize: bool = True) -> torch.Tensor:
+        """Sentence embeddings [batch, hidden] in fp32 (L2-normalized)."""
+        return mean_pool(self(input_ids, attention_mask), attention_mask, normalize)
+
+
+def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor,
+              normalize: bool = True) -> torch.Tensor:
+    """Mask-aware mean pooling + optional L2 norm (sentence-transformers
+    contract)."""
+    mask = attention_mask.to(torch.float32)[..., None]
+    summed = torch.sum(hidden * mask, dim=1)
+    counts = torch.clamp(torch.sum(mask, dim=1), min=1e-9)
+    pooled = summed / counts
+    if normalize:
+        pooled = pooled / torch.clamp(
+            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12
+        )
+    return pooled
+
+
+def random_model(cfg: ModelConfig = ModelConfig(), *, seed: int = 0,
+                 param_dtype: str | torch.dtype = torch.bfloat16,
+                 compute_dtype: str | torch.dtype = torch.bfloat16,
+                 device=None) -> MPNet:
+    """A seeded random model on ``device`` (the card by default):
+    the CLI's weights when no checkpoint is given."""
+    dev = default_device(device)
+    model = MPNet(cfg, compute_dtype).to(dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    return model.to(compute_dtype_of(param_dtype)).eval()

@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import arxiv_rag_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "arxiv_rag_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 15  # every module of the port was imported
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
+    from arxiv_rag_tpu_torch.device import default_device
+    from arxiv_rag_tpu_torch.index import build_index
+    from arxiv_rag_tpu_torch.models.convert import build_model, from_jax_params
+    from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig, random_model
+    from arxiv_rag_tpu_torch.search import SearchEngine
+
+    cfg = ModelConfig(vocab_size=20, hidden_size=16, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=32,
+                      max_position_embeddings=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        random_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(MPNet(cfg).state_dict(), cfg)
+    idx = build_index(np.eye(4, 8, dtype=np.float32), dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        idx.to_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SearchEngine(idx)
+    # asked for explicitly, the CPU works
+    assert default_device("cpu").type == "cpu"
+    assert random_model(cfg, device="cpu").word.weight.device.type == "cpu"
+    assert from_jax_params  # the converter itself is device-free
+
+
+def test_cli_defaults_to_the_card(no_card, tmp_path):
+    """`index` with no --device asks for CUDA and fails loudly without it."""
+    emb_dir = tmp_path / "emb"
+    emb_dir.mkdir()
+    np.save(emb_dir / "embeddings-00000.npy", np.eye(4, 8, dtype=np.float32))
+    (emb_dir / "ids_00000.json").write_text('["a", "b", "c", "d"]')
+    (emb_dir / "index.json").write_text(
+        '{"dim": 8, "batches": [{"file": "embeddings-00000.npy", "rows": 4}]}')
+    from arxiv_rag_tpu_torch.cli.main import main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["index", "--embeddings", str(emb_dir), "--out", str(tmp_path / "idx")])
+    assert main(["index", "--embeddings", str(emb_dir), "--out", str(tmp_path / "idx"),
+                 "--device", "cpu", "--dtype", "int8"]) == 0
+    assert (tmp_path / "idx" / "index.json").exists()
+
+
+def test_kernel_build_is_not_touched_on_import():
+    """Importing the kernel modules builds and loads nothing."""
+    from arxiv_rag_tpu_torch.ops import _build, fused_topk
+
+    assert fused_topk._LIB == [] or torch.cuda.is_available()
+    assert _build.lib_path("fused_topk").name.startswith("libfused_topk-")
+    assert _build.BUILD_DIR == REPO / "build" / "kernels"
