@@ -6,7 +6,10 @@ from ``arxiv_rag_tpu``; modules it needs from there are kept here as its
 own copies. The main path is query text → MPNet sentence embedding
 (``models``, ``embed``) → fused flat cosine top-k over a device-resident
 index (``index``, ``ops.fused_topk`` with hand-written CUDA kernels in
-``csrc/``) → results (``search``), served over HTTP (``serve``).
+``csrc/``) → results (``search``), served over HTTP (``serve``). A query
+may carry a category filter (the masked scans), and an IVF index
+(``index.ivf``, ``ops.ivf``, ``ops.kmeans``) may prune the scan to the
+probed clusters.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without that explicit request they raise.

@@ -2,9 +2,10 @@
 
 Verbs of the dense serving path, following ``arxiv_rag_tpu/cli/main.py``:
 
-  index   build the dense index from an embed output directory
-  search  query an index with text
-  serve   HTTP query service over an index
+  index   build the dense index from an embed output directory, and
+          with ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it
+  search  query an index with text (``--categories``, ``--nprobe``)
+  serve   HTTP query service over an index (``--nprobe``)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
 CPU. Without ``--checkpoint`` the encoder is a seeded random bf16
@@ -39,6 +40,13 @@ def _add_index(sub) -> None:
     p.add_argument("--out", required=True)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"])
     p.add_argument("--device", default="cuda", help="where the index is built")
+    p.add_argument("--ivf-clusters", type=int, default=0,
+                   help="also train an IVF (cluster-pruned) delta with this many "
+                        "clusters; search probes it via --nprobe")
+    p.add_argument("--ivf-block-rows", type=int, default=1024,
+                   help="IVF layout block size; a multiple of 128, as the reference "
+                        "requires, so a delta serves both packages")
+    p.add_argument("--ivf-iters", type=int, default=10)
 
 
 def cmd_index(args) -> int:
@@ -48,6 +56,11 @@ def cmd_index(args) -> int:
     from arxiv_rag_tpu_torch.device import default_device
     from arxiv_rag_tpu_torch.index.store import build_index
 
+    if args.ivf_clusters and args.ivf_block_rows % 128:
+        print(f"error: --ivf-block-rows {args.ivf_block_rows} must be a multiple of 128 "
+              "(the reference's IVF kernel tiles its scale/mask sidecars by 128)",
+              file=sys.stderr)
+        return 2
     src = Path(args.embeddings)
     manifest = json.loads((src / "index.json").read_text())
     parts = [np.load(src / b["file"]) for b in manifest["batches"]]
@@ -61,8 +74,16 @@ def cmd_index(args) -> int:
     idx = build_index(data, dtype=args.dtype, chunk_ids=ids)
     idx.model = manifest.get("model", "")
     idx.save(args.out)
+    ivf_meta = {}
+    if args.ivf_clusters:
+        from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+
+        ivf = IVFIndex.build(idx, args.ivf_clusters, block_rows=args.ivf_block_rows,
+                             iters=args.ivf_iters, device=dev)
+        ivf.save(args.out)
+        ivf_meta = {"ivf_clusters": ivf.n_clusters, "ivf_block_rows": ivf.block_rows}
     print(json.dumps({"rows": idx.num_rows, "dim": idx.dim, "dtype": idx.dtype,
-                      "categories": idx.categories}))
+                      "categories": idx.categories, **ivf_meta}))
     return 0
 
 
@@ -78,14 +99,21 @@ def _add_search(sub) -> None:
     _add_common(p)
     p.add_argument("--query", action="append", required=True)
     p.add_argument("--k", type=int, default=10)
+    p.add_argument("--categories", default=None, help="comma-separated category filter")
+    p.add_argument("--nprobe", type=int, default=None,
+                   help="probe this many IVF clusters (approximate search; needs an "
+                        "index built with --ivf-clusters)")
 
 
 def build_engine(args):
-    """Index + query embedder + engine, as the reference's ``_build_engine``
-    does for the dense route."""
+    """Index (+ its IVF delta when probing) + query embedder + engine, as
+    the reference's ``_build_engine`` does for the single-device routes."""
+    import dataclasses
+
     from arxiv_rag_tpu_torch.config import load_config
     from arxiv_rag_tpu_torch.device import default_device
     from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
     from arxiv_rag_tpu_torch.index.store import DenseIndex
     from arxiv_rag_tpu_torch.models.convert import load_model
     from arxiv_rag_tpu_torch.models.mpnet import random_model
@@ -93,7 +121,13 @@ def build_engine(args):
 
     dev = default_device(args.device)
     rcfg = load_config().retrieval
+    if args.nprobe is not None:
+        rcfg = dataclasses.replace(rcfg, nprobe=args.nprobe)
     idx = DenseIndex.load(args.index).to_device(dev)
+    # the delta's layout is a second copy of the values on the device:
+    # placed only when the engine will probe it
+    ivf = (IVFIndex.load(args.index, idx, device=dev)
+           if rcfg.nprobe and IVFIndex.exists(args.index) else None)
     if args.checkpoint:
         model, _ = load_model(args.checkpoint, device=dev)
         vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
@@ -103,12 +137,13 @@ def build_engine(args):
     tokenizer = _tokenizer_or_toy(vocab_path)
     # serving windows are small and varied: small padded heights beside the bulk one
     embedder = Embedder(model, tokenizer, batch_sizes=(64, 512))
-    return SearchEngine(idx, embedder=embedder, cfg=rcfg, device=dev)
+    return SearchEngine(idx, embedder=embedder, cfg=rcfg, ivf=ivf, device=dev)
 
 
 def cmd_search(args) -> int:
     engine = build_engine(args)
-    results = engine.search(args.query, k=args.k)
+    cats = args.categories.split(",") if args.categories else None
+    results = engine.search(args.query, k=args.k, categories=cats)
     for qi, hits in enumerate(results):
         print(f"query[{qi}]: {args.query[qi]}")
         for h in hits:
@@ -121,6 +156,8 @@ def _add_serve(sub) -> None:
     _add_common(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--nprobe", type=int, default=None,
+                   help="serve with IVF probing (approximate retrieval)")
     p.add_argument("--batch-window-ms", type=float, default=4.0,
                    help="micro-batch coalescing window (0 = serialize directly)")
     p.add_argument("--max-batch", type=int, default=512,

@@ -6,6 +6,10 @@ so an index saved by either package loads in the other bit for bit:
 its raw 16-bit pattern, ``uint16``), ``scales.npy`` for int8,
 ``row_masks.npy`` and ``chunk_ids.json`` when present.
 
+Category filters: ``category_mask`` turns category names into the uint32
+query bits, and ``to_device`` places the row masks beside the values as
+int32 (a bit view, so category 31 sets the sign bit), zero-padded.
+
 ``build_index`` takes a numpy array (normalized on the host exactly as
 the reference does) or a tensor on any device (normalized there, so a
 multi-million-row index is built on the card). ``to_device`` pads rows
@@ -117,6 +121,7 @@ class DenseIndex:
     # device-side state, set by to_device()
     _device_values: torch.Tensor | None = None
     _device_scales: torch.Tensor | None = None
+    _device_masks: torch.Tensor | None = None  # [N_pad] int32 view of row_masks
     _n_valid: int = 0
 
     @property
@@ -126,6 +131,18 @@ class DenseIndex:
     @property
     def dim(self) -> int:
         return self.values.shape[1]
+
+    def category_mask(self, wanted: Sequence[str] | None) -> np.uint32:
+        """uint32 query mask selecting the given categories (None = all;
+        an empty list selects none)."""
+        if wanted is None:
+            return np.uint32(0xFFFFFFFF)
+        bits = np.uint32(0)
+        for c in wanted:
+            if c not in self.categories:
+                raise KeyError(f"unknown category {c!r}; index has {self.categories}")
+            bits |= np.uint32(1 << self.categories.index(c))
+        return bits
 
     # -- persistence -----------------------------------------------------
 
@@ -212,5 +229,11 @@ class DenseIndex:
                 s = torch.cat([s, s.new_zeros(pad)])
             self._device_scales = s.contiguous()
             self.scales = self._device_scales[:n]
+        if self.row_masks is not None:
+            bits = np.ascontiguousarray(self.row_masks, np.uint32).view(np.int32)
+            m = torch.from_numpy(bits).to(dev)
+            if pad:
+                m = torch.cat([m, m.new_zeros(pad)])
+            self._device_masks = m.contiguous()
         self._n_valid = n
         return self

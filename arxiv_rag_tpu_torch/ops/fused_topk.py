@@ -1,23 +1,34 @@
-"""Fused flat-scan top-k: the CUDA kernels K1 and K2 and their plain versions.
+"""Fused flat-scan top-k: the CUDA kernels K1–K4 and their plain versions.
 
-The port of ``arxiv_rag_tpu/ops/pallas_topk.py`` (``fused_topk`` :810 and
-``fused_topk_int8`` :928 with its default s8s8 variant). The kernels are
-in ``csrc/fused_topk.cu``; their design and bound are noted there.
+The port of ``arxiv_rag_tpu/ops/pallas_topk.py``: ``fused_topk`` :810
+(K1), ``fused_topk_int8`` :928 with its s8s8 default (K2) and its "row"
+variant (K3), and the masked forms ``fused_topk_masked`` :864 and
+``fused_topk_int8_masked`` :1011 (K4). The kernels are in
+``csrc/fused_topk.cu``; their design and bound are noted there. The
+block-table scans of the IVF route (K5, K6) launch the same kernel
+through ``scan_table`` (see ``ops/ivf.py``).
 
 Contract, shared with the TPU kernel: values [Q,k] fp32 and ids [Q,k]
 int32, k ≤ 128; scores ordered descending with the lowest row id first
 among equal scores; rows with id ≥ ``n_valid`` never appear; slots that
 no row fills hold (-inf, -1).
 
-- ``fused_topk``: an f32 or bf16 index; queries cast to the index dtype;
-  fp32 accumulation (full fp32 for an f32 index).
-- ``fused_topk_int8`` (s8s8): queries quantized per row to int8 (scale
+- ``fused_topk``: an f32 or bf16 index; queries rounded to the index
+  dtype; fp32 accumulation (full fp32 for an f32 index).
+- ``fused_topk_int8`` s8s8: queries quantized per row to int8 (scale
   max(max|q|, 1e-8)·float32(1/127), round half to even, clip ±127, as
   ``pallas_topk.py:904-908`` compiles); exact s32 products; ranked by
   ``float(acc) * row_scale``; the k survivors times the query scale.
+- ``fused_topk_int8`` "row": queries rounded to bf16, the exact int8 ×
+  bf16 products summed in fp32, times the row scale.
+- masked forms: a row counts for a query only where
+  ``row_mask & query_mask != 0`` (int32 views of the uint32 category
+  bits); row validity is folded in (rows ≥ n_valid never count).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
-the plain version for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+the plain version for a CPU tensor. ``LAUNCHES`` counts kernel launches,
+by kernel: a block-table scan of an int8 index counts as a K3 launch too,
+since it scores with the row variant.
 """
 
 from __future__ import annotations
@@ -30,12 +41,13 @@ import torch
 from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 K_MAX = 128
-_QT = 16  # queries per scan block (csrc/fused_topk.cu kQT)
+_QT = 16  # queries per flat scan block (csrc/fused_topk.cu, template QT)
 _TILE_ROWS = 512  # rows per scan tile (kTileRows)
-_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
 _PLAIN_SCORE_ELEMS = 1 << 26  # plain versions score this many [q, row] pairs at a time
 
-LAUNCHES = {"fused_topk": 0, "fused_topk_int8": 0}
+LAUNCHES = {"fused_topk": 0, "fused_topk_int8": 0, "fused_topk_int8_row": 0,
+            "fused_topk_masked": 0, "ivf_topk": 0, "ivf_topk_device": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB: list[ctypes.CDLL] = []
 
@@ -46,9 +58,10 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def count(*names: str) -> None:
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _check_k(k: int) -> None:
@@ -66,6 +79,11 @@ def _n_valid(n_rows: int, n_valid: int | None) -> int:
     return n
 
 
+def _check_variant(variant: str) -> None:
+    if variant not in ("s8s8", "row"):
+        raise ValueError(f"int8 variant must be 's8s8' or 'row', not {variant!r}")
+
+
 def quantize_queries(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """s8s8 query quantization: (int8 [Q,D], fp32 scales [Q]). The scale is
     max(max|q|, 1e-8) times float32(1/127): inside its jit the reference's
@@ -78,61 +96,111 @@ def quantize_queries(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     return q8, qs[:, 0]
 
 
+def round_queries(queries: torch.Tensor, index_dtype: torch.dtype) -> torch.Tensor:
+    """fp32 queries as a scan of an ``index_dtype`` index sees them: f32 as
+    they are, rounded to bf16 for a bf16 or int8 ("row") index."""
+    q = queries.to(torch.float32)
+    if index_dtype == torch.float32:
+        return q
+    return q.to(torch.bfloat16).to(torch.float32)
+
+
 # -- plain versions ------------------------------------------------------------
 
 
-def _kernel_order(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def kernel_order(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k in the kernels' order; -inf entries are empty slots (-inf, -1)."""
     vals, ids = topk_padded(scores, k)
     ids = torch.where(vals == NEG_INF, torch.full_like(ids, -1), ids)
     return vals, ids.to(torch.int32)
 
 
-def _query_chunks(nq: int, n_rows: int) -> tuple[range, int]:
-    step = max(1, _PLAIN_SCORE_ELEMS // max(1, n_rows))
-    return range(0, nq, step), step
+def _eligible(row_masks: torch.Tensor, query_mask: torch.Tensor) -> torch.Tensor:
+    """[q, n] bool: ``row_mask & query_mask != 0`` on the int32 bits."""
+    return (row_masks.to(torch.int32)[None, :] & query_mask.to(torch.int32)[:, None]) != 0
 
 
-def fused_topk_plain(index, queries, k, *, n_valid=None):
-    """K1's function in plain PyTorch: fp32 scores (queries cast to the
-    index dtype first), rows ≥ n_valid at -inf, stable top-k."""
-    _check_k(k)
-    n = _n_valid(index.shape[0], n_valid)
-    x = index.to(torch.float32)
-    q = queries.to(index.dtype).to(torch.float32)
-    starts, step = _query_chunks(q.shape[0], x.shape[0])
+def score_plain(x: torch.Tensor, q: torch.Tensor, k: int, *, scales=None,
+                row_masks=None, query_mask=None, qscale=None):
+    """The scans' function in plain PyTorch over every row of ``x``: fp32
+    scores ``q·xᵀ`` of fp32 operands (× the row scale, one rounded
+    product), filtered rows at -inf, top-k in the kernels' order, then the
+    survivors × ``qscale``. Scores a bounded number of pairs at a time."""
+    step = max(1, _PLAIN_SCORE_ELEMS // max(1, x.shape[0]))
     vals, ids = [], []
-    for s in starts:
+    for s in range(0, q.shape[0], step):
         scores = q[s : s + step] @ x.T
-        scores[:, n:] = NEG_INF
-        v, i = _kernel_order(scores, k)
+        if scales is not None:
+            scores = scores * scales[None, :]
+        if row_masks is not None:
+            keep = _eligible(row_masks, query_mask[s : s + step])
+            scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
+        v, i = kernel_order(scores, k)
+        if qscale is not None:
+            v = v * qscale[s : s + step, None]
         vals.append(v)
         ids.append(i)
     if not vals:
-        return _empty(k, index.device)
+        return _empty(k, x.device)
     return torch.cat(vals), torch.cat(ids)
 
 
-def fused_topk_int8_plain(values, scales, queries, k, *, n_valid=None):
-    """K2's function in plain PyTorch: the int8 products summed in fp32
-    (exact: |s8·s8| ≤ 16129 and 768 of them stay below 2^24), times the
-    row scale, ranked, then the survivors times the query scale."""
+def _flat_plain(values, queries, k, n_valid, *, kind, scales=None, row_masks=None,
+                query_mask=None):
+    """Any flat scan kind in plain PyTorch over rows [0, n_valid)."""
     _check_k(k)
     n = _n_valid(values.shape[0], n_valid)
-    q8, qs = quantize_queries(queries)
-    x = values.to(torch.float32)
-    row_scales = scales.to(torch.float32)
-    starts, step = _query_chunks(q8.shape[0], x.shape[0])
-    vals, ids = [], []
-    for s in starts:
-        scores = (q8[s : s + step].to(torch.float32) @ x.T) * row_scales[None, :]
-        scores[:, n:] = NEG_INF
-        v, i = _kernel_order(scores, k)
-        vals.append(v * qs[s : s + step, None])
-        ids.append(i)
-    if not vals:
-        return _empty(k, values.device)
-    return torch.cat(vals), torch.cat(ids)
+    x = values[:n].to(torch.float32)
+    qscale = None
+    if kind == "s8s8":
+        q8, qscale = quantize_queries(queries)
+        q = q8.to(torch.float32)
+    else:
+        q = round_queries(queries, torch.float32 if kind == "f32" else torch.bfloat16)
+    return score_plain(
+        x, q, k,
+        scales=None if scales is None else scales[:n].to(torch.float32),
+        row_masks=None if row_masks is None else row_masks[:n],
+        query_mask=query_mask, qscale=qscale,
+    )
+
+
+def _float_kind(dtype: torch.dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.bfloat16:
+        return "bf16"
+    raise ValueError(f"this scan takes an f32 or bf16 index, not {dtype}")
+
+
+def fused_topk_plain(index, queries, k, *, n_valid=None):
+    """K1's function in plain PyTorch: fp32 scores (queries rounded to the
+    index dtype first), rows ≥ n_valid at -inf, stable top-k."""
+    return _flat_plain(index, queries, k, n_valid, kind=_float_kind(index.dtype))
+
+
+def fused_topk_int8_plain(values, scales, queries, k, *, n_valid=None, variant="s8s8"):
+    """K2's (s8s8) or K3's ("row") function in plain PyTorch. s8s8: the
+    int8 products summed in fp32 (exact: |s8·s8| ≤ 16129 and 768 of them
+    stay below 2^24), times the row scale, ranked, then the survivors
+    times the query scale. row: bf16 queries, fp32 sums, × row scale."""
+    _check_variant(variant)
+    return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales)
+
+
+def fused_topk_masked_plain(index, row_masks, query_mask, queries, k, *, n_valid=None):
+    """K4 (f32/bf16) in plain PyTorch: K1's scores, ineligible rows -inf."""
+    return _flat_plain(index, queries, k, n_valid, kind=_float_kind(index.dtype),
+                       row_masks=row_masks, query_mask=query_mask)
+
+
+def fused_topk_int8_masked_plain(values, scales, row_masks, query_mask, queries, k, *,
+                                 n_valid=None, variant="s8s8"):
+    """K4 (int8) in plain PyTorch: K2's or K3's scores, ineligible rows
+    -inf (the s8s8 query scale keeps them -inf)."""
+    _check_variant(variant)
+    return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales,
+                       row_masks=row_masks, query_mask=query_mask)
 
 
 def _empty(k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -149,11 +217,12 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("fused_topk")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.arag_topk_scan.argtypes = [i32, p, p, p, i64, i64, i32, i32, i32, i64, i32, p, p, p]
+        lib.arag_topk_scan.argtypes = [i32, i32, p, p, p, p, p, i64, i32, i32, i32, i64,
+                                       p, i32, i32, i32, p, p, p]
         lib.arag_topk_scan.restype = i32
         lib.arag_topk_merge.argtypes = [p, p, i32, i32, i32, p, p, p, p]
         lib.arag_topk_merge.restype = i32
-        lib.arag_topk_scan_smem.argtypes = [i32, i32]
+        lib.arag_topk_scan_smem.argtypes = [i32, i32, i32]
         lib.arag_topk_scan_smem.restype = ctypes.c_size_t
         lib.arag_error_string.argtypes = [i32]
         lib.arag_error_string.restype = ctypes.c_char_p
@@ -177,6 +246,12 @@ def plan_chunks(n_rows: int, nq: int, sm_count: int) -> tuple[int, int]:
     return per_chunk * _TILE_ROWS, -(-tiles // per_chunk)
 
 
+def plan_splits(width: int, q_tiles: int, sm_count: int) -> int:
+    """Splits of a block table's rows: about four scan blocks per SM, at
+    most one per table entry."""
+    return max(1, min(width, -(-4 * sm_count // max(1, q_tiles))))
+
+
 def _check_cuda(x: torch.Tensor, q: torch.Tensor) -> None:
     if x.dim() != 2 or q.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"index {tuple(x.shape)} and queries {tuple(q.shape)} "
@@ -191,35 +266,67 @@ def _check_cuda(x: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError("the CUDA scan takes fewer than 2^31 rows")
 
 
-def _launch(kind_dtype, x, scales, q, qscale, k, n_valid):
+def _check_side(t: torch.Tensor | None, name: str, x: torch.Tensor, dtype) -> None:
+    if t is not None and (t.dtype != dtype or t.shape != (x.shape[0],)
+                          or t.device != x.device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous {dtype} [N] on the index's device")
+
+
+def _check_qmask(query_mask: torch.Tensor, q: torch.Tensor) -> None:
+    if (query_mask.dtype != torch.int32 or query_mask.shape != (q.shape[0],)
+            or query_mask.device != q.device):
+        raise ValueError("query_mask must be int32 [Q] on the queries' device")
+
+
+def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
+            table=None, block_rows=0):
+    """Scan then merge. ``table`` (int32 [tiles, width] block ids) selects
+    the block-table scan; otherwise rows [0, n_valid) are scanned flat."""
+    _check_cuda(x, q)
+    _check_side(scales, "scales", x, torch.float32)
+    _check_side(row_masks, "row_masks", x, torch.int32)
+    if row_masks is not None:
+        _check_qmask(qmask, q)
     lib = _lib()
     dev = x.device
     d = x.shape[1]
-    n_rows = n_valid  # rows past n_valid (padding) are never read
     nq = q.shape[0]
     props = torch.cuda.get_device_properties(dev)
-    kind = _KIND[kind_dtype]
-    smem = lib.arag_topk_scan_smem(kind, d)
+    smem = lib.arag_topk_scan_smem(_KIND[kind], qt, d)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
     if smem > limit:
         raise ValueError(f"D={d} needs {smem} bytes of shared memory per block; "
                          f"the card allows {limit}")
-    chunk_rows, n_chunks = plan_chunks(n_rows, nq, props.multi_processor_count)
-    cand_v = torch.empty((n_chunks, nq, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_chunks, nq, k), dtype=torch.int32, device=dev)
+    q_tiles = -(-nq // qt)
+    if table is None:
+        chunk_rows, n_splits = plan_chunks(n_valid, nq, props.multi_processor_count)
+        width = 0
+    else:
+        if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != q_tiles
+                or table.device != dev or not table.is_contiguous()):
+            raise ValueError(f"block table must be contiguous int32 [{q_tiles}, width] "
+                             f"on {dev}, got {table.dtype} {tuple(table.shape)}")
+        chunk_rows, width = 0, table.shape[1]
+        n_splits = plan_splits(width, q_tiles, props.multi_processor_count)
+    cand_v = torch.empty((n_splits, nq, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n_splits, nq, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arag_topk_scan(
-            kind, x.data_ptr(), None if scales is None else scales.data_ptr(),
-            q.data_ptr(), n_rows, n_valid, d, nq, k, chunk_rows, n_chunks,
+            _KIND[kind], qt, x.data_ptr(), ptr(scales), ptr(row_masks),
+            ptr(qmask if row_masks is not None else None), q.data_ptr(), n_valid, d, nq, k,
+            chunk_rows, ptr(table), width, block_rows, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
         _raise_on(lib, err, "fused top-k scan")
         err = lib.arag_topk_merge(
-            cand_v.data_ptr(), cand_i.data_ptr(), n_chunks, nq, k,
-            None if qscale is None else qscale.data_ptr(),
+            cand_v.data_ptr(), cand_i.data_ptr(), n_splits, nq, k, ptr(qscale),
             out_v.data_ptr(), out_i.data_ptr(), stream,
         )
         _raise_on(lib, err, "fused top-k merge")
@@ -232,6 +339,19 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n):
+    """Launch a flat scan; queries go in as fp32 (int8 for s8s8)."""
+    if kind == "s8s8":
+        q8, qs = quantize_queries(queries)
+        q, qscale = q8.contiguous(), qs.contiguous()
+    else:
+        q, qscale = queries.to(torch.float32).contiguous(), None
+    if q.shape[0] == 0:
+        _check_cuda(values, q)
+        return _empty(k, values.device)
+    return _launch(kind, _QT, values, scales, row_masks, query_mask, q, qscale, k, n)
+
+
 def fused_topk(index: torch.Tensor, queries: torch.Tensor, k: int, *,
                n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: fused scan of an f32/bf16 index [N, D] (rows L2-normalized)
@@ -240,35 +360,81 @@ def fused_topk(index: torch.Tensor, queries: torch.Tensor, k: int, *,
     n = _n_valid(index.shape[0], n_valid)
     if _route(index) == "cpu":
         return fused_topk_plain(index, queries, k, n_valid=n)
-    if index.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_topk takes an f32 or bf16 index, not {index.dtype}")
-    q = queries.to(index.dtype).contiguous()
-    _check_cuda(index, q)
-    if q.shape[0] == 0:
-        return _empty(k, index.device)
-    out = _launch(index.dtype, index, None, q, None, k, n)
-    _count("fused_topk")
+    out = _flat_cuda(_float_kind(index.dtype), index, None, None, None, queries, k, n)
+    count("fused_topk")
     return out
 
 
-def fused_topk_int8(values: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
-                    k: int, *, n_valid: int | None = None):
-    """K2 (s8s8): fused scan of an int8 index [N, D] with per-row scales
-    [N]. Returns (values [Q,k] fp32, ids [Q,k] int32)."""
-    _check_k(k)
-    n = _n_valid(values.shape[0], n_valid)
-    if _route(values) == "cpu":
-        return fused_topk_int8_plain(values, scales, queries, k, n_valid=n)
+def _check_int8(values: torch.Tensor, scales: torch.Tensor) -> None:
     if values.dtype != torch.int8:
-        raise ValueError(f"fused_topk_int8 takes an int8 index, not {values.dtype}")
+        raise ValueError(f"the int8 scans take an int8 index, not {values.dtype}")
     if (scales.dtype != torch.float32 or scales.shape != (values.shape[0],)
             or scales.device != values.device):
         raise ValueError("scales must be fp32 [N] on the index's device")
-    q8, qs = quantize_queries(queries)
-    _check_cuda(values, q8)
-    if q8.shape[0] == 0:
-        return _empty(k, values.device)
-    out = _launch(torch.int8, values, scales.contiguous(), q8.contiguous(),
-                  qs.contiguous(), k, n)
-    _count("fused_topk_int8")
+
+
+def fused_topk_int8(values: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+                    k: int, *, n_valid: int | None = None, variant: str = "s8s8"):
+    """K2 (``variant="s8s8"``, the default) or K3 (``"row"``): fused scan
+    of an int8 index [N, D] with per-row scales [N]. Returns (values
+    [Q,k] fp32, ids [Q,k] int32)."""
+    _check_k(k)
+    _check_variant(variant)
+    n = _n_valid(values.shape[0], n_valid)
+    if _route(values) == "cpu":
+        return fused_topk_int8_plain(values, scales, queries, k, n_valid=n, variant=variant)
+    _check_int8(values, scales)
+    out = _flat_cuda(variant, values, scales.contiguous(), None, None, queries, k, n)
+    count("fused_topk_int8" if variant == "s8s8" else "fused_topk_int8_row")
     return out
+
+
+def fused_topk_masked(index: torch.Tensor, row_masks: torch.Tensor, query_mask: torch.Tensor,
+                      queries: torch.Tensor, k: int, *, n_valid: int | None = None):
+    """K4 (f32/bf16): K1 where a row counts for a query only when
+    ``row_masks[row] & query_mask[query] != 0`` (int32 [N] and [Q])."""
+    _check_k(k)
+    n = _n_valid(index.shape[0], n_valid)
+    if _route(index) == "cpu":
+        return fused_topk_masked_plain(index, row_masks, query_mask, queries, k, n_valid=n)
+    out = _flat_cuda(_float_kind(index.dtype), index, None, row_masks, query_mask,
+                     queries, k, n)
+    count("fused_topk_masked")
+    return out
+
+
+def fused_topk_int8_masked(values: torch.Tensor, scales: torch.Tensor, row_masks: torch.Tensor,
+                           query_mask: torch.Tensor, queries: torch.Tensor, k: int, *,
+                           n_valid: int | None = None, variant: str = "s8s8"):
+    """K4 (int8): K2 (s8s8, the reference's default) or K3 ("row") under
+    the category filter of :func:`fused_topk_masked`. The masked s8s8
+    score is ``float(acc) * row_scale`` with no bias (pallas_topk.py:
+    167-168)."""
+    _check_k(k)
+    _check_variant(variant)
+    n = _n_valid(values.shape[0], n_valid)
+    if _route(values) == "cpu":
+        return fused_topk_int8_masked_plain(values, scales, row_masks, query_mask, queries,
+                                            k, n_valid=n, variant=variant)
+    _check_int8(values, scales)
+    out = _flat_cuda(variant, values, scales.contiguous(), row_masks, query_mask,
+                     queries, k, n)
+    count("fused_topk_masked", *(("fused_topk_int8_row",) if variant == "row" else ()))
+    return out
+
+
+def scan_table(values: torch.Tensor, table: torch.Tensor, queries: torch.Tensor, k: int, *,
+               n_valid: int, block_rows: int, q_block: int, scales=None, row_masks=None,
+               query_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the block-table scan (the kernel of K5 and K6) on CUDA
+    tensors: tile t of ``q_block`` queries scans the blocks listed in
+    ``table[t]``. Queries are fp32; the kernel rounds them to bf16 for a
+    bf16 or int8 index. An int8 index scores with the row variant."""
+    if q_block not in (8, _QT):
+        raise ValueError(f"the CUDA block-table scan takes q_block 8 or {_QT}, not {q_block}")
+    kind = "row" if values.dtype == torch.int8 else _float_kind(values.dtype)
+    if kind == "row":
+        _check_int8(values, scales)
+    q = queries.to(torch.float32).contiguous()
+    return _launch(kind, q_block, values, scales, row_masks, query_mask, q, None, k,
+                   n_valid, table=table, block_rows=block_rows)

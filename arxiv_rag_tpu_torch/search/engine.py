@@ -1,17 +1,24 @@
-"""Query-time search engine, dense route.
+"""Query-time search engine: the dense, category-filtered and IVF routes.
 
-The port of the dense route of ``arxiv_rag_tpu/search/engine.py``:
-encode → fused flat top-k → hydrate. Routing follows the reference:
+The port of ``arxiv_rag_tpu/search/engine.py``'s single-device routes:
+encode → scan → hydrate. Routing follows the reference:
 
 - the query batch pads to the buckets 8/32/64/128, then multiples of
   128, by repeating the last row (``:311-328``, ``:433-441``);
-- k ≤ 128 goes to the fused kernels (``ops/fused_topk.py``: K1 for an
-  f32/bf16 index, K2 s8s8 for an int8 index); k > 128 goes to the plain
-  scans (``:338-341``, ``:392``);
+- with an IVF index attached and ``nprobe > 0`` (argument, else
+  ``cfg.nprobe``) and k ≤ 128, the cluster-pruned scan (``:337-387``):
+  ``cfg.ivf_plan = "device"`` (the default) is one dispatch with no host
+  sync (K6) whose ``finish`` maps local ids through ``perm``; "host"
+  probes, plans the block tables on the host and scans (K5);
+- k ≤ 128 goes to the fused kernels (``ops/fused_topk.py``): K1 for an
+  f32/bf16 index, K2 s8s8 for an int8 index, and with ``categories`` the
+  masked forms K4 (``_single_chip`` :472-525); k > 128 goes to the plain
+  scans, masked the same way;
+- ``categories=[]`` matches no row and returns empty lists;
 - results hydrate to ``SearchResult`` rows and scores (no corpus).
 
-Hybrid BM25, rerank, IVF, category filters, corpus hydration and live
-reload belong to later slices of the port: asking for any of them raises
+Hybrid BM25, rerank, corpus hydration and live reload belong to later
+slices of the port: asking for any of them raises
 ``NotImplementedError`` rather than answering without it.
 """
 
@@ -26,7 +33,13 @@ import torch
 from arxiv_rag_tpu_torch.config import RetrievalConfig
 from arxiv_rag_tpu_torch.index.store import DenseIndex
 from arxiv_rag_tpu_torch.logging_utils import METRICS
-from arxiv_rag_tpu_torch.ops.fused_topk import K_MAX, fused_topk, fused_topk_int8
+from arxiv_rag_tpu_torch.ops.fused_topk import (
+    K_MAX,
+    fused_topk,
+    fused_topk_int8,
+    fused_topk_int8_masked,
+    fused_topk_masked,
+)
 from arxiv_rag_tpu_torch.ops.quant import int8_search
 from arxiv_rag_tpu_torch.ops.topk import masked_flat_search
 
@@ -53,7 +66,8 @@ class SearchResult:
 
 class SearchEngine:
     """Dense retrieval over a device-resident index. The index is placed
-    on ``device`` (the card by default) unless it already is."""
+    on ``device`` (the card by default) unless it already is; an IVF
+    index (``index/ivf.py``) is placed beside it."""
 
     def __init__(
         self,
@@ -72,13 +86,14 @@ class SearchEngine:
             raise _later("hybrid BM25 retrieval", "hybrid BM25 + cross-encoder")
         if reranker is not None:
             raise _later("cross-encoder rerank", "hybrid BM25 + cross-encoder")
-        if ivf is not None:
-            raise _later("IVF retrieval", "IVF (K5, K6)")
         self.index = index
         self.embedder = embedder
         self.cfg = cfg
         if index._device_values is None:
             index.to_device(device)
+        self.ivf = ivf
+        if ivf is not None and ivf._device_cb is None:
+            ivf.to_device(index._device_values.device)
 
     def prepare_reload(self, index_dir, **kwargs):
         raise _later("live index reload", "prepare_reload/append_index/corpus hydration")
@@ -95,12 +110,6 @@ class SearchEngine:
         """(scores [Q,k], index rows [Q,k]) for pre-embedded queries."""
         return self.search_embeddings_dispatch(query_embs, k, categories, nprobe=nprobe)()
 
-    def _check_route(self, categories, nprobe) -> None:
-        if categories is not None:
-            raise _later("category filters", "category masks (K4)")
-        if (self.cfg.nprobe if nprobe is None else nprobe) > 0:
-            raise _later("IVF probing (nprobe > 0)", "IVF (K5, K6)")
-
     def search_embeddings_dispatch(
         self,
         query_embs,
@@ -109,10 +118,9 @@ class SearchEngine:
         n_real: int | None = None,
         nprobe: int | None = None,
     ):
-        """Launch the dense scan and return ``finish() -> (scores, rows)``,
-        which copies the results to the host. ``query_embs`` is numpy or a
+        """Launch the scan and return ``finish() -> (scores, rows)``, which
+        copies the results to the host. ``query_embs`` is numpy or a
         tensor, possibly padded already (``n_real`` real rows)."""
-        self._check_route(categories, nprobe)
         k = k or self.cfg.top_k
         idx = self.index
         dev = idx._device_values.device
@@ -124,20 +132,42 @@ class SearchEngine:
         else:
             q = query_embs.to(dev, torch.float32)
         if qn_pad != qn_in:
-            # pad rows repeat the last query (zeros for an empty batch);
+            # pad rows repeat the last query (zeros for an empty batch), so
+            # on the IVF route pad tiles share the last query's probes;
             # results trim to the real count at finish
             fill = (q[-1:].expand(qn_pad - qn_in, -1) if qn_in
                     else q.new_zeros((qn_pad, q.shape[1])))
             q = torch.cat([q, fill])
-        n_valid = idx._n_valid
+        qmask = None if categories is None else self._qmask(categories, qn_pad, dev)
+        np_probe = self.cfg.nprobe if nprobe is None else nprobe
+        # k > 128 exceeds the fused kernels' candidate lists (IVF's too):
+        # it falls through to the flat route's plain scan
+        if self.ivf is not None and np_probe > 0 and k <= K_MAX:
+            with METRICS.timer("search.ivf"):
+                if self.cfg.ivf_plan == "device":
+                    fin = self.ivf.search_dispatch(q, k, nprobe=np_probe,
+                                                   q_block=self.cfg.ivf_q_block,
+                                                   query_mask=qmask)
+
+                    def finish_ivf_dev() -> tuple[np.ndarray, np.ndarray]:
+                        with METRICS.timer("search.fetch"):
+                            v, r = fin()
+                        return v[:qn_real], r[:qn_real]
+
+                    return finish_ivf_dev
+                ivals, irows = self.ivf.search(q, k, nprobe=np_probe,
+                                               q_block=self.cfg.ivf_q_block,
+                                               query_mask=qmask, plan=self.cfg.ivf_plan)
+
+            def finish_ivf() -> tuple[np.ndarray, np.ndarray]:
+                return ivals[:qn_real], irows[:qn_real]
+
+            return finish_ivf
         with METRICS.timer("search.dense"):
             if k <= K_MAX:
-                if idx.dtype == "int8":
-                    vals, rows = self._single_chip(q, k)
-                else:
-                    vals, rows = fused_topk(idx._device_values, q, k, n_valid=n_valid)
+                vals, rows = self._single_chip(q, k, qmask)
             else:
-                vals, rows = self._plain(q, k)
+                vals, rows = self._plain(q, k, qmask)
 
         def finish() -> tuple[np.ndarray, np.ndarray]:
             with METRICS.timer("search.fetch"):
@@ -152,22 +182,49 @@ class SearchEngine:
                 return b
         return ((qn + 127) // 128) * 128
 
-    def _single_chip(self, q, k):
-        """Unmasked int8 scan: the s8s8 kernel."""
-        idx = self.index
-        return fused_topk_int8(idx._device_values, idx._device_scales, q, k,
-                               n_valid=idx._n_valid)
+    def _qmask(self, categories: Sequence[str], qn: int, dev) -> torch.Tensor:
+        """[qn] int32 query mask: the uint32 category bits viewed as int32
+        (category 31 sets the sign bit), filled on the device."""
+        bits = np.uint32(self.index.category_mask(categories)).view(np.int32)
+        return torch.full((qn,), int(bits), dtype=torch.int32, device=dev)
 
-    def _plain(self, q, k):
-        """k > 128: the unfused scans, padding rows masked out."""
+    def _row_masks(self) -> torch.Tensor:
+        if self.index._device_masks is None:
+            raise ValueError("category filter requested but index was built without "
+                             "categories")
+        return self.index._device_masks
+
+    def _single_chip(self, q, k, qmask):
+        """k ≤ 128: the fused kernels; with a query mask, their masked
+        forms (the s8s8 one for an int8 index, as the reference)."""
+        idx = self.index
+        n_valid = idx._n_valid
+        if qmask is None:
+            if idx.dtype == "int8":
+                return fused_topk_int8(idx._device_values, idx._device_scales, q, k,
+                                       n_valid=n_valid)
+            return fused_topk(idx._device_values, q, k, n_valid=n_valid)
+        if idx.dtype == "int8":
+            return fused_topk_int8_masked(idx._device_values, idx._device_scales,
+                                          self._row_masks(), qmask, q, k, n_valid=n_valid)
+        return fused_topk_masked(idx._device_values, self._row_masks(), qmask, q, k,
+                                 n_valid=n_valid)
+
+    def _plain(self, q, k, qmask):
+        """k > 128: the unfused scans, padding rows (and filtered rows)
+        masked out."""
         idx = self.index
         n_pad = idx._device_values.shape[0]
-        valid = (torch.arange(n_pad, device=q.device) < idx._n_valid).to(torch.int64)
-        ones = torch.ones((q.shape[0],), dtype=torch.int64, device=q.device)
+        valid = torch.arange(n_pad, device=q.device) < idx._n_valid
+        if qmask is None:
+            row_masks = valid.to(torch.int32)
+            qmask = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+        else:
+            row_masks = torch.where(valid, self._row_masks(), 0)
         if idx.dtype == "int8":
             return int8_search(idx._device_values, idx._device_scales, q, k,
-                               row_masks=valid, query_mask=ones)
-        return masked_flat_search(idx._device_values, valid, ones, q, k)
+                               row_masks=row_masks, query_mask=qmask)
+        return masked_flat_search(idx._device_values, row_masks, qmask, q, k)
 
     # -- text queries -------------------------------------------------------
 
@@ -179,7 +236,7 @@ class SearchEngine:
         hybrid_alpha: float | None = None,
         nprobe: int | None = None,
     ) -> list[list[SearchResult]]:
-        """encode → dense scan → hydrate; ``search_dispatch`` finished at once."""
+        """encode → scan → hydrate; ``search_dispatch`` finished at once."""
         return self.search_dispatch(queries, k=k, categories=categories,
                                     hybrid_alpha=hybrid_alpha, nprobe=nprobe)()
 
@@ -196,7 +253,6 @@ class SearchEngine:
             raise RuntimeError("SearchEngine needs an embedder for text queries")
         if hybrid_alpha is not None and hybrid_alpha < 1.0:
             raise _later("hybrid BM25 retrieval", "hybrid BM25 + cross-encoder")
-        self._check_route(categories, nprobe)
         queries = list(queries)
         qn = len(queries)
         with METRICS.timer("search.encode"):
@@ -207,7 +263,8 @@ class SearchEngine:
                 query_embs, n_real = handoff
             else:
                 query_embs, n_real = self.embedder.encode_texts(queries), qn
-        fin = self.search_embeddings_dispatch(query_embs, k, n_real=n_real)
+        fin = self.search_embeddings_dispatch(query_embs, k, categories, n_real=n_real,
+                                              nprobe=nprobe)
 
         def finish() -> list[list[SearchResult]]:
             scores, rows = fin()

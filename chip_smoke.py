@@ -2,18 +2,26 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path (arxiv_rag_tpu_torch: MPNet encode → fused
-top-k scan → HTTP) at the full width of all-mpnet-base-v2 over a
-2,000,000-row index built on the card, and holds every CUDA kernel on
-that path against its plain PyTorch version at the shapes the path
-gives it. Phases, each of which exits non-zero at its first failure:
+Drives the port's main paths (arxiv_rag_tpu_torch: MPNet encode → fused
+top-k scan → HTTP; the same with category filters; IVF probe → plan →
+pruned scan) at the full width of all-mpnet-base-v2 over 2,000,000-row
+indexes built on the card, and holds every CUDA kernel on those paths
+against its plain PyTorch version at the shapes the paths give it.
+Phases, each of which exits non-zero at its first failure:
 
 1. environment: card name and power limit, versions, kernel build;
 2. kernels against their plain versions at full size, with times
-   (median of CUDA-event timings), bounds and a library yardstick;
+   (median of CUDA-event timings), bounds and a library yardstick:
+   K1/K2 flat scans, K4 masked scans, K3 int8 row scan; then an IVF
+   index (k-means on the card, 4096 clusters) over a clustered corpus:
+   K5 on host-planned tables, K6 on the device plan (no host sync)
+   against its plain version and against K5, full probe against the
+   flat scan of the same IVF-ordered values;
 3. the slice: text queries through Embedder → SearchEngine over the
-   bf16 and the int8 index, checked against the plain scan;
-4. serving: HTTP /search answers equal engine.search;
+   bf16 and int8 indexes, plain, with categories, and through the IVF
+   (device plan and host plan), checked against the plain scans;
+4. serving: HTTP /search answers (with and without categories, and a
+   server probing the IVF) equal engine.search;
 5. the kernels line, then the result line.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
@@ -39,9 +47,16 @@ N_RAGGED = 1_999_937
 N_F32 = 262_144
 DIM = 768
 TIMING_RUNS = 20
+PLAIN_RUNS = 5  # the plain versions and library calls of slice 2 (slow, steady)
 K1_TOL = 1e-4  # fp32 sums over 768 terms in another order than the plain matmul
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+CATS = [f"cs.{i}" for i in range(8)]  # row masks 1 << randint(0, 8), as bench.py:146-152
+FILTER = CATS[:3]  # query mask 0b111: 3 of 8 categories, ~37% of rows
+N_CLUSTERS = 4096  # IVF_r04.json / bench.py:715: 4096 clusters, 1024-row blocks
+IVF_BLOCK = 1024
+NPROBE = 8
+SPREAD = 0.025  # blob tightness, bench.py:758
 WORDS = ("neural network training graph database query quantum physics protein "
          "folding image vision language model attention kernel compiler retrieval "
          "embedding transformer sparse dense index cache latency").split()
@@ -74,16 +89,19 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_rows: int, nq: int, k: int, dtype: torch.dtype) -> tuple[float, str]:
-    """Least time for the scan: each input read once (index rows, queries,
-    row scales for int8), each output written once, against the products
-    2·Q·N·D at the peak rate of the operand type."""
+def bound_ms(n_rows: int, nq: int, k: int, dtype: torch.dtype, *, row_extra: int = 0,
+             op_dtype: torch.dtype | None = None):
+    """Least time for a flat scan: each input read once (index rows,
+    queries, row scales for int8, ``row_extra`` more bytes per row such as
+    a row mask), each output written once, against the products 2·Q·N·D
+    at the peak rate of ``op_dtype`` (the operand type; the index's by
+    default)."""
     item = torch.empty((), dtype=dtype).element_size()
-    nbytes = n_rows * DIM * item + nq * DIM * item + nq * k * 8
+    nbytes = n_rows * (DIM * item + row_extra) + nq * DIM * item + nq * k * 8
     if dtype == torch.int8:
         nbytes += n_rows * 4 + nq * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * nq * n_rows * DIM / PEAK_OPS[dtype] * 1e3
+    t_ops = 2.0 * nq * n_rows * DIM / PEAK_OPS[op_dtype or dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -104,40 +122,63 @@ def texts_in_bucket(tok, n: int, rng: np.random.Generator, lo: int = 70, hi: int
 
 
 def check_k1(fv, fi, pv, pi, what: str) -> float:
+    """Within K1_TOL and tie-tolerant recall 1.0; the empty slots (-inf,
+    -1) must sit in the same places on both sides."""
     from arxiv_rag_tpu_torch.ops.topk import recall_at_k
 
     fv, fi, pv, pi = (t.cpu().numpy() for t in (fv, fi, pv, pi))
+    finite = np.isfinite(pv)
     r = recall_at_k(fi, pi, pv, tie_tol=K1_TOL, candidate_scores=fv)
-    err = float(np.max(np.abs(fv - pv)))
+    err = float(np.max(np.abs(fv[finite] - pv[finite]))) if finite.any() else 0.0
+    same_empty = np.array_equal(np.isfinite(fv), finite) and np.array_equal(fi < 0, pi < 0)
     print(f"  {what}: recall@k {r} (tie_tol {K1_TOL}), max |err| {err:.3e} "
-          f"(atol {K1_TOL})", flush=True)
-    if r != 1.0 or not err <= K1_TOL:
+          f"(atol {K1_TOL}), empty slots agree: {same_empty}", flush=True)
+    if r != 1.0 or not err <= K1_TOL or not same_empty:
         fail(f"{what}: kernel disagrees with its plain version")
     return err
 
 
 def check_k2(fv, fi, pv, pi, what: str) -> None:
     same = torch.equal(fv, pv) and torch.equal(fi, pi)
-    print(f"  {what}: bitwise equal to the plain version: {same}", flush=True)
+    print(f"  {what}: bitwise equal: {same}", flush=True)
     if not same:
-        fail(f"{what}: kernel disagrees with its plain version")
+        fail(f"{what}: kernel disagrees with its reference")
 
 
-def int8_library(x8, s8, q, k):
-    """K2's library yardstick: the s8s8 products on the int8 tensor cores
-    (``torch._int_mm``, s8×s8→s32), times the row scales, ``torch.topk``,
-    the survivors times the query scale."""
+def eligible(row_masks, qmask):
+    return (row_masks[None, :] & qmask[:, None]) != 0
+
+
+def int8_library(x8, s8, q, k, row_masks=None, qmask=None):
+    """K2's (and masked K4's) library yardstick: the s8s8 products on the
+    int8 tensor cores (``torch._int_mm``, s8×s8→s32), times the row
+    scales, filtered with ``torch.where``, ``torch.topk``, the survivors
+    times the query scale."""
     from arxiv_rag_tpu_torch.ops.fused_topk import quantize_queries
 
     q8, qs = quantize_queries(q)
-    v, i = torch.topk(torch._int_mm(q8, x8.T).to(torch.float32) * s8[None, :], k)
+    s = torch._int_mm(q8, x8.T).to(torch.float32) * s8[None, :]
+    if row_masks is not None:
+        s = torch.where(eligible(row_masks, qmask), s, float("-inf"))
+    v, i = torch.topk(s, k)
     return v * qs[:, None], i
 
 
 def report(c: dict) -> None:
+    lib = "none" if c.get("library_ms") is None else f"{c['library_ms']:.3f} ms"
     print(f"  {c['dtype']} Q={c['q']} k={c['k']}: kernel {c['ms']:.3f} ms, plain "
-          f"{c['plain_ms']:.3f} ms, library {c['library_ms']:.3f} ms, "
+          f"{c['plain_ms']:.3f} ms, library {lib}, "
           f"bound {c['bound_ms']:.3f} ms ({c['bound_by']})", flush=True)
+
+
+def build_with_categories(emb, dtype, gen):
+    """A 2M-row index whose rows carry one of 8 categories, built through
+    ``build_index(categories=...)`` as a corpus would give them."""
+    from arxiv_rag_tpu_torch.index.store import build_index
+
+    codes = torch.randint(0, len(CATS), (emb.shape[0],), generator=gen, device="cuda")
+    cats = np.array(CATS)[codes.cpu().numpy()]
+    return build_index(emb, categories=cats, category_names=CATS, dtype=dtype).to_device()
 
 
 def phase_kernels(gen, results) -> dict:
@@ -147,16 +188,18 @@ def phase_kernels(gen, results) -> dict:
     print("== phase 2: kernels against their plain versions", flush=True)
     t0 = time.perf_counter()
     emb = torch.randn(N_ROWS, DIM, generator=gen, device="cuda")
-    bf16 = build_index(emb, dtype="bfloat16").to_device()
-    int8 = build_index(emb, dtype="int8").to_device()
+    bf16 = build_with_categories(emb, "bfloat16", gen)
+    int8 = build_with_categories(emb, "int8", gen)
     f32 = build_index(emb[:N_F32], dtype="float32").to_device()
     del emb
     torch.cuda.synchronize()
     print(f"  built indexes on the card in {time.perf_counter() - t0:.1f} s "
-          f"(bf16 {tuple(bf16._device_values.shape)}, int8, f32 {N_F32} rows)", flush=True)
+          f"(bf16 {tuple(bf16._device_values.shape)}, int8, both with 8 categories; "
+          f"f32 {N_F32} rows)", flush=True)
     xb, x8, s8, xf = (bf16._device_values, int8._device_values,
                       int8._device_scales, f32._device_values)
-    cases = {"K1": [], "K2": []}
+    mb, m8 = bf16._device_masks, int8._device_masks
+    cases = {key: [] for key in ("K1", "K2", "K3", "K4")}
     # Q=64 and Q=512 are the heights the main path's windows scan at
     for nq, k in ((32, 10), (64, 10), (512, 10), (32, 128)):
         q = unit_rows(nq, gen)
@@ -177,7 +220,7 @@ def phase_kernels(gen, results) -> dict:
             cases["K1"].append(case)
         fv, fi = ft.fused_topk_int8(x8, s8, q, k, n_valid=N_RAGGED)
         pv, pi = ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=N_RAGGED)
-        check_k2(fv, fi, pv, pi, f"K2 s8s8 N={N_RAGGED} Q={nq} k={k}")
+        check_k2(fv, fi, pv, pi, f"K2 s8s8 N={N_RAGGED} Q={nq} k={k} vs plain")
         case = {"dtype": "int8", "rows": N_RAGGED, "q": nq, "k": k, "max_abs_err": 0.0}
         if k == 10:
             case["ms"] = median_ms(lambda: ft.fused_topk_int8(x8, s8, q, k, n_valid=N_RAGGED))
@@ -187,11 +230,289 @@ def phase_kernels(gen, results) -> dict:
             case["bound_ms"], case["bound_by"] = bound_ms(N_RAGGED, nq, k, torch.int8)
             report(case)
         cases["K2"].append(case)
+    phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases)
     results["cases"] = cases
     return {"bf16": bf16, "int8": int8}
 
 
-def phase_slice(indexes, seed, results) -> tuple[dict, list[str]]:
+def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
+    """K4 (bf16 and s8s8 masked) and K3 (int8 row) on the 2M indexes."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+
+    n = N_RAGGED
+    for nq, k in ((32, 10), (64, 10), (512, 10), (32, 128), (64, 128), (512, 128)):
+        q = unit_rows(nq, gen)
+        qm = torch.full((nq,), 0b111, dtype=torch.int32, device="cuda")
+        qm[-1] = 0  # one query that matches no category
+        timed = k == 10
+        # K4, bf16
+        fv, fi = ft.fused_topk_masked(xb, mb, qm, q, k, n_valid=n)
+        pv, pi = ft.fused_topk_masked_plain(xb, mb, qm, q, k, n_valid=n)
+        err = check_k1(fv, fi, pv, pi, f"K4 bf16 masked Q={nq} k={k}")
+        if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
+            fail("K4 bf16: the mask-0 query returned rows")
+        case = {"dtype": "bf16", "rows": n, "q": nq, "k": k, "max_abs_err": err}
+        if timed:
+            qb = q.to(torch.bfloat16)
+            case["ms"] = median_ms(lambda: ft.fused_topk_masked(xb, mb, qm, q, k, n_valid=n))
+            case["plain_ms"] = median_ms(
+                lambda: ft.fused_topk_masked_plain(xb, mb, qm, q, k, n_valid=n), PLAIN_RUNS)
+            case["library_ms"] = median_ms(lambda: torch.topk(torch.where(
+                eligible(mb[:n], qm), torch.matmul(qb, xb[:n].T), float("-inf")), k),
+                PLAIN_RUNS)
+            case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.bfloat16,
+                                                          row_extra=4)
+            report(case)
+        cases["K4"].append(case)
+        # K4, s8s8 (the reference's int8 default)
+        fv, fi = ft.fused_topk_int8_masked(x8, s8, m8, qm, q, k, n_valid=n)
+        pv, pi = ft.fused_topk_int8_masked_plain(x8, s8, m8, qm, q, k, n_valid=n)
+        check_k2(fv, fi, pv, pi, f"K4 s8s8 masked Q={nq} k={k} vs plain")
+        if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
+            fail("K4 s8s8: the mask-0 query returned rows")
+        case = {"dtype": "int8 s8s8", "rows": n, "q": nq, "k": k, "max_abs_err": 0.0}
+        if timed:
+            case["ms"] = median_ms(
+                lambda: ft.fused_topk_int8_masked(x8, s8, m8, qm, q, k, n_valid=n))
+            case["plain_ms"] = median_ms(
+                lambda: ft.fused_topk_int8_masked_plain(x8, s8, m8, qm, q, k, n_valid=n),
+                PLAIN_RUNS)
+            # the padded index (torch._int_mm needs a row count that is a
+            # multiple of 8); padding rows carry mask 0 and drop out
+            case["library_ms"] = median_ms(
+                lambda: int8_library(x8, s8, q, k, m8, qm), PLAIN_RUNS)
+            case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.int8, row_extra=4)
+            report(case)
+        cases["K4"].append(case)
+        # K3: int8 storage, bf16 queries, fp32 sums, × row scale
+        fv, fi = ft.fused_topk_int8(x8, s8, q, k, n_valid=n, variant="row")
+        pv, pi = ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=n, variant="row")
+        err = check_k1(fv, fi, pv, pi, f"K3 int8 row Q={nq} k={k}")
+        case = {"dtype": "int8 row", "rows": n, "q": nq, "k": k, "max_abs_err": err}
+        if timed:
+            qb = q.to(torch.bfloat16)
+            case["ms"] = median_ms(
+                lambda: ft.fused_topk_int8(x8, s8, q, k, n_valid=n, variant="row"))
+            case["plain_ms"] = median_ms(
+                lambda: ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=n, variant="row"),
+                PLAIN_RUNS)
+            # the bf16 matmul against the upcast values (the upcast timed
+            # too: the call's input is the int8 index), × scales, top-k
+            case["library_ms"] = median_ms(lambda: torch.topk(torch.matmul(
+                qb, x8[:n].to(torch.bfloat16).T).to(torch.float32) * s8[None, :n], k),
+                PLAIN_RUNS)
+            case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.int8,
+                                                          op_dtype=torch.bfloat16)
+            report(case)
+        cases["K3"].append(case)
+
+
+def clustered_rows(centers, n, gen) -> torch.Tensor:
+    """n unit rows, each a blob member: a random center plus isotropic
+    noise of scale SPREAD, normalized (bench.py:758-775)."""
+    cid = torch.randint(0, centers.shape[0], (n,), generator=gen, device="cuda")
+    x = centers[cid]
+    noise = torch.randn(n, DIM, generator=gen, device="cuda")
+    x.add_(noise.mul_(SPREAD))
+    del noise
+    return x.div_(x.norm(dim=1, keepdim=True))
+
+
+def real_visits(table: torch.Tensor, dead: int) -> int:
+    return int((table != dead).sum())
+
+
+def phase_ivf(gen, results) -> dict:
+    """K5 and K6 on an IVF index built on the card over a clustered 2M
+    corpus, in bf16 and int8 (the row variant, K3's scoring)."""
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import build_index
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops import ivf as oivf
+    from arxiv_rag_tpu_torch.ops.topk import flat_search, recall_at_k
+
+    print("== phase 2 (IVF): K5 host-planned, K6 device-planned", flush=True)
+    centers = unit_rows(N_CLUSTERS, gen)
+    x = clustered_rows(centers, N_ROWS, gen)
+    dense = {"bf16": build_index(x, dtype="bfloat16").to_device(),
+             "int8": build_index(x, dtype="int8").to_device()}
+    del x
+    ivfs = {}
+    for name, d in dense.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivf = IVFIndex.build(d, N_CLUSTERS, block_rows=IVF_BLOCK)
+        ivf.to_device()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sizes = np.diff(ivf.offsets)
+        print(f"  {name}: IVFIndex.build on the card (k-means 262,144 rows x 10 iters, "
+              f"{N_CLUSTERS} clusters, assign {N_ROWS} rows, permute): {dt:.1f} s; "
+              f"cluster rows min/median/max {sizes.min()}/{int(np.median(sizes))}/"
+              f"{sizes.max()}, {ivf.n_blocks} blocks of {IVF_BLOCK}, cluster->block "
+              f"table width {ivf._device_cb.shape[1]}", flush=True)
+        results.setdefault("ivf_build_s", {})[name] = dt
+        ivfs[name] = ivf
+    cases = {"K5": [], "K6": []}
+    for nq in (8, 32, 64, 512):  # 64: the height a 32-query window scans at
+        qcid = torch.randint(0, N_CLUSTERS, (nq,), generator=gen, device="cuda")
+        q = centers[qcid] + SPREAD * torch.randn(nq, DIM, generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        for name, ivf in ivfs.items():
+            kw = {"scales": ivf.scales} if name == "int8" else {}
+            table = torch.from_numpy(ivf.plan_blocks(ivf.probe(q, NPROBE), 8)).cuda()
+            v5, l5 = ivf._search_table(q, table, 10, q_block=8)
+            pv, pl = oivf.ivf_topk_plain(ivf.values, table, q, 10, n_valid=ivf.n_valid,
+                                         block_rows=IVF_BLOCK, **kw)
+            err = check_k1(v5, l5, pv, pl, f"K5 {name} Q={nq} nprobe={NPROBE}")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # K6 must not wait for the device
+            try:
+                v6, l6 = ivf._search_device(q, 10, nprobe=NPROBE, q_block=8)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check_k2(v6, l6, v5, l5, f"K6 {name} Q={nq} (dispatched with no host sync) "
+                                     "vs K5 on the host plan")
+            width = oivf.device_table_width(ivf.n_blocks, ivf._device_cb.shape[1], NPROBE, 8)
+            pv6, pl6 = k6_plain(ivf, q, width, kw)
+            err6 = check_k1(v6, l6, pv6, pl6, f"K6 {name} Q={nq} vs its plain version")
+            # the device plan's table, for its real visits
+            _, cids = flat_search(ivf._device_centroids, q, NPROBE)
+            dtable = oivf.device_plan(cids, ivf._device_cb, ivf.dead_block, 8, width)
+            visits = real_visits(table, ivf.dead_block)
+            if visits != real_visits(dtable, ivf.dead_block):
+                fail(f"K6 {name} Q={nq}: device plan and host plan differ in real visits")
+            if name == "bf16":
+                fv, fi = ft.fused_topk(ivf.values, q, 10, n_valid=ivf.n_valid)
+            else:
+                fv, fi = ft.fused_topk_int8(ivf.values, ivf.scales, q, 10,
+                                            n_valid=ivf.n_valid, variant="row")
+            rec = recall_at_k(l6.cpu().numpy(), fi.cpu().numpy(), fv.cpu().numpy(),
+                              tie_tol=K1_TOL, candidate_scores=v6.cpu().numpy())
+            tiles = table.shape[0]
+            print(f"  {name} Q={nq}: host table width {table.shape[1]}, device table "
+                  f"width {width}, real visits per tile {visits / tiles:.1f} "
+                  f"({visits * IVF_BLOCK / tiles / ivf.n_valid:.2%} of the rows), "
+                  f"recall@10 vs flat {rec}", flush=True)
+            union = int(torch.unique(table[table != ivf.dead_block]).numel())
+
+            def plan():
+                cids = flat_search(ivf._device_centroids, q, NPROBE)[1]
+                return oivf.device_plan(cids, ivf._device_cb, ivf.dead_block, 8, width)
+
+            flat = ((lambda: ft.fused_topk(dense[name]._device_values, q, 10,
+                                           n_valid=N_ROWS)) if name == "bf16" else
+                    (lambda: ft.fused_topk_int8(dense[name]._device_values,
+                                                dense[name]._device_scales, q, 10,
+                                                n_valid=N_ROWS)))
+            flat_ms = median_ms(flat)
+            base = {"dtype": name, "rows": ivf.n_valid, "q": nq, "k": 10, "nprobe": NPROBE,
+                    "real_visits_per_tile": visits / tiles, "distinct_blocks": union,
+                    "recall_at_10_vs_flat": rec, "library_ms": None, "flat_ms": flat_ms}
+            b5 = ivf_bound(union, visits, nq, ivf.values.dtype, table.numel() * 4, 0)
+            b6 = ivf_bound(union, visits, nq, ivf.values.dtype,
+                           ivf._device_centroids.numel() * 4 + ivf._device_cb.numel() * 4,
+                           2.0 * nq * N_CLUSTERS * DIM)
+            c5 = dict(base, max_abs_err=err, table_width=int(table.shape[1]),
+                      bound_ms=b5[0], bound_by=b5[1],
+                      ms=median_ms(lambda: ivf._search_table(q, table, 10, q_block=8)),
+                      plain_ms=median_ms(lambda: oivf.ivf_topk_plain(
+                          ivf.values, table, q, 10, n_valid=ivf.n_valid,
+                          block_rows=IVF_BLOCK, **kw), PLAIN_RUNS))
+            c6 = dict(base, max_abs_err=err6, table_width=width, bound_ms=b6[0],
+                      bound_by=b6[1], plan_ms=median_ms(plan),
+                      ms=median_ms(lambda: ivf._search_device(q, 10, nprobe=NPROBE,
+                                                              q_block=8)),
+                      plain_ms=median_ms(lambda: k6_plain(ivf, q, width, kw), PLAIN_RUNS))
+            print(f"  K6 {name} Q={nq}: probe + device plan alone {c6['plan_ms']:.3f} ms; "
+                  f"{union} distinct blocks over all tiles", flush=True)
+            for key, c in (("K5", c5), ("K6", c6)):
+                print(f"  {key} {name} Q={nq}: kernel {c['ms']:.3f} ms (flat scan at this "
+                      f"Q {flat_ms:.3f} ms), plain {c['plain_ms']:.3f} ms, library none, "
+                      f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+                cases[key].append(c)
+    for name, ivf in ivfs.items():
+        # full probe: every block of the IVF order, so the flat scan of the
+        # same IVF-ordered values must come out, ties and ids included
+        q = clustered_rows(centers, 32, gen)
+        kw = {"scales": ivf.scales} if name == "int8" else {}
+        v, i = oivf.ivf_topk_device(ivf.values, ivf._device_cb, ivf._device_centroids, q, 10,
+                                    nprobe=N_CLUSTERS, n_valid=ivf.n_valid,
+                                    block_rows=IVF_BLOCK, **kw)
+        if name == "bf16":
+            fv, fi = ft.fused_topk(ivf.values, q, 10, n_valid=ivf.n_valid)
+        else:
+            fv, fi = ft.fused_topk_int8(ivf.values, ivf.scales, q, 10, n_valid=ivf.n_valid,
+                                        variant="row")
+        check_k2(v, i, fv, fi, f"K6 {name} full probe (nprobe {N_CLUSTERS}) vs the flat "
+                               f"{'K1' if name == 'bf16' else 'K3'} scan of the IVF order")
+    results["ivf_cases"] = cases
+    return {"dense": dense, "ivf": ivfs}
+
+
+def ivf_bound(union_blocks: int, visits: int, nq: int, dtype, extra_bytes: int,
+              extra_f32_ops: float):
+    """Least time for a pruned scan: each probed block read once however
+    many tiles visit it (rows × (D × itemsize + 4 B scale for int8)), the
+    fp32 queries and ``extra_bytes`` (the block table, or the centroids
+    and cluster→block table) read once, the results written once; against
+    the products of each tile's 8 queries with the rows of its visits at
+    the operand type's peak (bf16 for bf16 and int8-row, fp32 for f32) and
+    ``extra_f32_ops`` (the fp32 centroid probe) at the fp32 peak."""
+    item = torch.empty((), dtype=dtype).element_size()
+    row_bytes = DIM * item + (4 if dtype == torch.int8 else 0)
+    nbytes = union_blocks * IVF_BLOCK * row_bytes + nq * DIM * 4 + nq * 10 * 8 + extra_bytes
+    op = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2.0 * 8 * visits * IVF_BLOCK * DIM / PEAK_OPS[op]
+             + extra_f32_ops / PEAK_OPS[torch.float32]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k6_plain(ivf, q, width, kw):
+    """K6's function in plain PyTorch: the probe and the device plan (the
+    same tensor ops), then the plain table scan."""
+    from arxiv_rag_tpu_torch.ops import ivf as oivf
+    from arxiv_rag_tpu_torch.ops.topk import flat_search
+
+    _, cids = flat_search(ivf._device_centroids, q, NPROBE)
+    table = oivf.device_plan(cids, ivf._device_cb, ivf.dead_block, 8, width)
+    return oivf.ivf_topk_plain(ivf.values, table, q, 10, n_valid=ivf.n_valid,
+                               block_rows=IVF_BLOCK, **kw)
+
+
+def timed_search(engine, qtexts, results, label, counters, **kw):
+    """One warm search, then one timed; returns the hits and records qps
+    and the launches of ``counters`` in the timed search."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+
+    engine.search(qtexts, k=10, **kw)  # warm
+    before = dict(ft.LAUNCHES)
+    t0 = time.perf_counter()
+    hits = engine.search(qtexts, k=10, **kw)
+    dt = time.perf_counter() - t0
+    launched = {c: ft.LAUNCHES[c] - before[c] for c in counters}
+    results.setdefault("qps", {})[label] = len(qtexts) / dt
+    results.setdefault("launches_per_search", {})[label] = launched
+    if min(launched.values()) < 1:
+        fail(f"{label}: engine.search launched none of {counters}: {launched}")
+    print(f"  {label}: {len(qtexts)} text queries in {dt * 1e3:.1f} ms end to end = "
+          f"{len(qtexts) / dt:.1f} qps; launches in this search: {launched}", flush=True)
+    return hits
+
+
+def hits_arrays(hits, nq, what):
+    got_v = torch.tensor([[h.score for h in row] for row in hits])
+    got_i = torch.tensor([[h.row for h in row] for row in hits], dtype=torch.int32)
+    if got_v.shape != (nq, 10):
+        fail(f"{what}: expected 10 hits per query, got {tuple(got_v.shape)}")
+    if not np.isfinite(got_v.numpy()).all():
+        fail(f"{what}: non-finite scores")
+    return got_v, got_i
+
+
+def phase_slice(indexes, ivfs, seed, results) -> tuple[dict, list[str]]:
+    from arxiv_rag_tpu_torch.config import RetrievalConfig
     from arxiv_rag_tpu_torch.embed import Embedder
     from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
@@ -225,37 +546,54 @@ def phase_slice(indexes, seed, results) -> tuple[dict, list[str]]:
     for name, idx in indexes.items():
         engine = SearchEngine(idx, embedder=embedder)
         engines[name] = engine
+        key = "fused_topk_int8" if name == "int8" else "fused_topk"
+        qmask = torch.full((512,), 0b111, dtype=torch.int32, device="cuda")
         for nq in (32, 512):
             qtexts = texts[:nq]
-            engine.search(qtexts, k=10)  # warm
-            before = dict(ft.LAUNCHES)
-            t0 = time.perf_counter()
-            hits = engine.search(qtexts, k=10)
-            dt = time.perf_counter() - t0
-            key = "fused_topk_int8" if name == "int8" else "fused_topk"
-            launched = ft.LAUNCHES[key] - before[key]
-            results.setdefault("qps", {})[f"{name}_q{nq}"] = nq / dt
-            results.setdefault("launches_per_search", {})[key] = launched
-            if launched < 1:
-                fail(f"engine.search over the {name} index launched no {key} kernel")
             emb, n = embedder.encode_window_device(qtexts)
             emb = emb[:n]
-            got_v = torch.tensor([[h.score for h in row] for row in hits])
-            got_i = torch.tensor([[h.row for h in row] for row in hits], dtype=torch.int32)
-            if got_v.shape != (nq, 10):
-                fail(f"{name} Q={nq}: expected 10 hits per query, got {tuple(got_v.shape)}")
+            # the dense route
+            hits = timed_search(engine, qtexts, results, f"{name}_q{nq}", (key,))
+            got_v, got_i = hits_arrays(hits, nq, f"{name} Q={nq}")
             if name == "int8":
                 pv, pi = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales,
                                                   emb, 10, n_valid=idx._n_valid)
-                check_k2(got_v, got_i, pv.cpu(), pi.cpu(), f"engine int8 Q={nq} rows")
+                check_k2(got_v, got_i, pv.cpu(), pi.cpu(), f"engine int8 Q={nq} vs plain")
             else:
                 pv, pi = ft.fused_topk_plain(idx._device_values, emb, 10, n_valid=idx._n_valid)
                 check_k1(got_v, got_i, pv, pi, f"engine bf16 Q={nq} rows")
-            if not np.isfinite(got_v.numpy()).all():
-                fail(f"{name} Q={nq}: non-finite scores")
-            print(f"  {name} index, {nq} text queries: {dt * 1e3:.1f} ms end to end = "
-                  f"{nq / dt:.1f} qps; launches of {key} in this search: {launched}",
-                  flush=True)
+            # the category route (K4)
+            hits = timed_search(engine, qtexts, results, f"{name}_filtered_q{nq}",
+                                ("fused_topk_masked",), categories=FILTER)
+            got_v, got_i = hits_arrays(hits, nq, f"{name} filtered Q={nq}")
+            args = (idx._device_masks, qmask[:nq], emb, 10)
+            if name == "int8":
+                pv, pi = ft.fused_topk_int8_masked_plain(
+                    idx._device_values, idx._device_scales, *args, n_valid=idx._n_valid)
+                check_k2(got_v, got_i, pv.cpu(), pi.cpu(),
+                         f"engine int8 categories={FILTER} Q={nq} vs plain masked scan")
+            else:
+                pv, pi = ft.fused_topk_masked_plain(idx._device_values, *args,
+                                                    n_valid=idx._n_valid)
+                check_k1(got_v, got_i, pv, pi, f"engine bf16 categories={FILTER} Q={nq}")
+    # the IVF route: device plan (the default, K6) and host plan (K5)
+    for name in ("bf16", "int8"):
+        dense, ivf = ivfs["dense"][name], ivfs["ivf"][name]
+        for plan, counter in (("device", "ivf_topk_device"), ("host", "ivf_topk")):
+            label = f"ivf_{name}_{plan}"
+            engine = SearchEngine(dense, embedder=embedder, ivf=ivf,
+                                  cfg=RetrievalConfig(nprobe=NPROBE, ivf_plan=plan))
+            engines[label] = engine
+            counters = (counter, "fused_topk_int8_row") if name == "int8" else (counter,)
+            for nq in (32, 512):
+                qtexts = texts[:nq]
+                hits = timed_search(engine, qtexts, results, f"{label}_q{nq}", counters)
+                got_v, got_i = hits_arrays(hits, nq, f"{label} Q={nq}")
+                emb, n = embedder.encode_window_device(qtexts)
+                wv, wr = ivf.search(emb[:n], 10, nprobe=NPROBE, plan="host")
+                check_k2(got_v, got_i, torch.from_numpy(wv),
+                         torch.from_numpy(wr.astype(np.int32)),
+                         f"engine {label} Q={nq} vs IVFIndex.search(plan='host')")
     return engines, texts
 
 
@@ -263,7 +601,10 @@ def phase_serving(engines, texts) -> None:
     from arxiv_rag_tpu_torch.serve import serve_in_thread
 
     print("== phase 4: serving over HTTP", flush=True)
-    for name, engine in engines.items():
+    for name, cats in (("bf16", None), ("int8", None), ("bf16", FILTER),
+                       ("ivf_int8_device", None)):
+        engine = engines[name]
+        label = name if cats is None else f"{name} categories={cats}"
         httpd, thread = serve_in_thread(engine, host="127.0.0.1", port=0)
         port = httpd.server_address[1]
         try:
@@ -271,9 +612,11 @@ def phase_serving(engines, texts) -> None:
             answers: dict[int, object] = {}
 
             def post(i: int) -> None:
-                body = json.dumps({"queries": batches[i], "k": 10}).encode()
+                body = {"queries": batches[i], "k": 10}
+                if cats is not None:
+                    body["categories"] = cats
                 req = urllib.request.Request(
-                    f"http://127.0.0.1:{port}/search", data=body,
+                    f"http://127.0.0.1:{port}/search", data=json.dumps(body).encode(),
                     headers={"Content-Type": "application/json"})
                 with urllib.request.urlopen(req, timeout=120) as resp:
                     answers[i] = json.loads(resp.read())["results"]
@@ -287,13 +630,14 @@ def phase_serving(engines, texts) -> None:
                 t.join(timeout=180)
             for i, batch in enumerate(batches):
                 if i not in answers:
-                    fail(f"{name}: request {i} got no answer")
-                want = [[(h.row, h.score) for h in hits] for hits in engine.search(batch, k=10)]
+                    fail(f"{label}: request {i} got no answer")
+                want = [[(h.row, h.score) for h in hits]
+                        for hits in engine.search(batch, k=10, categories=cats)]
                 got = [[(h["row"], h["score"]) for h in hits] for hits in answers[i]]
                 if got != want:
-                    fail(f"{name}: HTTP answer {i} differs from engine.search")
-            print(f"  {name} index: 4 /search requests (2 concurrent) equal "
-                  "engine.search", flush=True)
+                    fail(f"{label}: HTTP answer {i} differs from engine.search")
+            print(f"  {label}: 4 /search requests (2 concurrent) equal engine.search",
+                  flush=True)
         finally:
             httpd.shutdown()
             httpd.batcher.close()
@@ -301,21 +645,34 @@ def phase_serving(engines, texts) -> None:
             thread.join(timeout=30)
 
 
+KERNELS = (
+    # key, counter, what, TPU kernel, main case (dtype, Q)
+    ("K1", "fused_topk", "fused_topk", "arxiv_rag_tpu/ops/pallas_topk.py:67", ("bf16", 512)),
+    ("K2", "fused_topk_int8", "fused_topk_int8 s8s8", "arxiv_rag_tpu/ops/pallas_topk.py:67",
+     ("int8", 512)),
+    ("K3", "fused_topk_int8_row", "fused_topk_int8 row variant",
+     "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512)),
+    ("K4", "fused_topk_masked", "fused_topk_masked / fused_topk_int8_masked",
+     "arxiv_rag_tpu/ops/pallas_topk.py:217", ("bf16", 512)),
+    ("K5", "ivf_topk", "ivf_topk block-table scan", "arxiv_rag_tpu/ops/pallas_ivf.py:61",
+     ("int8", 32)),
+    ("K6", "ivf_topk_device", "ivf_topk_device (device plan + K5)",
+     "arxiv_rag_tpu/ops/pallas_ivf.py:482", ("int8", 32)),
+)
+
+
 def kernels_line(results, launches) -> dict:
     out = []
-    for key, name, replaces, fn in (
-        ("K1", "fused_topk", "arxiv_rag_tpu/ops/pallas_topk.py:67", "fused_topk"),
-        ("K2", "fused_topk_int8", "arxiv_rag_tpu/ops/pallas_topk.py:67", "fused_topk_int8"),
-    ):
-        cases = results["cases"][key]
-        main = next(c for c in cases if c["dtype"] in ("bf16", "int8") and c["q"] == 512
-                    and c["k"] == 10)
+    all_cases = {**results["cases"], **results["ivf_cases"]}
+    for key, counter, what, replaces, (dtype, nq) in KERNELS:
+        cases = all_cases[key]
+        main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10)
         out.append({
-            "name": f"{name} ({key}, {main['dtype']}, Q=512, k=10)",
+            "name": f"{what} ({key}, {dtype}, Q={nq}, k=10)",
             "route": "cuda",
             "source": "arxiv_rag_tpu_torch/csrc/fused_topk.cu",
             "replaces": replaces,
-            "launches": launches[fn],
+            "launches": launches[counter],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -347,24 +704,26 @@ def main() -> int:
     log = _build.build("fused_topk")
     print(f"  built fused_topk in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    {line.strip()}", flush=True)
 
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     indexes = phase_kernels(gen, results)
+    ivfs = phase_ivf(gen, results)
 
     ft.reset_launches()  # the main path's run starts here
-    engines, texts = phase_slice(indexes, args.seed, results)
+    engines, texts = phase_slice(indexes, ivfs, args.seed, results)
     phase_serving(engines, texts)
     launches = dict(ft.LAUNCHES)
-    for fn in ("fused_topk", "fused_topk_int8"):
-        if launches[fn] < 1:
-            fail(f"the main path launched no {fn} kernel")
-    print(f"== main path launches: {launches}; per engine.search: "
-          f"{results['launches_per_search']}", flush=True)
+    for key, counter, *_ in KERNELS:
+        if launches[counter] < 1:
+            fail(f"the main path launched no {key} ({counter}) kernel")
+    print(f"== main path launches: {launches}", flush=True)
+    print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s; qps "
           f"{ {k: round(v, 1) for k, v in results['qps'].items()} }", flush=True)
+    print(f"  IVF build {results['ivf_build_s']}", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)
