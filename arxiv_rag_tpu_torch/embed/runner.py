@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from arxiv_rag_tpu_torch.logging_utils import METRICS
-from arxiv_rag_tpu_torch.models.mpnet import MPNet
+from arxiv_rag_tpu_torch.models.mpnet import MPNet, quantize_params_int8
 from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
 
 
@@ -37,6 +37,9 @@ class Embedder:
         batch_size / batch_sizes: allowed padded batch heights; a batch
             pads to the smallest height that fits.
         normalize: L2-normalize the pooled embeddings.
+        quant_int8: run the W8A8 encoder: the dense layers are quantized
+            once here (``quantize_params_int8``, a new model; ``model`` is
+            left as it is) and activations per row inside the forward.
     """
 
     def __init__(
@@ -48,7 +51,10 @@ class Embedder:
         batch_size: int = 512,
         batch_sizes: Sequence[int] | None = None,
         normalize: bool = True,
+        quant_int8: bool = False,
     ) -> None:
+        if quant_int8:
+            model = quantize_params_int8(model)
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer

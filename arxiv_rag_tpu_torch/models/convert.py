@@ -36,7 +36,10 @@ def to_tensor(arr: Any) -> torch.Tensor:
 
 def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The reference's params pytree (``np.asarray`` leaves; stacked
-    ``[L, d_in, d_out]`` kernels) → this package's ``MPNet`` state dict."""
+    ``[L, d_in, d_out]`` kernels) → this package's ``MPNet`` state dict.
+    A quantized pytree (``quantize_params_int8``: ``kernel_q`` [L, d_in,
+    d_out] int8, ``kscale`` [L, 1, d_out]) gives the W8A8 model's state:
+    int8 ``weight`` [d_out, d_in] and fp32 ``scale`` [d_out]."""
     emb, layers = tree["embeddings"], tree["layers"]
     sd = {
         "word.weight": to_tensor(emb["word"]),
@@ -53,7 +56,11 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torc
     norms = {"attn.ln": layers["attn"]["ln"], "ffn.ln": layers["ffn"]["ln"]}
     for i in range(cfg.num_hidden_layers):
         for name, p in blocks.items():
-            sd[f"layers.{i}.{name}.weight"] = to_tensor(p["kernel"])[i].T.contiguous()
+            if "kernel_q" in p:
+                sd[f"layers.{i}.{name}.weight"] = to_tensor(p["kernel_q"])[i].T.contiguous()
+                sd[f"layers.{i}.{name}.scale"] = to_tensor(p["kscale"])[i, 0].to(torch.float32)
+            else:
+                sd[f"layers.{i}.{name}.weight"] = to_tensor(p["kernel"])[i].T.contiguous()
             sd[f"layers.{i}.{name}.bias"] = to_tensor(p["bias"])[i]
         for name, p in norms.items():
             sd[f"layers.{i}.{name}.weight"] = to_tensor(p["scale"])[i]
@@ -102,10 +109,12 @@ def build_model(state: Mapping[str, torch.Tensor], cfg: ModelConfig, *,
                 compute_dtype: str | torch.dtype = torch.float32,
                 device=None) -> MPNet:
     """``MPNet`` holding ``state`` (parameters keep the state's dtype) on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default); the W8A8 architecture when the state
+    holds quantized layers (``scale`` entries)."""
     dev = default_device(device)
     param_dtype = next(iter(state.values())).dtype
-    model = MPNet(cfg, compute_dtype).to(param_dtype)
+    quant = any(key.endswith(".scale") for key in state)
+    model = MPNet(cfg, compute_dtype, quant_int8=quant).to(param_dtype)
     model.load_state_dict(dict(state))
     return model.to(dev).eval()
 

@@ -15,7 +15,12 @@ numerics exactly:
   RoBERTa position ids ``cumsum(mask)*mask+pad`` (:323-327) and the
   ``finfo(float32).min`` additive mask bias (:348-350);
 - attention is matmul → softmax → matmul (the reference's default
-  ``fused=False``); no fused attention operator is used.
+  ``fused=False``); no fused attention operator is used;
+- W8A8 (``quantize_params_int8``, :201-231): q/k/v/o and both FFN
+  projections become ``QuantLinear`` (int8 weights with per-output fp32
+  scales); their layers quantize activations per row and run the int8
+  product in the K8 kernel (``ops/w8a8.py``; the plain version on the
+  CPU), as ``_dense_int8`` (:165-198) computes them.
 
 Weights have the PyTorch ``nn.Linear`` layout ([out, in]); see
 ``models/convert.py`` for loading the reference's params pytree and HF
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from arxiv_rag_tpu_torch.device import default_device
+from arxiv_rag_tpu_torch.ops import w8a8
 
 PAD_TOKEN_ID = 1  # MPNet convention: <pad>=1 (HF MPNetEmbeddings.padding_idx)
 
@@ -144,22 +150,72 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, m, n)
 
 
-def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+class QuantLinear(nn.Module):
+    """A W8A8 dense layer: int8 ``weight`` [out, in], fp32 per-output
+    ``scale`` [out], ``bias`` [out] in the model dtype. Casting the module
+    to another dtype leaves the scale in fp32."""
+
+    def __init__(self, d_in: int, d_out: int) -> None:
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(d_out, d_in, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(d_out, dtype=torch.float32))
+        self.register_buffer("bias", torch.zeros(d_out))
+
+    def _apply(self, fn, recurse=True):
+        # ``.to(dtype)`` casts every floating buffer: the scale follows
+        # only the device
+        scale = self._buffers.pop("scale")
+        try:
+            super()._apply(fn, recurse)
+        finally:
+            self._buffers["scale"] = scale.to(self.weight.device)
+        return self
+
+    @staticmethod
+    def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Symmetric per-output int8 of an [out, in] weight, from its fp32
+        value: scale ``max(max|w| / 127, 1e-12)`` with a true division (the
+        reference quantizes eagerly, outside any jit), ``round_half_even(w
+        / scale)``. The divisor is a tensor on ``weight``'s device: CUDA
+        divides by a CPU scalar as a product with its reciprocal, which is
+        not the quotient."""
+        w32 = weight.to(torch.float32)
+        d127 = torch.tensor(127.0, dtype=torch.float32, device=w32.device)
+        scale = torch.clamp(torch.amax(torch.abs(w32), dim=1, keepdim=True) / d127, min=1e-12)
+        return torch.round(w32 / scale).to(torch.int8), scale[:, 0]
+
+
+def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     """x @ W^T in the compute dtype with an fp32 result, + fp32 bias, cast
     back to the compute dtype: one rounding, after the bias."""
+    if isinstance(lin, QuantLinear):
+        return _dense_int8(x, lin)
     y = _matmul_f32(x, lin.weight.to(x.dtype).T)
     return (y + lin.bias.to(torch.float32)).to(x.dtype)
 
 
+def _dense_int8(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """W8A8 dense: per-row dynamic int8 activations × the layer's int8
+    weights, dequantized with both scales and the bias in one FMA, cast to
+    the compute dtype. K8 on the card (no rule on K and N beyond the
+    kernel's K % 16), the plain version on the CPU."""
+    return w8a8.w8a8_dense(x, lin.weight, lin.scale, lin.bias, out_dtype=x.dtype)
+
+
+def _linear(quant_int8: bool):
+    return QuantLinear if quant_int8 else nn.Linear
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig) -> None:
+    def __init__(self, cfg: ModelConfig, quant_int8: bool = False) -> None:
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
-        self.q = nn.Linear(h, h)
-        self.k = nn.Linear(h, h)
-        self.v = nn.Linear(h, h)
-        self.o = nn.Linear(h, h)
+        linear = _linear(quant_int8)
+        self.q = linear(h, h)
+        self.k = linear(h, h)
+        self.v = linear(h, h)
+        self.o = linear(h, h)
         self.ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
     def forward(self, x, bias, mask_bias):
@@ -182,10 +238,11 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: ModelConfig) -> None:
+    def __init__(self, cfg: ModelConfig, quant_int8: bool = False) -> None:
         super().__init__()
-        self.inp = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        linear = _linear(quant_int8)
+        self.inp = linear(cfg.hidden_size, cfg.intermediate_size)
+        self.out = linear(cfg.intermediate_size, cfg.hidden_size)
         self.ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x):
@@ -196,10 +253,10 @@ class FeedForward(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig) -> None:
+    def __init__(self, cfg: ModelConfig, quant_int8: bool = False) -> None:
         super().__init__()
-        self.attn = Attention(cfg)
-        self.ffn = FeedForward(cfg)
+        self.attn = Attention(cfg, quant_int8)
+        self.ffn = FeedForward(cfg, quant_int8)
 
     def forward(self, x, bias, mask_bias):
         return self.ffn(self.attn(x, bias, mask_bias))
@@ -207,12 +264,16 @@ class Layer(nn.Module):
 
 class MPNet(nn.Module):
     """MPNet encoder. ``forward`` gives fp32 token states
-    [batch, seq, hidden]; ``encode`` gives fp32 sentence embeddings."""
+    [batch, seq, hidden]; ``encode`` gives fp32 sentence embeddings.
+    ``quant_int8`` builds the W8A8 architecture (``QuantLinear`` dense
+    layers); ``quantize_params_int8`` fills it from a float model."""
 
-    def __init__(self, cfg: ModelConfig, compute_dtype: str | torch.dtype = torch.float32):
+    def __init__(self, cfg: ModelConfig, compute_dtype: str | torch.dtype = torch.float32,
+                 quant_int8: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype_of(compute_dtype)
+        self.quant_int8 = quant_int8
         h = cfg.hidden_size
         self.word = nn.Embedding(cfg.vocab_size, h)
         self.position = nn.Embedding(cfg.max_position_embeddings, h)
@@ -220,7 +281,7 @@ class MPNet(nn.Module):
         self.rel_bias = nn.Parameter(
             torch.zeros(cfg.relative_attention_num_buckets, cfg.num_attention_heads)
         )
-        self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(Layer(cfg, quant_int8) for _ in range(cfg.num_hidden_layers))
         # bucket matrices per (length, device): they depend on no weight
         self._buckets: dict[tuple, torch.Tensor] = {}
 
@@ -285,6 +346,29 @@ def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor,
             torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12
         )
     return pooled
+
+
+QUANT_DENSE = ("attn.q", "attn.k", "attn.v", "attn.o", "ffn.inp", "ffn.out")
+
+
+def quantize_params_int8(model: MPNet) -> MPNet:
+    """A new W8A8 ``MPNet``: q/k/v/o and both FFN projections of every
+    layer quantized per output channel (``QuantLinear.quantize_weight``);
+    embeddings, LayerNorms and the relative bias copied as they are. The
+    caller's model is left unchanged, as the reference returns a new
+    pytree (models/mpnet.py:201-231)."""
+    if model.quant_int8:
+        raise ValueError("the model is quantized already")
+    state = {key: t.detach().clone() for key, t in model.state_dict().items()}
+    for i in range(model.cfg.num_hidden_layers):
+        for name in QUANT_DENSE:
+            prefix = f"layers.{i}.{name}."
+            state[prefix + "weight"], state[prefix + "scale"] = \
+                QuantLinear.quantize_weight(state[prefix + "weight"])
+    with torch.device("meta"):
+        out = MPNet(model.cfg, model.compute_dtype, quant_int8=True)
+    out.load_state_dict(state, assign=True)
+    return out.eval()
 
 
 def random_model(cfg: ModelConfig = ModelConfig(), *, seed: int = 0,

@@ -6,6 +6,8 @@ headers, so a build takes seconds). Libraries go to ``build/kernels/``
 at the repository root, named by a hash of the source and the flags, so
 an edited source rebuilds and an unchanged one loads as built. A build
 happens at first use; nothing here runs when the module is imported.
+Builds of several sources may run at once, from threads or processes:
+each writes its own temporary file and renames it into place.
 """
 
 from __future__ import annotations
@@ -48,19 +50,18 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is built already; returns
     nvcc's output (ptxas register / shared-memory / spill report)."""
     out = lib_path(name)
-    with _LOCK:
-        if out.exists():
-            return "(already built)"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                               f"{proc.stdout}")
-        tmp.replace(out)  # atomic: concurrent builds end with one library
-        return proc.stdout
+    if out.exists():
+        return "(already built)"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    tmp.replace(out)  # atomic: concurrent builds end with one library
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

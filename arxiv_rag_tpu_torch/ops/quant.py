@@ -13,10 +13,14 @@ from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 
 def quantize_int8(index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[N,D] float → ([N,D] int8 values, [N] fp32 per-row scales)."""
+    """[N,D] float → ([N,D] int8 values, [N] fp32 per-row scales). The
+    scale is the true quotient on every device: CUDA divides by a CPU
+    scalar as a product with its reciprocal, so the divisor is a tensor on
+    the index's device."""
     x = index.to(torch.float32)
     absmax = torch.amax(torch.abs(x), dim=1)
-    scales = torch.clamp(absmax, min=1e-12) / 127.0
+    d127 = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    scales = torch.clamp(absmax, min=1e-12) / d127
     q = torch.clamp(torch.round(x / scales[:, None]), -127, 127).to(torch.int8)
     return q, scales
 

@@ -4,25 +4,37 @@
 
 Drives the port's main paths (arxiv_rag_tpu_torch: MPNet encode → fused
 top-k scan → HTTP; the same with category filters; IVF probe → plan →
-pruned scan) at the full width of all-mpnet-base-v2 over 2,000,000-row
-indexes built on the card, and holds every CUDA kernel on those paths
-against its plain PyTorch version at the shapes the paths give it.
-Phases, each of which exits non-zero at its first failure:
+pruned scan; the W8A8 encoder in front of the scans) at the full width
+of all-mpnet-base-v2 over 2,000,000-row indexes built on the card, and
+holds every CUDA kernel on those paths against its plain PyTorch version
+at the shapes the paths give it. Phases, each of which exits non-zero at
+its first failure:
 
-1. environment: card name and power limit, versions, kernel build;
+1. environment: card name and power limit, versions, the kernels' build
+   (one nvcc per source, all started together);
 2. kernels against their plain versions at full size, with times
    (median of CUDA-event timings), bounds and a library yardstick:
    K1/K2 flat scans, K4 masked scans, K3 int8 row scan; then an IVF
    index (k-means on the card, 4096 clusters) over a clustered corpus:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
-   flat scan of the same IVF-ordered values;
+   flat scan of the same IVF-ordered values; then the W8A8 matmul K7 and
+   its fused-quantization form K8 at the encoder's shapes, bitwise; the
+   index's and the activations' int8 quantizations on the card bitwise
+   the CPU's;
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
-   (device plan and host plan), checked against the plain scans;
-4. serving: HTTP /search answers (with and without categories, and a
-   server probing the IVF) equal engine.search;
+   (device plan and host plan), checked against the plain scans; then
+   the W8A8 encoder (``Embedder(quant_int8=True)``): its weights
+   quantized on the card bitwise the CPU's, bitwise its plain route,
+   cosine against the bf16 encoder, its searches against the
+   plain scans, its speed beside the bf16 encoder's;
+4. serving: HTTP /search answers (with and without categories, a server
+   probing the IVF, a server with the W8A8 encoder) equal engine.search;
 5. the kernels line, then the result line.
+
+The launch counts are read per path: set to 0 just before the path of
+slices 1–2 (phases 3–4) and again before the W8A8 path, read just after.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -30,6 +42,8 @@ Needs one card. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -37,11 +51,13 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+SOURCES = ("fused_topk", "w8a8")  # csrc/<name>.cu
 N_ROWS = 2_000_000  # the ~105k-paper arXiv CS corpus in chunks
 N_RAGGED = 1_999_937
 N_F32 = 262_144
@@ -53,6 +69,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 CATS = [f"cs.{i}" for i in range(8)]  # row masks 1 << randint(0, 8), as bench.py:146-152
 FILTER = CATS[:3]  # query mask 0b111: 3 of 8 categories, ~37% of rows
+W8A8_M = (8192, 65536)  # encoder rows (batch x 128 tokens) at 64 and 512 queries
+W8A8_KN = ((768, 768), (768, 3072), (3072, 768))  # q/k/v/o, FFN in, FFN out
+W8A8_MAIN = (65536, 768, 3072)
 N_CLUSTERS = 4096  # IVF_r04.json / bench.py:715: 4096 clusters, 1024-row blocks
 IVF_BLOCK = 1024
 NPROBE = 8
@@ -145,6 +164,25 @@ def check_k2(fv, fi, pv, pi, what: str) -> None:
         fail(f"{what}: kernel disagrees with its reference")
 
 
+def check_card_vs_cpu(got, want, what: str) -> None:
+    """Tensors computed on the card bitwise the same function's results on
+    the CPU, where the port's numerics are held against the JAX package."""
+    same = len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and
+        torch.equal(g.cpu().contiguous().view(torch.uint8), w.contiguous().view(torch.uint8))
+        for g, w in zip(got, want))
+    print(f"  {what} on the card: bitwise its CPU result: {same}", flush=True)
+    if not same:
+        fail(f"{what}: the card's result differs from the CPU's")
+
+
+def check_equal(got, want, what: str) -> None:
+    same = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    print(f"  {what}: bitwise equal: {same}", flush=True)
+    if not same:
+        fail(f"{what}: kernel route disagrees with its reference")
+
+
 def eligible(row_masks, qmask):
     return (row_masks[None, :] & qmask[:, None]) != 0
 
@@ -184,10 +222,14 @@ def build_with_categories(emb, dtype, gen):
 def phase_kernels(gen, results) -> dict:
     from arxiv_rag_tpu_torch.index.store import build_index
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops.quant import quantize_int8
 
     print("== phase 2: kernels against their plain versions", flush=True)
     t0 = time.perf_counter()
     emb = torch.randn(N_ROWS, DIM, generator=gen, device="cuda")
+    rows = emb[:N_F32]
+    check_card_vs_cpu(quantize_int8(rows), quantize_int8(rows.cpu()),
+                      f"quantize_int8 of {N_F32} rows")
     bf16 = build_with_categories(emb, "bfloat16", gen)
     int8 = build_with_categories(emb, "int8", gen)
     f32 = build_index(emb[:N_F32], dtype="float32").to_device()
@@ -481,17 +523,100 @@ def k6_plain(ivf, q, width, kw):
                                block_rows=IVF_BLOCK, **kw)
 
 
+def w8a8_bound(m: int, k: int, n: int, fused: bool):
+    """Least time for one W8A8 dense call: x (bf16 for K8; int8 and its
+    fp32 row scales for K7), W, w_scale and a bf16 bias read once, the bf16
+    output written once, against 2·M·K·N at the int8 peak."""
+    x_bytes = m * k * 2 if fused else m * k + m * 4
+    nbytes = x_bytes + n * k + n * 4 + n * 2 + m * n * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / PEAK_OPS[torch.int8] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def w8a8_library(x_q, a_scale, w_q, w_scale, bias):
+    """K7's library yardstick: ``torch._int_mm`` (s8×s8→s32 on the int8
+    tensor cores) and the dequant in torch ops, to bf16."""
+    acc = torch._int_mm(x_q, w_q.t())
+    return (acc.to(torch.float32) * a_scale[:, None] * w_scale + bias.to(torch.float32)).to(
+        torch.bfloat16)
+
+
+def phase_w8a8_kernels(gen, results) -> None:
+    """K7 and K8 at the encoder's shapes (bf16 activations, bf16 bias and
+    output, as a bf16 model's dense layers), against their plain versions
+    bit for bit, K8 also against quantize → K7."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    print("== phase 2 (W8A8): K7 and K8 at the encoder's shapes", flush=True)
+    cases = {"K7": [], "K8": []}
+    for m in W8A8_M:
+        for k, n in W8A8_KN:
+            x = (torch.randn(m, k, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
+            w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+            bias = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+            args = (w_q, w_scale, bias)
+            out = {"out_dtype": torch.bfloat16}
+            x_q, a_scale = w8a8.quantize_activations(x)
+            if (k, n) == (3072, 768):
+                check_card_vs_cpu((x_q, a_scale), w8a8.quantize_activations(x.cpu()),
+                                  f"quantize_activations M={m} K={k}")
+            k7 = w8a8.w8a8_matmul(x_q, a_scale, *args, **out)
+            k8 = w8a8.w8a8_matmul_fused_quant(x, *args, **out)
+            p7 = w8a8.w8a8_matmul_plain(x_q, a_scale, *args, **out)
+            p8 = w8a8.w8a8_matmul_fused_quant_plain(x, *args, **out)
+            shape = f"M={m} K={k} N={n}"
+            check_equal(k7, p7, f"K7 {shape} vs plain")
+            check_equal(k8, p8, f"K8 {shape} vs plain")
+            check_equal(k8, k7, f"K8 {shape} vs quantize → K7")
+            if not torch.isfinite(k8.to(torch.float32)).all():
+                fail(f"K8 {shape}: non-finite outputs")
+            base = {"m": m, "k": k, "n": n, "max_abs_err": 0.0}
+            c7 = dict(base, ms=median_ms(lambda: w8a8.w8a8_matmul(x_q, a_scale, *args, **out)),
+                      plain_ms=median_ms(lambda: w8a8.w8a8_matmul_plain(x_q, a_scale, *args,
+                                                                        **out)),
+                      library_ms=median_ms(lambda: w8a8_library(x_q, a_scale, *args)))
+            c7["bound_ms"], c7["bound_by"] = w8a8_bound(m, k, n, fused=False)
+
+            def library8():
+                xq_, as_ = w8a8.quantize_activations(x)
+                return w8a8_library(xq_, as_, *args)
+
+            c8 = dict(base, ms=median_ms(lambda: w8a8.w8a8_matmul_fused_quant(x, *args, **out)),
+                      plain_ms=median_ms(lambda: w8a8.w8a8_matmul_fused_quant_plain(x, *args,
+                                                                                    **out)),
+                      library_ms=median_ms(library8))
+            c8["bound_ms"], c8["bound_by"] = w8a8_bound(m, k, n, fused=True)
+            for key, c in (("K7", c7), ("K8", c8)):
+                print(f"  {key} {shape}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
+                      f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                      f"({c['bound_by']}), {2.0 * m * k * n / c['ms'] / 1e9:.1f} TOP/s",
+                      flush=True)
+                cases[key].append(c)
+            del x, x_q, k7, k8, p7, p8
+    per_layer = {key: {mm: sum(c["ms"] * (4 if (c["k"], c["n"]) == (768, 768) else 1)
+                               for c in cs if c["m"] == mm) for mm in W8A8_M}
+                 for key, cs in cases.items()}
+    for mm in W8A8_M:
+        b = sum(w8a8_bound(mm, kk, nn, True)[0] * (4 if (kk, nn) == (768, 768) else 1)
+                for kk, nn in W8A8_KN)
+        print(f"  K8 over one 12-layer forward at M={mm} (72 launches): "
+              f"{12 * per_layer['K8'][mm]:.3f} ms, bound {12 * b:.3f} ms", flush=True)
+    results["w8a8_cases"] = cases
+    torch.cuda.empty_cache()
+
+
 def timed_search(engine, qtexts, results, label, counters, **kw):
     """One warm search, then one timed; returns the hits and records qps
     and the launches of ``counters`` in the timed search."""
-    from arxiv_rag_tpu_torch.ops import fused_topk as ft
-
     engine.search(qtexts, k=10, **kw)  # warm
-    before = dict(ft.LAUNCHES)
+    before = all_launches()
     t0 = time.perf_counter()
     hits = engine.search(qtexts, k=10, **kw)
     dt = time.perf_counter() - t0
-    launched = {c: ft.LAUNCHES[c] - before[c] for c in counters}
+    after = all_launches()
+    launched = {c: after[c] - before[c] for c in counters}
     results.setdefault("qps", {})[label] = len(qtexts) / dt
     results.setdefault("launches_per_search", {})[label] = launched
     if min(launched.values()) < 1:
@@ -499,6 +624,21 @@ def timed_search(engine, qtexts, results, label, counters, **kw):
     print(f"  {label}: {len(qtexts)} text queries in {dt * 1e3:.1f} ms end to end = "
           f"{len(qtexts) / dt:.1f} qps; launches in this search: {launched}", flush=True)
     return hits
+
+
+def all_launches() -> dict:
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    return {**ft.LAUNCHES, **w8a8.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    ft.reset_launches()
+    w8a8.reset_launches()
 
 
 def hits_arrays(hits, nq, what):
@@ -597,12 +737,118 @@ def phase_slice(indexes, ivfs, seed, results) -> tuple[dict, list[str]]:
     return engines, texts
 
 
-def phase_serving(engines, texts) -> None:
+@contextlib.contextmanager
+def plain_w8a8_route():
+    """Every W8A8 dense layer through the plain version (on the card), for
+    holding the K8 route of a whole forward against it."""
+    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    kernel_route = mpnet._dense_int8
+    mpnet._dense_int8 = lambda x, lin: w8a8.w8a8_dense_plain(
+        x, lin.weight, lin.scale, lin.bias, out_dtype=x.dtype)
+    try:
+        yield
+    finally:
+        mpnet._dense_int8 = kernel_route
+
+
+def encoder_batch(embedder, texts):
+    """The padded [512, 128] batch ``encode_texts`` gives the device."""
+    (_, ids, mask), = embedder.tokenize_bucketed(texts).values()
+    return (torch.from_numpy(ids.astype(np.int64)).cuda(), torch.from_numpy(mask).cuda())
+
+
+def phase_w8a8_slice(indexes, engines, texts, results) -> dict:
+    """The W8A8 encoder (``Embedder(quant_int8=True)`` over the phase-3
+    model) in front of the flat scans: checks first, then the path's
+    counted run (searches at windows of 32 and 512, one HTTP server).
+    Returns the launches of that run."""
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.models.mpnet import quantize_params_int8
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    print("== phase 3 (W8A8): Embedder(quant_int8=True) → SearchEngine", flush=True)
+    embedder = engines["bf16"].embedder
+    qemb = Embedder(embedder.model, embedder.tokenizer, batch_sizes=embedder.batch_sizes,
+                    quant_int8=True)
+    if embedder.model.quant_int8 or not qemb.model.quant_int8:
+        fail("quant_int8 must quantize a new model and leave the bf16 one as it is")
+    got = qemb.model.state_dict()
+    want = quantize_params_int8(copy.deepcopy(embedder.model).cpu()).state_dict()
+    if got.keys() != want.keys():
+        fail("quantize_params_int8: the card's and the CPU's models hold different tensors")
+    check_card_vs_cpu(list(got.values()), [want[key] for key in got],
+                      f"quantize_params_int8 (all {len(got)} tensors of the W8A8 model)")
+    windows = {}
+    for nq in (32, 512):
+        emb, n = qemb.encode_window_device(texts[:nq])
+        with plain_w8a8_route():
+            pemb, _ = qemb.encode_window_device(texts[:nq])
+        check_equal(emb, pemb, f"W8A8 encoder, window of {nq}: K8 route vs plain W8A8 route")
+        femb, _ = embedder.encode_window_device(texts[:nq])
+        emb = emb[:n]
+        if emb.shape != (nq, DIM) or not torch.isfinite(emb).all():
+            fail(f"W8A8 encoder window of {nq}: bad embeddings {tuple(emb.shape)}")
+        cos = float((emb * femb[:n]).sum(dim=1).min())
+        results.setdefault("w8a8_min_cos_vs_bf16", {})[nq] = cos
+        print(f"  window of {nq}: min cos(W8A8, bf16 encoder) {cos:.6f} (bound > 0.99)",
+              flush=True)
+        if not cos > 0.99:
+            fail(f"W8A8 encoder window of {nq}: min cos {cos} against the bf16 encoder")
+        windows[nq] = emb
+    # speed, beside the bf16 encoder's (same texts, same call)
+    speeds = {}
+    ids, mask = encoder_batch(embedder, texts)
+    for label, e in (("bf16", embedder), ("w8a8", qemb)):
+        e.encode_texts(texts)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.encode_texts(texts)
+        speeds[label] = len(texts) / (time.perf_counter() - t0)
+        fwd_ms = median_ms(lambda: e.model.encode(ids, mask))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.model.encode(ids, mask)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        results.setdefault("encoder_forward_ms", {})[label] = fwd_ms
+        results.setdefault("encoder_enqueue_ms", {})[label] = host_ms
+        print(f"  {label} encoder: {speeds[label]:.1f} chunks/s (encode_texts, {len(texts)} "
+              f"chunks); forward [512, 128] on the card {fwd_ms:.3f} ms, of which the host "
+              f"enqueues in {host_ms:.3f} ms", flush=True)
+    results["w8a8_encoder_chunks_per_s"] = speeds
+
+    reset_all_launches()  # the W8A8 path's run starts here
+    w8a8_engines = {}
+    for name, idx in indexes.items():
+        engine = SearchEngine(idx, embedder=qemb)
+        w8a8_engines[f"w8a8_{name}"] = engine
+        key = "fused_topk_int8" if name == "int8" else "fused_topk"
+        for nq in (32, 512):
+            qtexts = texts[:nq]
+            hits = timed_search(engine, qtexts, results, f"w8a8_{name}_q{nq}",
+                                (key, "w8a8_matmul_fused_quant"))
+            got_v, got_i = hits_arrays(hits, nq, f"w8a8 {name} Q={nq}")
+            if name == "int8":
+                pv, pi = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales,
+                                                  windows[nq], 10, n_valid=idx._n_valid)
+                check_k2(got_v, got_i, pv.cpu(), pi.cpu(), f"engine w8a8 int8 Q={nq} vs plain")
+            else:
+                pv, pi = ft.fused_topk_plain(idx._device_values, windows[nq], 10,
+                                             n_valid=idx._n_valid)
+                check_k1(got_v, got_i, pv, pi, f"engine w8a8 bf16 Q={nq} rows")
+    phase_serving(w8a8_engines, texts, (("w8a8_int8", None),))
+    return all_launches()
+
+
+def phase_serving(engines, texts, routes=(("bf16", None), ("int8", None), ("bf16", FILTER),
+                                          ("ivf_int8_device", None))) -> None:
     from arxiv_rag_tpu_torch.serve import serve_in_thread
 
     print("== phase 4: serving over HTTP", flush=True)
-    for name, cats in (("bf16", None), ("int8", None), ("bf16", FILTER),
-                       ("ivf_int8_device", None)):
+    for name, cats in routes:
         engine = engines[name]
         label = name if cats is None else f"{name} categories={cats}"
         httpd, thread = serve_in_thread(engine, host="127.0.0.1", port=0)
@@ -661,7 +907,16 @@ KERNELS = (
 )
 
 
-def kernels_line(results, launches) -> dict:
+W8A8_KERNELS = (
+    # key, counter, what, TPU kernel
+    ("K7", "w8a8_matmul", "w8a8_matmul (not on the encoder's path)",
+     "arxiv_rag_tpu/ops/pallas_matmul.py:74"),
+    ("K8", "w8a8_matmul_fused_quant", "w8a8_matmul_fused_quant / w8a8_dense",
+     "arxiv_rag_tpu/ops/pallas_matmul.py:88"),
+)
+
+
+def kernels_line(results, launches, w8a8_launches) -> dict:
     out = []
     all_cases = {**results["cases"], **results["ivf_cases"]}
     for key, counter, what, replaces, (dtype, nq) in KERNELS:
@@ -673,6 +928,22 @@ def kernels_line(results, launches) -> dict:
             "source": "arxiv_rag_tpu_torch/csrc/fused_topk.cu",
             "replaces": replaces,
             "launches": launches[counter],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "cases": cases,
+        })
+    m, k, n = W8A8_MAIN
+    for key, counter, what, replaces in W8A8_KERNELS:
+        cases = results["w8a8_cases"][key]
+        main = next(c for c in cases if (c["m"], c["k"], c["n"]) == W8A8_MAIN)
+        out.append({
+            "name": f"{what} ({key}, bf16 out, M={m} K={k} N={n})",
+            "route": "cuda",
+            "source": "arxiv_rag_tpu_torch/csrc/w8a8.cu",
+            "replaces": replaces,
+            "launches": w8a8_launches[counter],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -692,7 +963,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from arxiv_rag_tpu_torch.ops import _build
-    from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
     t_start = time.perf_counter()
     card = card_line()
@@ -701,33 +971,45 @@ def main() -> int:
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    log = _build.build("fused_topk")
-    print(f"  built fused_topk in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"    {line.strip()}", flush=True)
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:  # one nvcc per source
+        logs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    print(f"  built {', '.join(logs)} (in parallel) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"    {name}: {line.strip()}", flush=True)
 
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     indexes = phase_kernels(gen, results)
     ivfs = phase_ivf(gen, results)
+    phase_w8a8_kernels(gen, results)
 
-    ft.reset_launches()  # the main path's run starts here
+    reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)
     phase_serving(engines, texts)
-    launches = dict(ft.LAUNCHES)
+    launches = all_launches()
     for key, counter, *_ in KERNELS:
         if launches[counter] < 1:
             fail(f"the main path launched no {key} ({counter}) kernel")
-    print(f"== main path launches: {launches}", flush=True)
+    print(f"== main path launches (slices 1-2): {launches}", flush=True)
+    w8a8_launches = phase_w8a8_slice(indexes, engines, texts, results)  # counts its own run
+    for key, counter in (("K8", "w8a8_matmul_fused_quant"), ("K1", "fused_topk"),
+                         ("K2", "fused_topk_int8")):
+        if w8a8_launches[counter] < 1:
+            fail(f"the W8A8 path launched no {key} ({counter}) kernel")
+    print(f"== W8A8 path launches: {w8a8_launches} (K7 is not on it: the encoder "
+          "quantizes inside K8)", flush=True)
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
-    print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s; qps "
+    print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
+          f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "
           f"{ {k: round(v, 1) for k, v in results['qps'].items()} }", flush=True)
     print(f"  IVF build {results['ivf_build_s']}", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)
-    print(json.dumps(kernels_line(results, launches)), flush=True)
+    print(json.dumps(kernels_line(results, launches, w8a8_launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

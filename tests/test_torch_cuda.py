@@ -203,3 +203,158 @@ def test_k6_bitwise_k5_without_host_sync(gen, dtype):
     assert ft.LAUNCHES["ivf_topk_device"] == 1 and ft.LAUNCHES["ivf_topk"] == 0
     assert torch.equal(dv, hv) and torch.equal(dl, hl)
     assert ft.LAUNCHES["fused_topk_int8_row"] == (1 if dtype == torch.int8 else 0)
+
+
+# -- slice 3: the W8A8 matmul (K7) and its fused-quantization form (K8) --------
+
+_ENCODER_KN = [(768, 768), (768, 3072), (3072, 768)]
+
+
+def _w8a8_operands(m, k, n, gen, x_dtype=torch.int8):
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
+    w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-2 + 1e-4
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.5
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    if x_dtype == torch.int8:
+        return (*w8a8.quantize_activations(x), w_q, w_scale, bias)
+    return x.to(x_dtype), w_q, w_scale, bias
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", _ENCODER_KN)
+@pytest.mark.parametrize("m", [8192, 1000])  # 1000: a ragged last row block
+def test_k7_bitwise_plain(gen, m, k, n, out_dtype):
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    x_q, a_scale, w_q, w_scale, bias = _w8a8_operands(m, k, n, gen)
+    got = w8a8.w8a8_matmul(x_q, a_scale, w_q, w_scale, bias, out_dtype=out_dtype)
+    want = w8a8.w8a8_matmul_plain(x_q, a_scale, w_q, w_scale, bias, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", _ENCODER_KN)
+def test_k8_bitwise_plain_and_quantize_then_k7(gen, k, n, x_dtype):
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    x, w_q, w_scale, bias = _w8a8_operands(4100, k, n, gen, x_dtype)
+    x[3] = 0  # an all-zero row: the 1e-8 floor
+    w8a8.reset_launches()
+    got = w8a8.w8a8_matmul_fused_quant(x, w_q, w_scale, bias.to(x_dtype), out_dtype=x_dtype)
+    assert w8a8.LAUNCHES["w8a8_matmul_fused_quant"] == 1
+    want = w8a8.w8a8_matmul_fused_quant_plain(x, w_q, w_scale, bias.to(x_dtype),
+                                              out_dtype=x_dtype)
+    assert torch.equal(got, want)
+    x_q, a_scale = w8a8.quantize_activations(x)
+    assert torch.equal(got, w8a8.w8a8_matmul(x_q, a_scale, w_q, w_scale, bias.to(x_dtype),
+                                             out_dtype=x_dtype))
+    assert w8a8.LAUNCHES == {"w8a8_matmul": 1, "w8a8_matmul_fused_quant": 1}
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [3584, 4096])
+def test_k8_32_row_blocks_above_the_64_row_limit(gen, k, x_dtype):
+    """Where 64 quantized rows of K do not fit in shared memory, K8 takes
+    blocks of 32 rows: the same bits."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    lib, dev = w8a8._lib(), torch.device("cuda")
+    assert lib.arag_w8a8_resident_smem(k, 64) > w8a8._smem_limit(dev)
+    assert w8a8._resident_rows(lib, k, dev) == 32
+    x, w_q, w_scale, bias = _w8a8_operands(1000, k, 384, gen, x_dtype)
+    got = w8a8.w8a8_matmul_fused_quant(x, w_q, w_scale, bias)
+    assert torch.equal(got, w8a8.w8a8_matmul_fused_quant_plain(x, w_q, w_scale, bias))
+
+
+def test_k7_dequant_rounds_once_at_a_float64_tie(gen):
+    """t · w_scale + bias whose float64 sum falls on an fp32 midpoint
+    while the exact sum lies below it: the kernel's FMA and the plain
+    version both round the exact sum (1 + 2^-23), not the tie (1 + 2^-22)."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    x_q = torch.zeros(8, 128, dtype=torch.int8, device="cuda")
+    x_q[:, 0] = 1
+    w_q = torch.zeros(128, 128, dtype=torch.int8, device="cuda")
+    w_q[:, 0] = 1
+    w_q[1::2, 0] = -1
+    a_scale = torch.full((8,), 1 + 2.0**-23, device="cuda")  # t = 1 + 2^-23
+    w_scale = torch.full((128,), (2**23 - 1) * 2.0**-47, device="cuda")
+    bias = torch.full((128,), 1 + 2.0**-23, device="cuda")
+    bias[1::2] *= -1
+    got = w8a8.w8a8_matmul(x_q, a_scale, w_q, w_scale, bias)
+    assert torch.equal(got, w8a8.w8a8_matmul_plain(x_q, a_scale, w_q, w_scale, bias))
+    assert (got.abs() == 1 + 2.0**-23).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quantizations_on_the_card_bitwise_cpu(gen, dtype):
+    """quantize_params_int8, quantize_int8 and quantize_activations give on
+    the card the bits they give on the CPU, where tests/test_torch_w8a8.py
+    and tests/test_torch_ops.py hold them against the JAX package. The
+    scale divisions are quotients there too: the product with a
+    reciprocal, which CUDA takes for a CPU-scalar divisor, differs from
+    them on some of these rows."""
+    import copy
+
+    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    def bits(t):
+        return t.cpu().contiguous().view(torch.uint8)
+
+    model = mpnet.random_model(mpnet.ModelConfig(num_hidden_layers=2), seed=5,
+                               param_dtype=dtype, compute_dtype=dtype)
+    on_card = mpnet.quantize_params_int8(model).state_dict()
+    on_cpu = mpnet.quantize_params_int8(copy.deepcopy(model).cpu()).state_dict()
+    assert on_card.keys() == on_cpu.keys()
+    for key, t in on_card.items():
+        assert t.device.type == "cuda" and t.dtype == on_cpu[key].dtype, key
+        assert torch.equal(bits(t), bits(on_cpu[key])), key
+    absmax = torch.stack([lin.weight.to(torch.float32).abs().amax(dim=1)
+                          for layer in model.layers for lin in (layer.attn.q, layer.ffn.out)])
+    assert ((absmax / 127.0).cpu() != absmax.cpu() / 127.0).any()
+    x = torch.randn(70_001, 768, generator=gen, device="cuda").to(getattr(torch, dtype))
+    for fn in (quantize_int8, w8a8.quantize_activations):
+        for got, want in zip(fn(x), fn(x.cpu())):
+            assert torch.equal(bits(got), bits(want)), fn.__name__
+
+
+@pytest.mark.parametrize("k,n", [(64, 100), (48, 257), (16, 8)])
+def test_w8a8_dense_without_the_128_rule(gen, k, n):
+    """The encoder's entry takes any K % 16 == 0 and any N (ragged columns,
+    no bias), as the reference's XLA route does."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    x, w_q, w_scale, _ = _w8a8_operands(3 * 37, k, n, gen, torch.bfloat16)
+    x = x.reshape(3, 37, k)
+    got = w8a8.w8a8_dense(x, w_q, w_scale)
+    assert got.shape == (3, 37, n) and got.dtype == torch.bfloat16
+    assert torch.equal(got, w8a8.w8a8_dense_plain(x, w_q, w_scale))
+    with pytest.raises(ValueError, match="K % 16"):
+        w8a8.w8a8_dense(torch.zeros(4, 40, device="cuda"),
+                        torch.zeros(n, 40, dtype=torch.int8, device="cuda"), w_scale)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_quantized_encoder_kernel_route_bitwise_plain_route(gen, compute_dtype, monkeypatch):
+    """The W8A8 encoder on the card through K8 equals the same quantized
+    model with every dense layer through the plain version, bit for bit."""
+    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    cfg = mpnet.ModelConfig(num_hidden_layers=2)
+    model = mpnet.quantize_params_int8(mpnet.random_model(cfg, seed=3, param_dtype=compute_dtype,
+                                                          compute_dtype=compute_dtype))
+    ids = torch.randint(3, cfg.vocab_size, (8, 128), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[2, 70:] = 0
+    ids[2, 70:] = cfg.pad_token_id
+    w8a8.reset_launches()
+    got = model.encode(ids, mask)
+    assert w8a8.LAUNCHES["w8a8_matmul_fused_quant"] == 6 * cfg.num_hidden_layers
+    monkeypatch.setattr(mpnet, "_dense_int8", lambda x, lin: w8a8.w8a8_dense_plain(
+        x, lin.weight, lin.scale, lin.bias, out_dtype=x.dtype))
+    want = model.encode(ids, mask)
+    assert torch.equal(got, want)
