@@ -1,14 +1,16 @@
-"""Time the flat scans K1 (bf16) and K2 (s8s8) of one checkout of this
-repository, for A/B comparisons of two checkouts on one card:
+"""Time the flat scans K1 (bf16), K2 (s8s8) and K4 (bf16, masked) of one
+checkout of this repository, for A/B comparisons of two checkouts on one
+card:
 
     python3 arxiv_rag_tpu_torch/ab_scans.py --repo CHECKOUT [--seed 0]
 
 imports ``arxiv_rag_tpu_torch`` from ``CHECKOUT`` (building its kernels
 there), scans a 2,000,000 × 768 index made on the card from ``--seed``
-at Q = 32, 64 and 512, k = 10, and prints one JSON line: the card, the
-checkout, nvcc's register/spill report and the median of 20 CUDA-event
-timings per case. Run two checkouts in turns (A, B, B, A) in one call.
-Needs a card; uses only the wrappers both slices of the port share.
+at Q = 32, 64 and 512, k = 10 (K4: each row in one of 8 categories, the
+query mask 3 of them, the last query none), and prints one JSON line:
+the card, the checkout, nvcc's register/spill report and the median of
+20 CUDA-event timings per case. Run two checkouts in turns (A, B, B, A)
+in one call. Needs a card; uses only the wrappers both checkouts have.
 """
 
 from __future__ import annotations
@@ -61,6 +63,10 @@ def main() -> int:
     int8 = build_index(emb, dtype="int8").to_device()
     del emb
     n = bf16._n_valid
+    rows = bf16._device_values.shape[0]  # padded past n_valid
+    row_masks = torch.bitwise_left_shift(
+        torch.ones(rows, dtype=torch.int32, device="cuda"),
+        torch.randint(0, 8, (rows,), generator=gen, device="cuda").to(torch.int32))
     out = {}
     for nq in (32, 64, 512):
         q = torch.randn(nq, 768, generator=gen, device="cuda")
@@ -70,6 +76,11 @@ def main() -> int:
         out[f"K2_s8s8_q{nq}"] = _median_ms(
             lambda: ft.fused_topk_int8(int8._device_values, int8._device_scales, q, 10,
                                        n_valid=n))
+        qmask = torch.full((nq,), 0b111, dtype=torch.int32, device="cuda")
+        qmask[-1] = 0
+        out[f"K4_bf16_q{nq}"] = _median_ms(
+            lambda: ft.fused_topk_masked(bf16._device_values, row_masks, qmask, q, 10,
+                                         n_valid=n))
     print(json.dumps({"card": card, "repo": args.repo, "ms": out, "ptxas": report}))
     return 0
 

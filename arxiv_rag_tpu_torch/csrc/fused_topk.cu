@@ -5,7 +5,8 @@
 // Replaces the TPU kernel arxiv_rag_tpu/ops/pallas_topk.py::_topk_kernel
 // in all the forms the serving paths run:
 //   K1  plain scan (fused_topk): f32 or bf16 index, queries rounded to the
-//       index dtype, fp32 accumulation (true fp32 FMA, no TF32).
+//       index dtype, fp32 accumulation (true fp32 FMA for f32, no TF32;
+//       bf16 x bf16 products on the tensor cores for bf16).
 //   K2  s8s8 scan (fused_topk_int8): int8 index and int8 queries, exact
 //       s32 accumulation (__dp4a), score = float(acc) * row_scale; the
 //       per-query scale multiplies only the k survivors (merge kernel).
@@ -30,30 +31,69 @@
 //
 // Design. The TPU kernel carries one running top-k in scratch across a
 // grid that runs in order. Hopper blocks run in parallel and share
-// nothing, so this is two passes:
-//   scan   grid (query tiles of QT, splits). QT is 16 for the flat scans
-//          and 8 for the block tables (the reference's ivf_q_block), a
-//          template parameter. A flat split is a contiguous chunk of
-//          rows; a table split walks every splits-th entry of its tile's
-//          table row, so the dead visits that a device plan sorts to the
-//          end of a row spread over all splits. A visit's rows are
-//          clipped at n_valid before anything is loaded: a dead visit
-//          (all of its rows past n_valid, by the table contract) costs
-//          one loop step. A block stages its queries in shared memory,
-//          streams rows in tiles of 512 (each 64-byte slice of the tile
-//          loaded coalesced into padded shared rows), and each thread
-//          accumulates 2 rows x QT queries in registers. Rows beating a
-//          query's current k-th score are appended to a per-query
-//          candidate list; one warp per query then merges the candidates
-//          into its sorted running top-k by computing each element's rank
-//          in the union (the order is total and ids are unique, so ranks
-//          are a permutation: a table must not list a block twice). Each
-//          (split, query) writes its k entries to scratch [splits, Q, k]
-//          that the wrapper allocates.
-//   merge  one block per query takes the best head of the split lists k
-//          times (a k-way merge in the same total order, so it is
-//          lossless) and applies the s8s8 query scale.
-// The kernels allocate nothing and launch on the caller's stream.
+// nothing, so every form here is two passes: a scan whose blocks each
+// keep running top-k lists over their rows and write them to scratch
+// [lists, Q, k] that the wrapper allocates, then
+//   merge  one block per query takes the best head of the lists k times
+//          (a k-way merge in the same total order, so it is lossless) and
+//          applies the s8s8 query scale.
+// The kernels allocate nothing and launch on the caller's stream. There
+// are two scans; the wrapper chooses by kind and shape alone
+// (ops/fused_topk.py::scan_route):
+//
+//   tc_scan_kernel: the flat scan of a bf16 index (K1 bf16, K4 bf16), on
+//     the tensor cores. A block takes 64 queries (the wgmma M) and scans a
+//     contiguous split of 128-row tiles. Where they fit beside the ring
+//     (D <= 896), its queries stay in shared memory for the whole call,
+//     loaded once by TMA; at larger D each ring stage carries the query
+//     slice (64 x 64, 8 KB) beside the row slice, so any D fits and the
+//     queries are re-read from L2 once per row tile. One producer warp
+//     feeds each of NC consumer warpgroups a ring of 3 slices (128 rows x
+//     64 columns, 16 KB) by TMA with the 128-byte swizzle, through
+//     full/empty mbarriers; the index's tensor map ends at n_valid, so
+//     the ragged last tile arrives zero-filled (those rows score 0 and
+//     are dropped by id). Warpgroup w takes every NC-th tile of the
+//     split and runs wgmma.m64n128k16 bf16 x bf16 -> fp32 over the D / 64
+//     slices (both operands K-major: queries and rows are row-major), one
+//     slice's products in flight while the next slice's wait. The top-k
+//     runs from the accumulators: the fragment gives each query's 128
+//     tile scores to the four lanes of one quad, 32 each. A lane marks the
+//     scores not below its query's k-th score (it skips the marking when
+//     its largest is below), drops rows past n_valid and, for K4, rows
+//     whose mask misses the query's (a mask-0 query is skipped whole);
+//     then each lane offers its largest marked entry and the quad merges
+//     the four offers into the query's sorted list in shared memory by
+//     rank, until no lane's largest beats the k-th. Entries are 64-bit
+//     keys whose unsigned order is (score desc, id asc), so the lists do
+//     not depend on the order in which rows arrive, and ties keep the
+//     reference's lowest-id rule. Template KCAP (16 or 128) is the list
+//     capacity: k <= 16 runs two consumer warpgroups, k <= 128 one (its
+//     lists fill the shared memory the second would take). Each
+//     (split, warpgroup) writes one list per query.
+//     Grid (query tiles, splits): one block per SM (its shared memory
+//     holds one), the query tiles of a split launched side by side, so
+//     at Q <= 64 the index is read from HBM once and at Q = 512 its eight
+//     query tiles read each row tile within a short window, the later
+//     ones from L2.
+//   scan_kernel: every other kind (f32, s8s8, int8 row) and every block
+//     table (K5, K6; a bf16 index comes here only for these), on the CUDA
+//     cores. Grid (query tiles of QT, splits). QT is 16 for the flat
+//     scans, and 8 or 16 for the block tables (the reference's
+//     ivf_q_block, 8 by default), a template parameter. A flat
+//     split is a contiguous chunk of rows; a table split walks every
+//     splits-th entry of its tile's table row, so the dead visits that a
+//     device plan sorts to the end of a row spread over all splits. A
+//     visit's rows are clipped at n_valid before anything is loaded: a
+//     dead visit (all of its rows past n_valid, by the table contract)
+//     costs one loop step. A block stages its queries in shared memory,
+//     streams rows in tiles of 512 (each 64-byte slice of the tile loaded
+//     coalesced into padded shared rows), and each thread accumulates 2
+//     rows x QT queries in registers (fp32 FMA, __dp4a). Rows beating a
+//     query's current k-th score are appended to a per-query candidate
+//     list; one warp per query then merges the candidates into its sorted
+//     running top-k by computing each element's rank in the union (the
+//     order is total and ids are unique, so ranks are a permutation: a
+//     table must not list a block twice).
 //
 // Bound at the serving shapes (N = 2,000,000, D = 768; H100 SXM data
 // sheet: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s fp32):
@@ -62,14 +102,16 @@
 //   K2 and K3 read 1.54 GB: 0.46 ms; K4 adds 8 MB of row masks.
 //   K5/K6 read only the probed blocks: at nprobe 8 of 4096 clusters a
 //   tile of 8 queries touches a few dozen 1024-row blocks, tens of MB.
-// What the design does about it: this version runs on the CUDA cores
-// (fp32 FMA, __dp4a), not the tensor cores, so at large Q it is bound by
-// CUDA-core arithmetic and by re-reading the index once per query tile;
-// masked rows are still scored (as on the TPU). It keeps scores in
-// registers and never stores them; moving the products to the tensor
-// cores (mma.sync, then wgmma with TMA-fed tiles) is the next step.
-// Measured times are in PERF.md.
+// What the designs do about it: tc_scan_kernel streams the index once
+// per query tile at the tensor cores' rate and keeps its scores in
+// registers; what is left between it and its bound is its epilogue (the
+// marking and merging run between one tile's products and the next).
+// scan_kernel runs on the CUDA cores, so at large Q it is bound by
+// CUDA-core arithmetic and by re-reading the index once per 16 queries;
+// masked rows are still scored (as on the TPU). Measured times are in
+// PERF.md.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -447,6 +489,475 @@ merge_kernel(const float* __restrict__ cand_vals, const int* __restrict__ cand_i
   }
 }
 
+// -- the flat bf16 scan on the tensor cores (K1 bf16, K4 bf16) ----------------
+//
+// (tc_scan_kernel in the note at the head of this file.)
+
+constexpr int kTcQ = 64;                 // queries per block (wgmma M)
+constexpr int kTcRows = 128;             // rows per tile (wgmma N)
+constexpr int kTcK = 64;                 // columns per slice: 128 bytes, one swizzle span
+constexpr int kTcStages = 3;             // ring depth per consumer warpgroup
+constexpr int kTcQTileBytes = kTcQ * kTcK * 2;
+constexpr int kTcXTileBytes = kTcRows * kTcK * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box (columns c0.., rows c1..) into shared memory; completion
+// is counted in bytes on `bar`. Rows past the map's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
+// leading offset is unused for this layout. The tile base is 1024-byte
+// aligned, so a 16-column step inside it is a 32-byte start offset.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Keep the accumulators' reads and writes on their side of a wgmma fence
+// or wait (the asm statements above do not order plain register use).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The epilogue's entries are 64-bit keys whose unsigned order is the
+// (score desc, id asc) order: the score's bits made monotonic above, the
+// inverted id below; 0 is the empty entry (every real key is larger).
+// -0 becomes +0 first, so that equal scores tie as floats do.
+__device__ __forceinline__ uint64_t tc_key(float s, int id) {
+  uint32_t u = __float_as_uint(__fadd_rn(s, 0.f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<uint64_t>(u) << 32) | static_cast<uint32_t>(~id);
+}
+
+__device__ __forceinline__ float tc_key_score(uint64_t key) {
+  if (key == 0) return neg_inf();
+  const uint32_t u = static_cast<uint32_t>(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int tc_key_id(uint64_t key) {
+  return key == 0 ? -1 : static_cast<int>(~static_cast<uint32_t>(key));
+}
+
+// Merge the quad's four candidate keys (0: none; the keys are distinct)
+// into one query's sorted list of k keys; every lane of the warp calls it
+// with its quad's candidates. A key moves down by the number of
+// candidates above it, 16 keys at a time from the end, each chunk read
+// whole before it is written; a candidate lands at the count of list keys
+// and candidates above it, unless that is past k.
+__device__ __forceinline__ void quad_merge(uint64_t* list, int k, const uint64_t (&cand)[4], int t4) {
+  int above[4] = {0, 0, 0, 0};
+  for (int e = t4; e < k; e += 4) {
+    const uint64_t key = list[e];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) above[l] += key > cand[l];
+  }
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    above[l] += __shfl_xor_sync(0xffffffffu, above[l], 1);
+    above[l] += __shfl_xor_sync(0xffffffffu, above[l], 2);
+  }
+  for (int c0 = max(k - 2, 0) / 16 * 16; c0 >= 0; c0 -= 16) {
+    uint64_t moved[4] = {};
+    int to[4] = {k, k, k, k};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int e = c0 + 4 * m + t4;
+      if (e < k) {
+        moved[m] = list[e];
+        int shift = 0;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) shift += cand[l] > moved[m];
+        if (shift > 0) to[m] = e + shift;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (to[m] < k) list[to[m]] = moved[m];
+    __syncwarp();
+  }
+  uint64_t mine = 0;
+  int rank = 0;
+#pragma unroll
+  for (int l = 0; l < 4; ++l)  // this lane's own candidate (no runtime index into registers)
+    if (l == t4) mine = cand[l], rank = above[l];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) rank += cand[l] > mine;
+  if (mine != 0 && rank < k) list[rank] = mine;
+  __syncwarp();
+}
+
+struct TcArgs {
+  const int* row_masks;  // [rows] category bits, or null (no filter)
+  const int* qmask;      // [nq] query bits (with row_masks)
+  long long n_valid;     // rows at or past this id never count
+  int d, nq, k;
+  int tiles_per_split;   // 128-row tiles per split
+  int stream_queries;    // 1: each ring stage carries its query slice
+  float* cand_vals;      // [splits * NC, nq, k]
+  int* cand_ids;
+};
+
+// A ring stage: the row slice, then the query slice when they stream.
+__host__ __device__ constexpr int tc_stage_bytes(bool stream_queries) {
+  return kTcXTileBytes + (stream_queries ? kTcQTileBytes : 0);
+}
+
+// A list row holds KCAP keys and one of padding, so that the eight quads
+// of a warp read their rows from different banks.
+__host__ __device__ constexpr size_t tc_smem_bytes(int kcap, int nc, int d, bool stream_queries) {
+  return 1024 /* alignment slack */ +
+         (stream_queries ? 0 : static_cast<size_t>(d / kTcK) * kTcQTileBytes) +
+         static_cast<size_t>(nc) * kTcStages * tc_stage_bytes(stream_queries) +
+         sizeof(uint64_t) * nc * kTcQ * (kcap + 1) + sizeof(uint64_t) * (1 + 2 * nc * kTcStages);
+}
+
+// KCAP: list capacity (k <= KCAP); NC: consumer warpgroups. A k <= 16
+// block keeps two warpgroups' lists; a k <= 128 block has room for one.
+template <int KCAP, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+    tc_scan_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap qmap, const TcArgs a) {
+  constexpr int kRow = KCAP + 1;
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* base = tc_smem_raw + ((1024 - (smem_u32(tc_smem_raw) & 1023)) & 1023);
+  const int n_slices = a.d / kTcK;
+  const bool qstream = a.stream_queries != 0;
+  const int stage_bytes = tc_stage_bytes(qstream);
+  unsigned char* qs = base;                                    // [n_slices][64][64] bf16, resident
+  unsigned char* xs = qs + (qstream ? 0 : n_slices * kTcQTileBytes);  // [NC][kTcStages] stages
+  uint64_t* lists = reinterpret_cast<uint64_t*>(xs + NC * kTcStages * stage_bytes);  // [NC][64][kRow]
+  uint64_t* qbar = lists + NC * kTcQ * kRow;
+  uint64_t* full = qbar + 1;                                   // [NC][kTcStages]
+  uint64_t* empty = full + NC * kTcStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kTcQ;
+  const int split = blockIdx.y;
+  const long long tile0 = static_cast<long long>(split) * a.tiles_per_split;
+  const long long left = (a.n_valid + kTcRows - 1) / kTcRows - tile0;
+  const int n_tiles = static_cast<int>(max(0LL, min(static_cast<long long>(a.tiles_per_split), left)));
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < NC * kTcStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NC * 4) {
+    // producer: the block's queries once (unless they stream), then each
+    // warpgroup's slices, interleaved so that both rings fill together
+    if (lane == 0) {
+      if (!qstream) {
+        mbar_expect_tx(qbar, n_slices * kTcQTileBytes);
+        for (int s = 0; s < n_slices; ++s)
+          tma_load_2d(qs + s * kTcQTileBytes, &qmap, s * kTcK, q0, qbar);
+      }
+      int stage[NC];
+      uint32_t phase[NC];
+#pragma unroll
+      for (int w = 0; w < NC; ++w) stage[w] = 0, phase[w] = 0;
+      for (int t = 0; t < n_tiles; t += NC) {
+        for (int s = 0; s < n_slices; ++s) {
+#pragma unroll
+          for (int w = 0; w < NC; ++w) {
+            if (t + w >= n_tiles) continue;
+            const int i = w * kTcStages + stage[w];
+            mbar_wait(&empty[i], phase[w] ^ 1);
+            mbar_expect_tx(&full[i], stage_bytes);
+            tma_load_2d(xs + i * stage_bytes, &xmap, s * kTcK,
+                        static_cast<int>((tile0 + t + w) * kTcRows), &full[i]);
+            if (qstream)
+              tma_load_2d(xs + i * stage_bytes + kTcXTileBytes, &qmap, s * kTcK, q0, &full[i]);
+            if (++stage[w] == kTcStages) stage[w] = 0, phase[w] ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w, its warp wi owns query rows 16wi .. 16wi+15;
+  // lane (g, t4) holds rows g and g+8 of them, columns 8i + 2t4 + {0,1}
+  const int w = warp >> 2;
+  const int wi = warp & 3;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const bool masked = a.row_masks != nullptr;
+  const int k = a.k;
+  uint64_t* lists_w = lists + w * kTcQ * kRow;
+  for (int e = lane; e < 16 * kRow; e += 32) lists_w[wi * 16 * kRow + e] = 0;
+  __syncwarp();
+  uint64_t kth[2];  // each query's k-th key, and its score
+  float kth_v[2];
+  int qm[2];
+  bool live[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = q0 + 16 * wi + g + 8 * j;
+    qm[j] = masked && q < a.nq ? a.qmask[q] : 0;
+    live[j] = q < a.nq && (!masked || qm[j] != 0);  // a mask-0 query matches nothing
+    kth[j] = 0;
+    kth_v[j] = neg_inf();
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  if (!qstream) mbar_wait(qbar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = w; t < n_tiles; t += NC) {
+    // one slice's products stay in flight while the next slice's wait
+    int prev = -1;
+    for (int s = 0; s < n_slices; ++s) {
+      const int i = w * kTcStages + stage;
+      mbar_wait(&full[i], phase);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      const unsigned char* xt = xs + i * stage_bytes;
+      const unsigned char* qt = qstream ? xt + kTcXTileBytes : qs + s * kTcQTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kTcK / 16; ++kk)
+        wgmma_m64n128k16(acc, sw128_desc(qt + kk * 32), sw128_desc(xt + kk * 32), s | kk);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      fence_acc(acc);
+      if (prev >= 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = i;
+      if (++stage == kTcStages) stage = 0, phase ^= 1;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // epilogue: mark the scores not below the query's k-th score (a lane
+    // whose best score is below skips it), drop rows past n_valid and
+    // filtered rows, then insert each quad's largest marked key until it
+    // is no larger than the k-th key
+    const int rbase = static_cast<int>((tile0 + t) * kTcRows);
+    uint32_t bits[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float top = acc[2 * j];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) top = fmaxf(top, fmaxf(acc[4 * i + 2 * j], acc[4 * i + 2 * j + 1]));
+      bits[j] = 0;
+      if (live[j] && top >= kth_v[j]) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            bits[j] |= static_cast<uint32_t>(acc[4 * i + 2 * j + c] >= kth_v[j]) << (2 * i + c);
+        for (uint32_t b = bits[j]; b != 0; b &= b - 1) {
+          const int bit = __ffs(b) - 1;
+          const long long row = rbase + 8 * (bit >> 1) + 2 * t4 + (bit & 1);
+          if (row >= a.n_valid || (masked && (a.row_masks[row] & qm[j]) == 0))
+            bits[j] &= ~(1u << bit);
+        }
+      }
+    }
+    while (__any_sync(0xffffffffu, (bits[0] | bits[1]) != 0)) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!__any_sync(0xffffffffu, bits[j] != 0)) continue;  // no quad of the warp has one
+        // the lane's largest marked key: the largest marked score, the
+        // lowest id among equal ones
+        float v[32];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            v[2 * i + c] = ((bits[j] >> (2 * i + c)) & 1u) ? acc[4 * i + 2 * j + c] : neg_inf();
+#pragma unroll
+        for (int m = 0; m < 16; ++m) v[m] = fmaxf(v[m], v[m + 16]);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) v[m] = fmaxf(v[m], v[m + 8]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) v[m] = fmaxf(v[m], v[m + 4]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) v[m] = fmaxf(v[m], v[m + 2]);
+        const float top = fmaxf(v[0], v[1]);
+        uint32_t at_top = 0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            at_top |= static_cast<uint32_t>(acc[4 * i + 2 * j + c] == top) << (2 * i + c);
+        at_top &= bits[j];
+        const int bit = __ffs(at_top) - 1;
+        const uint64_t mine =
+            at_top != 0 ? tc_key(top, rbase + 8 * (bit >> 1) + 2 * t4 + (bit & 1)) : 0;
+        const bool ins = mine > kth[j];
+        // a lane whose largest is no larger than the k-th is done
+        bits[j] = ins ? bits[j] & ~(1u << bit) : 0;
+        uint64_t cand[4];
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+          cand[l] = __shfl_sync(0xffffffffu, ins ? mine : 0ull, (lane & ~3) | l);
+        uint64_t* list = lists_w + (16 * wi + g + 8 * j) * kRow;
+        quad_merge(list, k, cand, t4);
+        kth[j] = list[k - 1];
+        kth_v[j] = tc_key_score(kth[j]);
+      }
+    }
+  }
+
+  __syncwarp();
+  for (int e = lane; e < 16 * k; e += 32) {
+    const int r = 16 * wi + e / k;
+    const int j = e - (e / k) * k;
+    if (q0 + r < a.nq) {
+      const long long o = (static_cast<long long>(split * NC + w) * a.nq + q0 + r) * k + j;
+      const uint64_t key = lists_w[r * kRow + j];
+      a.cand_vals[o] = tc_key_score(key);
+      a.cand_ids[o] = tc_key_id(key);
+    }
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; this library links only the
+// CUDA runtime, which hands out its entry point.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 [rows, d] row-major tensor, read in boxes of box_rows x 64
+// columns with the 128-byte swizzle; rows past `rows` read as zeros.
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, long long rows, int d, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {kTcK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The card's opt-in shared memory per block (227 KB on an H100).
+size_t smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<size_t>(bytes);
+}
+
+// The queries stream through the ring where they do not fit beside it.
+bool tc_streams_queries(int kcap, int nc, int d) {
+  return tc_smem_bytes(kcap, nc, d, false) > smem_optin();
+}
+
+template <int KCAP, int NC>
+cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& qm, TcArgs a, int n_splits,
+                      cudaStream_t stream) {
+  a.stream_queries = tc_streams_queries(KCAP, NC, a.d);
+  const size_t smem = tc_smem_bytes(KCAP, NC, a.d, a.stream_queries);
+  cudaError_t err = cudaFuncSetAttribute(tc_scan_kernel<KCAP, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nq + kTcQ - 1) / kTcQ, n_splits);
+  tc_scan_kernel<KCAP, NC><<<grid, NC * 128 + 32, smem, stream>>>(xm, qm, a);
+  return cudaGetLastError();
+}
+
+constexpr int tc_lists(int k) { return k <= 16 ? 2 : 1; }
+
 size_t scan_smem_bytes(int kind, int qt, int d) {
   const size_t qbytes = kind == kS8 ? 1 : 4;
   return qt * d * qbytes + static_cast<size_t>(kTileRows) * kRowStride +
@@ -504,6 +1015,36 @@ int arag_topk_scan(int kind, int qt, const void* x, const float* scales, const i
     case 8: return static_cast<int>(launch_kind<8>(kind, a, n_splits, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tensor-core bf16 scan: shared memory per block on the current
+// card (queries resident where they fit, else streamed), and the number
+// of candidate lists each (split, query) writes, for k and dimension d.
+size_t arag_topk_tc_smem(int k, int d) {
+  const int kcap = k <= 16 ? 16 : kKMax;
+  const int nc = tc_lists(kcap);
+  return tc_smem_bytes(kcap, nc, d, tc_streams_queries(kcap, nc, d));
+}
+
+int arag_topk_tc_lists(int k) { return tc_lists(k); }
+
+// Flat scan of a bf16 index x [>= n_valid, d] for bf16 queries q [nq, d]
+// (d % 64 == 0, both 16-byte aligned) on the tensor cores, in n_splits
+// chunks of tiles_per_split 128-row tiles; row_masks/qmask null for an
+// unfiltered scan. Writes [n_splits * arag_topk_tc_lists(k), nq, k]
+// candidates for arag_topk_merge. Returns the launch's cudaError_t.
+int arag_topk_tc_scan(const void* x, const int* row_masks, const int* qmask, const void* q,
+                      long long n_valid, int d, int nq, int k, int tiles_per_split, int n_splits,
+                      float* cand_vals, int* cand_ids, void* stream) {
+  CUtensorMap xm, qm;
+  // an empty scan still needs a map over one row; it never loads from it
+  cudaError_t err = bf16_map(&xm, x, n_valid > 0 ? n_valid : 1, d, kTcRows);
+  if (err == cudaSuccess) err = bf16_map(&qm, q, nq, d, kTcQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TcArgs a{row_masks, qmask, n_valid, d, nq, k, tiles_per_split, 0, cand_vals, cand_ids};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(k <= 16 ? launch_tc<16, tc_lists(16)>(xm, qm, a, n_splits, s)
+                                  : launch_tc<kKMax, tc_lists(kKMax)>(xm, qm, a, n_splits, s));
 }
 
 // qscale may be null (no per-query scale). Returns the launch's cudaError_t.

@@ -4,7 +4,10 @@ The port of ``arxiv_rag_tpu/ops/pallas_topk.py``: ``fused_topk`` :810
 (K1), ``fused_topk_int8`` :928 with its s8s8 default (K2) and its "row"
 variant (K3), and the masked forms ``fused_topk_masked`` :864 and
 ``fused_topk_int8_masked`` :1011 (K4). The kernels are in
-``csrc/fused_topk.cu``; their design and bound are noted there. The
+``csrc/fused_topk.cu``; their design and bound are noted there. A flat
+scan of a bf16 index runs on the tensor cores (``tc_scan_kernel``);
+every other kind, and every block table, on the CUDA cores
+(``scan_kernel``): ``scan_route`` chooses by kind and shape alone. The
 block-table scans of the IVF route (K5, K6) launch the same kernel
 through ``scan_table`` (see ``ops/ivf.py``).
 
@@ -41,8 +44,10 @@ import torch
 from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 K_MAX = 128
-_QT = 16  # queries per flat scan block (csrc/fused_topk.cu, template QT)
-_TILE_ROWS = 512  # rows per scan tile (kTileRows)
+_QT = 16  # queries per CUDA-core scan block (csrc/fused_topk.cu, template QT)
+_TILE_ROWS = 512  # rows per CUDA-core scan tile (kTileRows)
+TC_QUERIES = 64  # queries per tensor-core scan block (kTcQ, the wgmma M)
+TC_ROWS = 128  # rows per tensor-core scan tile (kTcRows, the wgmma N)
 _KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
 _PLAIN_SCORE_ELEMS = 1 << 26  # plain versions score this many [q, row] pairs at a time
 
@@ -224,6 +229,12 @@ def _lib() -> ctypes.CDLL:
         lib.arag_topk_merge.restype = i32
         lib.arag_topk_scan_smem.argtypes = [i32, i32, i32]
         lib.arag_topk_scan_smem.restype = ctypes.c_size_t
+        lib.arag_topk_tc_scan.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p]
+        lib.arag_topk_tc_scan.restype = i32
+        lib.arag_topk_tc_smem.argtypes = [i32, i32]
+        lib.arag_topk_tc_smem.restype = ctypes.c_size_t
+        lib.arag_topk_tc_lists.argtypes = [i32]
+        lib.arag_topk_tc_lists.restype = i32
         lib.arag_error_string.argtypes = [i32]
         lib.arag_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -244,6 +255,31 @@ def plan_chunks(n_rows: int, nq: int, sm_count: int) -> tuple[int, int]:
     n_chunks = min(tiles, max(1, -(-4 * sm_count // q_tiles)))
     per_chunk = -(-tiles // n_chunks)
     return per_chunk * _TILE_ROWS, -(-tiles // per_chunk)
+
+
+def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
+    """(rows per split, splits, query tiles) of the tensor-core scan: one
+    block per SM (its shared memory holds one), the query tiles of a split
+    side by side in the grid so that they stream the same rows at once and
+    share them in L2; splits a whole number of 128-row tiles."""
+    q_tiles = -(-nq // TC_QUERIES)
+    tiles = max(1, -(-n_rows // TC_ROWS))
+    n_splits = min(tiles, 65535, max(1, sm_count // q_tiles))
+    per_split = -(-tiles // n_splits)
+    return per_split * TC_ROWS, -(-tiles // per_split), q_tiles
+
+
+def scan_route(kind: str, table: bool) -> str:
+    """The kernel a scan launches: ``"tc"`` (the tensor-core kernel) for a
+    flat bf16 scan, ``"cuda_core"`` (``scan_kernel``) for every other kind
+    and for the block tables."""
+    return "tc" if kind == "bf16" and not table else "cuda_core"
+
+
+def tc_queries(queries: torch.Tensor) -> torch.Tensor:
+    """The bf16 queries the tensor-core scan reads: fp32, then rounded to
+    the nearest bf16 (ties to even), as ``round_queries`` rounds them."""
+    return queries.to(torch.float32).to(torch.bfloat16).contiguous()
 
 
 def plan_splits(width: int, q_tiles: int, sm_count: int) -> int:
@@ -280,23 +316,17 @@ def _check_qmask(query_mask: torch.Tensor, q: torch.Tensor) -> None:
 
 def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
             table=None, block_rows=0):
-    """Scan then merge. ``table`` (int32 [tiles, width] block ids) selects
-    the block-table scan; otherwise rows [0, n_valid) are scanned flat."""
-    _check_cuda(x, q)
-    _check_side(scales, "scales", x, torch.float32)
-    _check_side(row_masks, "row_masks", x, torch.int32)
-    if row_masks is not None:
-        _check_qmask(qmask, q)
+    """Scan on the CUDA cores, then merge. ``table`` (int32 [tiles, width]
+    block ids) selects the block-table scan; otherwise rows [0, n_valid)
+    are scanned flat."""
+    if scan_route(kind, table is not None) != "cuda_core":
+        raise ValueError(f"a flat {kind} scan runs on the tensor-core kernel")
+    _check_operands(x, q, scales, row_masks, qmask)
     lib = _lib()
     dev = x.device
     d = x.shape[1]
     nq = q.shape[0]
-    props = torch.cuda.get_device_properties(dev)
-    smem = lib.arag_topk_scan_smem(_KIND[kind], qt, d)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(f"D={d} needs {smem} bytes of shared memory per block; "
-                         f"the card allows {limit}")
+    props = _check_smem(lib.arag_topk_scan_smem(_KIND[kind], qt, d), dev, d)
     q_tiles = -(-nq // qt)
     if table is None:
         chunk_rows, n_splits = plan_chunks(n_valid, nq, props.multi_processor_count)
@@ -308,28 +338,80 @@ def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
                              f"on {dev}, got {table.dtype} {tuple(table.shape)}")
         chunk_rows, width = 0, table.shape[1]
         n_splits = plan_splits(width, q_tiles, props.multi_processor_count)
-    cand_v = torch.empty((n_splits, nq, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_splits, nq, k), dtype=torch.int32, device=dev)
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    cand_v, cand_i = _scratch(n_splits, nq, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arag_topk_scan(
-            _KIND[kind], qt, x.data_ptr(), ptr(scales), ptr(row_masks),
-            ptr(qmask if row_masks is not None else None), q.data_ptr(), n_valid, d, nq, k,
-            chunk_rows, ptr(table), width, block_rows, n_splits,
+            _KIND[kind], qt, x.data_ptr(), _ptr(scales), _ptr(row_masks),
+            _ptr(qmask if row_masks is not None else None), q.data_ptr(), n_valid, d, nq, k,
+            chunk_rows, _ptr(table), width, block_rows, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
         _raise_on(lib, err, "fused top-k scan")
-        err = lib.arag_topk_merge(
-            cand_v.data_ptr(), cand_i.data_ptr(), n_splits, nq, k, ptr(qscale),
-            out_v.data_ptr(), out_i.data_ptr(), stream,
+        return _merge(lib, cand_v, cand_i, qscale, stream)
+
+
+def _launch_tc(x, row_masks, qmask, q, k, n_valid):
+    """The flat bf16 scan on the tensor cores (bf16 queries ``q``), then
+    the merge of its [splits × lists, Q, k] candidates."""
+    _check_operands(x, q, None, row_masks, qmask)
+    lib = _lib()
+    dev = x.device
+    d = x.shape[1]
+    nq = q.shape[0]
+    props = _check_smem(lib.arag_topk_tc_smem(k, d), dev, d)
+    split_rows, n_splits, _ = plan_tc(n_valid, nq, props.multi_processor_count)
+    cand_v, cand_i = _scratch(n_splits * lib.arag_topk_tc_lists(k), nq, k, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.arag_topk_tc_scan(
+            x.data_ptr() if x.shape[0] else q.data_ptr(),  # an empty index loads nothing
+            _ptr(row_masks), _ptr(qmask if row_masks is not None else None), q.data_ptr(),
+            n_valid, d, nq, k, split_rows // TC_ROWS, n_splits,
+            cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
-        _raise_on(lib, err, "fused top-k merge")
+        _raise_on(lib, err, "tensor-core top-k scan")
+        return _merge(lib, cand_v, cand_i, None, stream)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_operands(x, q, scales, row_masks, qmask) -> None:
+    _check_cuda(x, q)
+    _check_side(scales, "scales", x, torch.float32)
+    _check_side(row_masks, "row_masks", x, torch.int32)
+    if row_masks is not None:
+        _check_qmask(qmask, q)
+
+
+def _check_smem(smem: int, dev, d: int):
+    """The card's properties, after checking that a block of ``smem``
+    bytes of shared memory fits."""
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if smem > limit:
+        raise ValueError(f"D={d} needs {smem} bytes of shared memory per block; "
+                         f"the card allows {limit}")
+    return props
+
+
+def _scratch(n_lists: int, nq: int, k: int, dev):
+    return (torch.empty((n_lists, nq, k), dtype=torch.float32, device=dev),
+            torch.empty((n_lists, nq, k), dtype=torch.int32, device=dev))
+
+
+def _merge(lib, cand_v, cand_i, qscale, stream):
+    """k-way merge of the [lists, Q, k] candidates (× the query scale)."""
+    n_lists, nq, k = cand_v.shape
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=cand_v.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=cand_v.device)
+    err = lib.arag_topk_merge(
+        cand_v.data_ptr(), cand_i.data_ptr(), n_lists, nq, k, _ptr(qscale),
+        out_v.data_ptr(), out_i.data_ptr(), stream,
+    )
+    _raise_on(lib, err, "fused top-k merge")
     return out_v, out_i
 
 
@@ -340,15 +422,22 @@ def _route(t: torch.Tensor) -> str:
 
 
 def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n):
-    """Launch a flat scan; queries go in as fp32 (int8 for s8s8)."""
-    if kind == "s8s8":
+    """Launch a flat scan: a bf16 index on the tensor cores (bf16 queries),
+    the other kinds on the CUDA cores (fp32 queries, int8 for s8s8)."""
+    tc = scan_route(kind, table=False) == "tc"
+    qscale = None
+    if tc:
+        q = tc_queries(queries)
+    elif kind == "s8s8":
         q8, qs = quantize_queries(queries)
         q, qscale = q8.contiguous(), qs.contiguous()
     else:
-        q, qscale = queries.to(torch.float32).contiguous(), None
+        q = queries.to(torch.float32).contiguous()
     if q.shape[0] == 0:
         _check_cuda(values, q)
         return _empty(k, values.device)
+    if tc:
+        return _launch_tc(values, row_masks, query_mask, q, k, n)
     return _launch(kind, _QT, values, scales, row_masks, query_mask, q, qscale, k, n)
 
 

@@ -14,7 +14,10 @@ its first failure:
    (one nvcc per source, all started together);
 2. kernels against their plain versions at full size, with times
    (median of CUDA-event timings), bounds and a library yardstick:
-   K1/K2 flat scans, K4 masked scans, K3 int8 row scan; then an IVF
+   K1/K2 flat scans, K4 masked scans, K3 int8 row scan (K1 and K4 on a
+   bf16 index run on the tensor cores: their achieved TFLOP/s and GB/s,
+   the kernel's ptxas report, and the library call with fp32 scores as
+   the yardstick, its bf16-score form beside it); then an IVF
    index (k-means on the card, 4096 clusters) over a clustered corpus:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
@@ -45,6 +48,7 @@ import argparse
 import contextlib
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,17 +112,23 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_rows: int, nq: int, k: int, dtype: torch.dtype, *, row_extra: int = 0,
-             op_dtype: torch.dtype | None = None):
-    """Least time for a flat scan: each input read once (index rows,
+def flat_bytes(n_rows: int, nq: int, k: int, dtype: torch.dtype, row_extra: int = 0) -> int:
+    """Bytes a flat scan must move: each input read once (index rows,
     queries, row scales for int8, ``row_extra`` more bytes per row such as
-    a row mask), each output written once, against the products 2·Q·N·D
-    at the peak rate of ``op_dtype`` (the operand type; the index's by
-    default)."""
+    a row mask), each output written once."""
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = n_rows * (DIM * item + row_extra) + nq * DIM * item + nq * k * 8
     if dtype == torch.int8:
         nbytes += n_rows * 4 + nq * 4
+    return nbytes
+
+
+def bound_ms(n_rows: int, nq: int, k: int, dtype: torch.dtype, *, row_extra: int = 0,
+             op_dtype: torch.dtype | None = None):
+    """Least time for a flat scan: ``flat_bytes`` at the memory rate,
+    against the products 2·Q·N·D at the peak rate of ``op_dtype`` (the
+    operand type; the index's by default)."""
+    nbytes = flat_bytes(n_rows, nq, k, dtype, row_extra)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * nq * n_rows * DIM / PEAK_OPS[op_dtype or dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -204,9 +214,34 @@ def int8_library(x8, s8, q, k, row_masks=None, qmask=None):
 
 def report(c: dict) -> None:
     lib = "none" if c.get("library_ms") is None else f"{c['library_ms']:.3f} ms"
+    if "library_bf16_ms" in c:
+        lib += f" (fp32 scores; bf16 scores {c['library_bf16_ms']:.3f} ms)"
+    rates = (f", {c['tflops']:.1f} TFLOP/s, {c['gbps']:.1f} GB/s effective"
+             if "tflops" in c else "")
     print(f"  {c['dtype']} Q={c['q']} k={c['k']}: kernel {c['ms']:.3f} ms, plain "
           f"{c['plain_ms']:.3f} ms, library {lib}, "
-          f"bound {c['bound_ms']:.3f} ms ({c['bound_by']})", flush=True)
+          f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}){rates}", flush=True)
+
+
+def tc_rates(case: dict, row_extra: int = 0) -> None:
+    """Achieved rates of a tensor-core scan: the products 2·Q·N·D and
+    ``flat_bytes`` over its time."""
+    n, nq, ms = case["rows"], case["q"], case["ms"]
+    case["tflops"] = 2.0 * nq * n * DIM / ms / 1e9
+    case["gbps"] = flat_bytes(n, nq, case["k"], torch.bfloat16, row_extra) / ms / 1e6
+
+
+def library_topk(q, x, k, row_masks=None, qmask=None, out_dtype=torch.float32):
+    """K1's (and masked K4's) library yardstick: the bf16 products on the
+    tensor cores (``torch.mm``) with fp32 scores, as the kernel keeps
+    them (``out_dtype=torch.bfloat16``: the products rounded to bf16),
+    filtered with ``torch.where``, then ``torch.topk``."""
+    qb = q.to(torch.bfloat16)
+    s = (torch.mm(qb, x.T, out_dtype=torch.float32) if out_dtype == torch.float32
+         else torch.mm(qb, x.T))
+    if row_masks is not None:
+        s = torch.where(eligible(row_masks, qmask), s, float("-inf"))
+    return torch.topk(s, k)
 
 
 def build_with_categories(emb, dtype, gen):
@@ -256,7 +291,13 @@ def phase_kernels(gen, results) -> dict:
             if k == 10:
                 case["ms"] = median_ms(lambda: ft.fused_topk(x, q, k, n_valid=n_valid))
                 case["plain_ms"] = median_ms(lambda: ft.fused_topk_plain(x, q, k, n_valid=n_valid))
-                case["library_ms"] = median_ms(lambda: torch.topk(torch.matmul(qx, x.T), k))
+                if label == "bf16":  # over all 2M rows: a row count cuBLAS tiles evenly
+                    case["library_ms"] = median_ms(lambda: library_topk(q, x, k))
+                    case["library_bf16_ms"] = median_ms(
+                        lambda: library_topk(q, x, k, out_dtype=torch.bfloat16))
+                    tc_rates(case)
+                else:
+                    case["library_ms"] = median_ms(lambda: torch.topk(torch.matmul(qx, x.T), k))
                 case["bound_ms"], case["bound_by"] = bound_ms(n_valid, nq, k, x.dtype)
                 report(case)
             cases["K1"].append(case)
@@ -282,6 +323,11 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
     n = N_RAGGED
+    # the library calls scan all 2M rows (a row count cuBLAS tiles evenly;
+    # n_valid = 1,999,937 makes its products 2-3x slower), rows past
+    # n_valid carrying mask 0
+    mb_lib = mb.clone()
+    mb_lib[n:] = 0
     for nq, k in ((32, 10), (64, 10), (512, 10), (32, 128), (64, 128), (512, 128)):
         q = unit_rows(nq, gen)
         qm = torch.full((nq,), 0b111, dtype=torch.int32, device="cuda")
@@ -295,15 +341,17 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
             fail("K4 bf16: the mask-0 query returned rows")
         case = {"dtype": "bf16", "rows": n, "q": nq, "k": k, "max_abs_err": err}
         if timed:
-            qb = q.to(torch.bfloat16)
             case["ms"] = median_ms(lambda: ft.fused_topk_masked(xb, mb, qm, q, k, n_valid=n))
             case["plain_ms"] = median_ms(
                 lambda: ft.fused_topk_masked_plain(xb, mb, qm, q, k, n_valid=n), PLAIN_RUNS)
-            case["library_ms"] = median_ms(lambda: torch.topk(torch.where(
-                eligible(mb[:n], qm), torch.matmul(qb, xb[:n].T), float("-inf")), k),
+            case["library_ms"] = median_ms(
+                lambda: library_topk(q, xb, k, mb_lib, qm), PLAIN_RUNS)
+            case["library_bf16_ms"] = median_ms(
+                lambda: library_topk(q, xb, k, mb_lib, qm, out_dtype=torch.bfloat16),
                 PLAIN_RUNS)
             case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.bfloat16,
                                                           row_extra=4)
+            tc_rates(case, row_extra=4)
             report(case)
         cases["K4"].append(case)
         # K4, s8s8 (the reference's int8 default)
@@ -486,8 +534,12 @@ def phase_ivf(gen, results) -> dict:
         else:
             fv, fi = ft.fused_topk_int8(ivf.values, ivf.scales, q, 10, n_valid=ivf.n_valid,
                                         variant="row")
-        check_k2(v, i, fv, fi, f"K6 {name} full probe (nprobe {N_CLUSTERS}) vs the flat "
-                               f"{'K1' if name == 'bf16' else 'K3'} scan of the IVF order")
+        what = (f"K6 {name} full probe (nprobe {N_CLUSTERS}) vs the flat "
+                f"{'K1' if name == 'bf16' else 'K3'} scan of the IVF order")
+        if name == "bf16":  # K1 bf16 sums on the tensor cores, in another order
+            check_k1(v, i, fv, fi, what)
+        else:
+            check_k2(v, i, fv, fi, what)
     results["ivf_cases"] = cases
     return {"dense": dense, "ivf": ivfs}
 
@@ -607,22 +659,25 @@ def phase_w8a8_kernels(gen, results) -> None:
     torch.cuda.empty_cache()
 
 
-def timed_search(engine, qtexts, results, label, counters, **kw):
-    """One warm search, then one timed; returns the hits and records qps
-    and the launches of ``counters`` in the timed search."""
+def timed_search(engine, qtexts, results, label, counters, runs=3, **kw):
+    """One warm search, then ``runs`` timed back to back; returns the hits
+    and records qps as all their queries over the whole timed window, and
+    the launches of ``counters`` per search."""
     engine.search(qtexts, k=10, **kw)  # warm
     before = all_launches()
     t0 = time.perf_counter()
-    hits = engine.search(qtexts, k=10, **kw)
+    for _ in range(runs):
+        hits = engine.search(qtexts, k=10, **kw)
     dt = time.perf_counter() - t0
     after = all_launches()
-    launched = {c: after[c] - before[c] for c in counters}
-    results.setdefault("qps", {})[label] = len(qtexts) / dt
+    launched = {c: (after[c] - before[c]) // runs for c in counters}
+    results.setdefault("qps", {})[label] = runs * len(qtexts) / dt
     results.setdefault("launches_per_search", {})[label] = launched
     if min(launched.values()) < 1:
         fail(f"{label}: engine.search launched none of {counters}: {launched}")
-    print(f"  {label}: {len(qtexts)} text queries in {dt * 1e3:.1f} ms end to end = "
-          f"{len(qtexts) / dt:.1f} qps; launches in this search: {launched}", flush=True)
+    print(f"  {label}: {runs} searches of {len(qtexts)} text queries in {dt * 1e3:.1f} ms end "
+          f"to end ({dt / runs * 1e3:.1f} ms each) = {runs * len(qtexts) / dt:.1f} qps; "
+          f"launches per search: {launched}", flush=True)
     return hits
 
 
@@ -953,6 +1008,28 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
     return {"kernels": out}
 
 
+def tc_ptxas(log: str) -> list[str]:
+    """The tensor-core scan's ptxas report, one line per instantiation:
+    registers, stack and spills, and the dynamic shared memory a block
+    takes at D = 768 (its ptxas line counts only the static part)."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+
+    lib, out, name = ft._lib(), [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"tc_scan_kernelILi(\d+)ELi(\d+)E", line)
+            name = m and (int(m.group(1)), int(m.group(2)))
+        elif name and ("stack frame" in line or "registers" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    lines = []
+    for kcap, nc in sorted({n for n, _ in out}):
+        facts = "; ".join(f for n, f in out if n == (kcap, nc))
+        smem = lib.arag_topk_tc_smem(kcap, DIM)
+        lines.append(f"ptxas tc_scan_kernel<KCAP={kcap}, warpgroups={nc}>: {facts}; "
+                     f"dynamic shared memory {smem} B at D={DIM}")
+    return lines or ["ptxas tc_scan_kernel: no report (the library was built before this run)"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -979,6 +1056,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}", flush=True)
+    for line in tc_ptxas(logs["fused_topk"]):
+        print(f"  {line}", flush=True)
 
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

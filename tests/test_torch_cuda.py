@@ -77,12 +77,96 @@ def test_bf16_products_keep_fp32(gen, batched):
     assert (torch.matmul(a, b).to(torch.float32) - want).abs().max().item() > 1e-3
 
 
-def test_launches_are_counted(gen):
-    x = _unit(4096, 128, gen)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launches_are_counted(gen, dtype):
+    x = _unit(4096, 128, gen).to(dtype)
     ft.reset_launches()
-    ft.fused_topk(x, x[:3], 5)
-    ft.fused_topk_plain(x, x[:3], 5)
+    ft.fused_topk(x, x[:3].float(), 5)
+    ft.fused_topk_plain(x, x[:3].float(), 5)
     assert ft.LAUNCHES["fused_topk"] == 1
+
+
+# -- the tensor-core bf16 scan (K1 bf16, K4 bf16) ------------------------------
+
+
+def _check_like_plain(v, i, pv, pi, n_valid):
+    """Within 1e-4 (fp32 sums in another order), tie-tolerant recall 1.0,
+    the empty slots (-inf, -1) in the same places, no id past n_valid."""
+    v, i, pv, pi = (t.cpu().numpy() for t in (v, i, pv, pi))
+    real = pi >= 0
+    assert ((i >= 0) == real).all() and (v[~real] == -float("inf")).all()
+    assert i.max(initial=-1) < n_valid
+    if real.any():
+        assert abs(v[real] - pv[real]).max() <= 1e-4
+    assert recall_at_k(i, pi, pv, tie_tol=1e-4, candidate_scores=v) == 1.0
+
+
+# (Q, k, D, rows, n_valid, masked): the query tile's edges (64 per block),
+# the list capacity's (16 per list, 128), D at one, two and twelve slices;
+# n_valid off the 128-row tile, below one tile, and 0. D = 896 is the
+# largest whose queries stay resident in shared memory; from 960 on they
+# stream through the ring (1408: the largest D the CUDA-core scan took)
+_TC_CASES = [
+    *[(nq, 10, 768, 20_000, 19_937, False) for nq in (1, 63, 64, 65, 129, 512)],
+    *[(65, k, 128, 20_000, 19_937, False) for k in (1, 16, 17, 128)],
+    (64, 10, 64, 20_000, 19_937, False),
+    (129, 10, 128, 20_000, 19_937, True),
+    (512, 10, 768, 20_000, 19_937, True),
+    (63, 128, 768, 20_000, 19_937, True),
+    (65, 17, 64, 20_000, 19_937, True),
+    (70, 10, 128, 300, 100, False),
+    (70, 128, 128, 300, 100, True),
+    (3, 5, 128, 300, 0, False),
+    (65, 10, 896, 5_000, 4_937, False),
+    (65, 128, 896, 5_000, 4_937, True),
+    (1, 10, 960, 5_000, 4_937, False),
+    (129, 10, 1024, 5_000, 4_937, True),
+    (65, 128, 1024, 5_000, 4_937, False),
+    (64, 17, 1408, 5_000, 4_937, True),
+    (70, 16, 2048, 5_000, 4_937, False),
+]
+
+
+@pytest.mark.parametrize("nq,k,d,n,n_valid,masked", _TC_CASES)
+def test_tc_scan_matches_plain(gen, nq, k, d, n, n_valid, masked):
+    """The rows past n_valid are copies of a query: read, they would win."""
+    x = _unit(n, d, gen)
+    q = _unit(nq, d, gen)
+    x[n_valid:] = q[0]
+    x = x.to(torch.bfloat16)
+    ft.reset_launches()
+    if masked:
+        rm, qm = _masks(n, nq, gen)
+        v, i = ft.fused_topk_masked(x, rm, qm, q, k, n_valid=n_valid)
+        pv, pi = ft.fused_topk_masked_plain(x, rm, qm, q, k, n_valid=n_valid)
+        assert (i[0] == -1).all() and torch.isinf(v[0]).all()  # the mask-0 query
+        assert ft.LAUNCHES["fused_topk_masked"] == 1
+    else:
+        v, i = ft.fused_topk(x, q, k, n_valid=n_valid)
+        pv, pi = ft.fused_topk_plain(x, q, k, n_valid=n_valid)
+        assert ft.LAUNCHES["fused_topk"] == 1
+    assert v.shape == (nq, k) and v.dtype == torch.float32 and i.dtype == torch.int32
+    _check_like_plain(v, i, pv, pi, n_valid)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [10, 128])
+def test_tc_ties_ids_bitwise_plain(gen, k, masked):
+    """Duplicated bf16 rows tie exactly across tiles, splits and lists:
+    the lowest ids win, as in the plain version, id for id."""
+    base = _unit(40, 128, gen)
+    x = base.repeat(40, 1).to(torch.bfloat16)
+    q = _unit(70, 128, gen)
+    if masked:
+        rm, qm = _masks(x.shape[0], 70, gen)
+        v, i = ft.fused_topk_masked(x, rm, qm, q, k)
+        pv, pi = ft.fused_topk_masked_plain(x, rm, qm, q, k)
+    else:
+        v, i = ft.fused_topk(x, q, k)
+        pv, pi = ft.fused_topk_plain(x, q, k)
+    assert torch.equal(i, pi)
+    _check_like_plain(v, i, pv, pi, x.shape[0])
+
 
 
 # -- slice 2: masked (K4), int8 row (K3), block tables (K5), device plan (K6) --
@@ -155,14 +239,16 @@ def _ivf_layout(gen, dtype, block_rows, n=20_000):
     return pad_index_for_ivf(x, block_rows, scales=scales, row_masks=rm), n
 
 
+@pytest.mark.parametrize("q_block", [8, 16])
 @pytest.mark.parametrize("block_rows", [1024, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_k5_matches_plain(gen, dtype, block_rows):
+def test_k5_matches_plain(gen, dtype, block_rows, q_block):
+    """Both tile heights the block tables take (``ivf_q_block``)."""
     from arxiv_rag_tpu_torch.ops import ivf as oivf
 
     (x, s, rm, dead), n = _ivf_layout(gen, dtype, block_rows)
     q = _unit(21, 768, gen)  # a ragged last tile
-    tiles = 3
+    tiles = -(-21 // q_block)
     table = torch.full((tiles, 12), dead, dtype=torch.int32)
     for t in range(tiles):
         real = torch.randperm(dead, generator=torch.Generator().manual_seed(t))[: 4 + 3 * t]
@@ -172,9 +258,9 @@ def test_k5_matches_plain(gen, dtype, block_rows):
         if dtype == torch.int8:
             kw["scales"] = s
         v, i = oivf._table_scan(x, table, q, 10, n_valid=n, block_rows=block_rows,
-                                q_block=8, **kw)
+                                q_block=q_block, **kw)
         pv, pi = oivf.ivf_topk_plain(x, table, q, 10, n_valid=n, block_rows=block_rows,
-                                     q_block=8, **kw)
+                                     q_block=q_block, **kw)
         v, i, pv, pi = (t.cpu().numpy() for t in (v, i, pv, pi))
         real = pi >= 0
         assert ((i >= 0) == real).all() and abs(v[real] - pv[real]).max() <= 1e-4
