@@ -1,13 +1,14 @@
-"""Time the flat scans K1 (bf16), K2 (s8s8) and K4 (bf16, masked) of one
-checkout of this repository, for A/B comparisons of two checkouts on one
-card:
+"""Time the flat scans K1 (bf16 and f32), K2 (s8s8) and K4 (bf16, masked)
+of one checkout of this repository, for A/B comparisons of two checkouts
+on one card:
 
     python3 arxiv_rag_tpu_torch/ab_scans.py --repo CHECKOUT [--seed 0]
 
 imports ``arxiv_rag_tpu_torch`` from ``CHECKOUT`` (building its kernels
 there), scans a 2,000,000 × 768 index made on the card from ``--seed``
-at Q = 32, 64 and 512, k = 10 (K4: each row in one of 8 categories, the
-query mask 3 of them, the last query none), and prints one JSON line:
+at Q = 32, 64 and 512, k = 10 (K1 f32 also over its first 262,144 rows;
+K4: each row in one of 8 categories, the query mask 3 of them, the last
+query none), and prints one JSON line:
 the card, the checkout, nvcc's register/spill report and the median of
 20 CUDA-event timings per case. Run two checkouts in turns (A, B, B, A)
 in one call. Needs a card; uses only the wrappers both checkouts have.
@@ -61,6 +62,7 @@ def main() -> int:
     emb = torch.randn(2_000_000, 768, generator=gen, device="cuda")
     bf16 = build_index(emb, dtype="bfloat16").to_device()
     int8 = build_index(emb, dtype="int8").to_device()
+    f32 = build_index(emb, dtype="float32").to_device()
     del emb
     n = bf16._n_valid
     rows = bf16._device_values.shape[0]  # padded past n_valid
@@ -73,6 +75,9 @@ def main() -> int:
         q = q / q.norm(dim=1, keepdim=True)
         out[f"K1_bf16_q{nq}"] = _median_ms(
             lambda: ft.fused_topk(bf16._device_values, q, 10, n_valid=n))
+        for label, rows_f32 in (("K1_f32", n), ("K1_f32_262144", 262_144)):
+            out[f"{label}_q{nq}"] = _median_ms(
+                lambda: ft.fused_topk(f32._device_values[:rows_f32], q, 10))
         out[f"K2_s8s8_q{nq}"] = _median_ms(
             lambda: ft.fused_topk_int8(int8._device_values, int8._device_scales, q, 10,
                                        n_valid=n))

@@ -5,11 +5,14 @@
 // Replaces the TPU kernel arxiv_rag_tpu/ops/pallas_topk.py::_topk_kernel
 // in all the forms the serving paths run:
 //   K1  plain scan (fused_topk): f32 or bf16 index, queries rounded to the
-//       index dtype, fp32 accumulation (true fp32 FMA for f32, no TF32;
-//       bf16 x bf16 products on the tensor cores for bf16).
+//       index dtype, fp32 accumulation (f32: fp32-accurate 3xTF32 products
+//       on the tensor cores, never a single TF32 pass, as the reference's
+//       Precision.HIGHEST is itself split bf16 passes on the TPU's MXU;
+//       bf16: bf16 x bf16 products on the tensor cores).
 //   K2  s8s8 scan (fused_topk_int8): int8 index and int8 queries, exact
-//       s32 accumulation (__dp4a), score = float(acc) * row_scale; the
-//       per-query scale multiplies only the k survivors (merge kernel).
+//       s32 accumulation (int8 wgmma; __dp4a in a masked scan), score =
+//       float(acc) * row_scale; the per-query scale multiplies only the k
+//       survivors (merge kernel).
 //   K3  int8 "row" scan (fused_topk_int8 variant="row"): int8 index, bf16
 //       queries, fp32 sums of the exact int8 x bf16 products, then one
 //       rounded product with the row scale (pallas_topk.py:184-203).
@@ -38,23 +41,46 @@
 //          (a k-way merge in the same total order, so it is lossless) and
 //          applies the s8s8 query scale.
 // The kernels allocate nothing and launch on the caller's stream. There
-// are two scans; the wrapper chooses by kind and shape alone
+// are two scans; the wrapper chooses by kind, shape and mask alone
 // (ops/fused_topk.py::scan_route):
 //
-//   tc_scan_kernel: the flat scan of a bf16 index (K1 bf16, K4 bf16), on
-//     the tensor cores. A block takes 64 queries (the wgmma M) and scans a
-//     contiguous split of 128-row tiles. Where they fit beside the ring
-//     (D <= 896), its queries stay in shared memory for the whole call,
-//     loaded once by TMA; at larger D each ring stage carries the query
-//     slice (64 x 64, 8 KB) beside the row slice, so any D fits and the
-//     queries are re-read from L2 once per row tile. One producer warp
-//     feeds each of NC consumer warpgroups a ring of 3 slices (128 rows x
-//     64 columns, 16 KB) by TMA with the 128-byte swizzle, through
+//   tc_scan_kernel<KIND, KCAP, NC>: every flat unmasked scan of an f32,
+//     bf16 or s8s8 index (K1 f32, K1 bf16, K2) and the flat masked bf16
+//     scan (K4 bf16), on the tensor cores. The three kinds share one
+//     geometry: a ring slice is one 128-byte swizzle span of each row (64
+//     bf16, 32 f32 or 128 int8 columns), a row tile 16 KB, a query tile
+//     8 KB, and each wgmma k-step takes 32 bytes of the span:
+//       bf16  wgmma.m64n128k16 bf16 x bf16 -> fp32;
+//       f32   3xTF32 (the note at tf32_head): each operand split into a
+//             TF32 head and a TF32 tail, and per k-step three
+//             wgmma.m64n128k8 tf32 products into one fp32 accumulator,
+//             q_lo.x_hi + q_hi.x_lo + q_hi.x_hi (only q_lo.x_lo is
+//             dropped: ~2^-21 of each |q_i x_i|). The queries arrive split
+//             (two tensors); the consumers split each arriving row slice
+//             in shared memory, the head in place and the tail beside it;
+//       s8    wgmma.m64n128k32 s8 x s8 -> s32, exact (|acc| <= 768 *
+//             127^2 < 2^24 at D = 768), then score = float(acc) *
+//             row_scale, one rounded product as in scan_kernel and the
+//             plain version; the per-query scale multiplies only the
+//             survivors, in the merge.
+//     A block takes 64 queries (the wgmma M) and scans a contiguous
+//     split of 128-row tiles. Where they fit beside the ring (bf16 to D =
+//     896, s8 to D = 1280; 1536 for k > 16), its queries stay in shared
+//     memory for the
+//     whole call, loaded once by TMA; otherwise, and always for f32
+//     (resident heads and tails would take 384 KB at D = 768), each ring
+//     stage carries the query slice (8 KB; f32: head and tail) beside the
+//     row slice, so any D fits and the queries are re-read from L2 once
+//     per row tile. One producer warp
+//     feeds each of NC consumer warpgroups a ring of slices (128 rows x
+//     128 bytes; bf16 3 stages, s8 4, f32 2 beside two warpgroups and 3
+//     beside one)
+//     by TMA with the 128-byte swizzle, through
 //     full/empty mbarriers; the index's tensor map ends at n_valid, so
 //     the ragged last tile arrives zero-filled (those rows score 0 and
 //     are dropped by id). Warpgroup w takes every NC-th tile of the
-//     split and runs wgmma.m64n128k16 bf16 x bf16 -> fp32 over the D / 64
-//     slices (both operands K-major: queries and rows are row-major), one
+//     split and runs the kind's products over the slices of D (both
+//     operands K-major: queries and rows are row-major), one
 //     slice's products in flight while the next slice's wait. The top-k
 //     runs from the accumulators: the fragment gives each query's 128
 //     tile scores to the four lanes of one quad, 32 each. A lane marks the
@@ -75,9 +101,9 @@
 //     at Q <= 64 the index is read from HBM once and at Q = 512 its eight
 //     query tiles read each row tile within a short window, the later
 //     ones from L2.
-//   scan_kernel: every other kind (f32, s8s8, int8 row) and every block
-//     table (K5, K6; a bf16 index comes here only for these), on the CUDA
-//     cores. Grid (query tiles of QT, splits). QT is 16 for the flat
+//   scan_kernel: the int8 row kind (K3), the masked f32 and s8s8 scans
+//     (K4) and every block table (K5, K6), on the CUDA cores. Grid (query
+//     tiles of QT, splits). QT is 16 for the flat
 //     scans, and 8 or 16 for the block tables (the reference's
 //     ivf_q_block, 8 by default), a template parameter. A flat
 //     split is a contiguous chunk of rows; a table split walks every
@@ -96,16 +122,23 @@
 //     table must not list a block twice).
 //
 // Bound at the serving shapes (N = 2,000,000, D = 768; H100 SXM data
-// sheet: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s fp32):
+// sheet: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8, 495 TFLOP/s
+// TF32, 67 TFLOP/s fp32):
 //   K1 bf16 reads 3.07 GB: 0.92 ms; at Q = 512 its 1.57 TFLOP need
 //   1.59 ms of tensor-core time, so it is bound by operations there.
-//   K2 and K3 read 1.54 GB: 0.46 ms; K4 adds 8 MB of row masks.
+//   K1 f32 reads 6.14 GB: 1.83 ms; its three TF32 products per term
+//   (2QND fp32-accurate products at 165 TFLOP/s) need 9.5 ms at Q = 512,
+//   so it is bound by operations from Q ~ 100 on.
+//   K2 and K3 read 1.54 GB: 0.46 ms; K2's products at Q = 512 need
+//   0.79 ms of int8 tensor-core time. K4 adds 8 MB of row masks.
 //   K5/K6 read only the probed blocks: at nprobe 8 of 4096 clusters a
 //   tile of 8 queries touches a few dozen 1024-row blocks, tens of MB.
 // What the designs do about it: tc_scan_kernel streams the index once
 // per query tile at the tensor cores' rate and keeps its scores in
 // registers; what is left between it and its bound is its epilogue (the
-// marking and merging run between one tile's products and the next).
+// marking and merging run between one tile's products and the next)
+// and, for f32, the split of each row slice in shared memory (every
+// query tile splits the rows again; the index stays one f32 copy).
 // scan_kernel runs on the CUDA cores, so at large Q it is bound by
 // CUDA-core arithmetic and by re-reading the index once per 16 queries;
 // masked rows are still scored (as on the TPU). Measured times are in
@@ -129,9 +162,8 @@ constexpr int kMergeThreads = 128;
 
 enum Kind { kF32 = 0, kBF16 = 1, kS8 = 2, kS8Row = 3 };
 
-template <int KIND>
-__host__ __device__ constexpr int elem_bytes() {
-  return KIND == kF32 ? 4 : (KIND == kBF16 ? 2 : 1);
+__host__ __device__ constexpr int elem_bytes(int kind) {
+  return kind == kF32 ? 4 : (kind == kBF16 ? 2 : 1);
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -233,7 +265,7 @@ struct ScanArgs {
 template <int KIND, int QT>
 __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs a) {
   using Acc = typename std::conditional<KIND == kS8, int, float>::type;
-  constexpr int kElem = elem_bytes<KIND>();
+  constexpr int kElem = elem_bytes(KIND);
   constexpr int kQBytes = KIND == kS8 ? 1 : 4;
   constexpr int kVec = 16 / kElem;  // index elements per 16-byte load
   const int d = a.d, nq = a.nq, k = a.k;
@@ -489,16 +521,35 @@ merge_kernel(const float* __restrict__ cand_vals, const int* __restrict__ cand_i
   }
 }
 
-// -- the flat bf16 scan on the tensor cores (K1 bf16, K4 bf16) ----------------
+// -- the flat scans on the tensor cores (K1 f32 and bf16, K2, K4 bf16) --------
 //
 // (tc_scan_kernel in the note at the head of this file.)
 
 constexpr int kTcQ = 64;                 // queries per block (wgmma M)
 constexpr int kTcRows = 128;             // rows per tile (wgmma N)
-constexpr int kTcK = 64;                 // columns per slice: 128 bytes, one swizzle span
-constexpr int kTcStages = 3;             // ring depth per consumer warpgroup
-constexpr int kTcQTileBytes = kTcQ * kTcK * 2;
-constexpr int kTcXTileBytes = kTcRows * kTcK * 2;
+constexpr int kTcSpan = 128;             // bytes of a row per slice: one swizzle span
+constexpr int kTcStages = 3;             // ring depth per consumer warpgroup (bf16)
+constexpr int kTcStagesS8 = 4;           // the same for s8 (tc_stages)
+constexpr int kTcQTileBytes = kTcQ * kTcSpan;
+constexpr int kTcXTileBytes = kTcRows * kTcSpan;
+
+// Columns per slice: 64 bf16, 32 f32, 128 int8.
+__host__ __device__ constexpr int tc_cols(int kind) { return kTcSpan / elem_bytes(kind); }
+
+// Slices per row; a last partial int8 slice reads zeros past D.
+__host__ __device__ constexpr int tc_slices(int kind, int d) {
+  return (d + tc_cols(kind) - 1) / tc_cols(kind);
+}
+
+// Ring depth per consumer warpgroup, chosen by timing the alternatives
+// (tc_variants.py, PERF.md): bf16 3 stages; s8 4, whose resident queries
+// are half bf16's (48 KB at D = 768), 1-4% faster than 3; an f32 stage is
+// three times the others (48 KB: rows, their tails, query heads and
+// tails), so two fit beside two warpgroups' lists, and beside one three
+// (faster than two).
+__host__ __device__ constexpr int tc_stages(int kind, int nc) {
+  return kind == kF32 ? (nc == 1 ? 3 : 2) : kind == kS8 ? kTcStagesS8 : kTcStages;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -547,35 +598,53 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 // wgmma shared-memory descriptor of a K-major tile with the 128-byte
 // swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
 // leading offset is unused for this layout. The tile base is 1024-byte
-// aligned, so a 16-column step inside it is a 32-byte start offset.
+// aligned, so a 32-byte k-step inside it (16 bf16, 8 f32 or 32 int8
+// columns) is a 32-byte start offset.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
          (1ull << 62);
 }
 
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+// The 64 accumulator registers of an m64n128 wgmma, as asm operands.
+#define TC_D8(c, d, o) \
+  c(d[o]), c(d[o + 1]), c(d[o + 2]), c(d[o + 3]), c(d[o + 4]), c(d[o + 5]), c(d[o + 6]), c(d[o + 7])
+#define TC_D64(c, d)                                                                     \
+  TC_D8(c, d, 0), TC_D8(c, d, 8), TC_D8(c, d, 16), TC_D8(c, d, 24), TC_D8(c, d, 32), \
+      TC_D8(c, d, 40), TC_D8(c, d, 48), TC_D8(c, d, 56)
+#define TC_D_REGS                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= a.b for one 32-byte k-step; accumulate 0 overwrites d. The
+// immediates differ by type: bf16 takes scale and transpose immediates,
+// tf32 only the scales (it is K-major only), s8 none.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+               " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TC_D_REGS
+               ", %64, %65, p, 1, 1, 0, 0;\n}"
+               : TC_D64("+f", d)
+               : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+               " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TC_D_REGS
+               ", %64, %65, p, 1, 1;\n}"
+               : TC_D64("+f", d)
+               : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+               " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " TC_D_REGS
+               ", %64, %65, p;\n}"
+               : TC_D64("+r", d)
+               : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // Keep the accumulators' reads and writes on their side of a wgmma fence
@@ -584,6 +653,64 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// 3xTF32 split rule, the same for rows (here) and queries
+// (ops/fused_topk.py::tf32_split): the head is v rounded to the nearest
+// TF32 value (10 stored mantissa bits; a tie rounds away from zero) by
+// adding half a TF32 step to v's bits and clearing the low 13; the tail
+// is the same rounding of v - head, which is exact in fp32. Both halves
+// have their low 13 bits zero, so what the tensor cores read of them
+// does not depend on how they treat those bits; head + tail is v within
+// 2^-22 |v|.
+__device__ __forceinline__ float tf32_head(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+}
+
+// Split one arriving 128 x 32 f32 row slice: the head in place, the tail
+// into `lo` (same swizzled layout, elementwise); one warpgroup, 128
+// threads, 16 bytes each per step.
+__device__ __forceinline__ void tf32_split_slice(unsigned char* x, unsigned char* lo, int t) {
+#pragma unroll
+  for (int i = 0; i < kTcXTileBytes / 16 / 128; ++i) {
+    float4* px = reinterpret_cast<float4*>(x) + i * 128 + t;
+    float4 v = *px;
+    float4 h = make_float4(tf32_head(v.x), tf32_head(v.y), tf32_head(v.z), tf32_head(v.w));
+    *px = h;
+    reinterpret_cast<float4*>(lo)[i * 128 + t] =
+        make_float4(tf32_head(__fsub_rn(v.x, h.x)), tf32_head(__fsub_rn(v.y, h.y)),
+                    tf32_head(__fsub_rn(v.z, h.z)), tf32_head(__fsub_rn(v.w, h.w)));
+  }
+}
+
+// One k-step (32 bytes of the slice) of a tile's products. qt and xt are
+// the query and row slices; for f32, the tails lie one tile further on
+// (queries: kTcQTileBytes; rows: kTcXTileBytes), and the two cross terms
+// go in before the heads' product.
+template <int KIND, typename Acc>
+__device__ __forceinline__ void tc_mma(Acc (&acc)[64], const unsigned char* qt,
+                                       const unsigned char* xt, int kk, int accumulate) {
+  const unsigned char* q = qt + kk * 32;
+  const unsigned char* x = xt + kk * 32;
+  if constexpr (KIND == kBF16) {
+    wgmma_bf16(acc, sw128_desc(q), sw128_desc(x), accumulate);
+  } else if constexpr (KIND == kS8) {
+    wgmma_s8(acc, sw128_desc(q), sw128_desc(x), accumulate);
+  } else {
+    wgmma_tf32(acc, sw128_desc(q + kTcQTileBytes), sw128_desc(x), accumulate);
+    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x + kTcXTileBytes), 1);
+    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x), 1);
+  }
+}
+
+// A score from its accumulator register: fp32 as it is; for s8 the
+// epilogue has written float(acc) * row_scale's bits into it.
+__device__ __forceinline__ float tc_score(float v) { return v; }
+__device__ __forceinline__ float tc_score(int v) { return __int_as_float(v); }
 
 // The epilogue's entries are 64-bit keys whose unsigned order is the
 // (score desc, id asc) order: the score's bits made monotonic above, the
@@ -655,6 +782,7 @@ __device__ __forceinline__ void quad_merge(uint64_t* list, int k, const uint64_t
 }
 
 struct TcArgs {
+  const float* scales;   // [rows] row scales (s8), or null
   const int* row_masks;  // [rows] category bits, or null (no filter)
   const int* qmask;      // [nq] query bits (with row_masks)
   long long n_valid;     // rows at or past this id never count
@@ -665,38 +793,59 @@ struct TcArgs {
   int* cand_ids;
 };
 
-// A ring stage: the row slice, then the query slice when they stream.
-__host__ __device__ constexpr int tc_stage_bytes(bool stream_queries) {
-  return kTcXTileBytes + (stream_queries ? kTcQTileBytes : 0);
+// A ring stage: the row slice, then the query slice when they stream;
+// for f32 the rows' tails, then the query heads and tails (they always
+// stream).
+__host__ __device__ constexpr int tc_stage_bytes(int kind, bool stream_queries) {
+  return kind == kF32 ? 2 * kTcXTileBytes + 2 * kTcQTileBytes
+                      : kTcXTileBytes + (stream_queries ? kTcQTileBytes : 0);
+}
+
+// What TMA brings into a stage (an f32 stage's row tails are computed).
+__host__ __device__ constexpr int tc_stage_tx(int kind, bool stream_queries) {
+  return kind == kF32 ? kTcXTileBytes + 2 * kTcQTileBytes : tc_stage_bytes(kind, stream_queries);
+}
+
+// Where a stage's query slice starts.
+__host__ __device__ constexpr int tc_stage_q(int kind) {
+  return kind == kF32 ? 2 * kTcXTileBytes : kTcXTileBytes;
 }
 
 // A list row holds KCAP keys and one of padding, so that the eight quads
 // of a warp read their rows from different banks.
-__host__ __device__ constexpr size_t tc_smem_bytes(int kcap, int nc, int d, bool stream_queries) {
+__host__ __device__ constexpr size_t tc_smem_bytes(int kind, int kcap, int nc, int d,
+                                                   bool stream_queries) {
   return 1024 /* alignment slack */ +
-         (stream_queries ? 0 : static_cast<size_t>(d / kTcK) * kTcQTileBytes) +
-         static_cast<size_t>(nc) * kTcStages * tc_stage_bytes(stream_queries) +
-         sizeof(uint64_t) * nc * kTcQ * (kcap + 1) + sizeof(uint64_t) * (1 + 2 * nc * kTcStages);
+         (stream_queries ? 0 : static_cast<size_t>(tc_slices(kind, d)) * kTcQTileBytes) +
+         static_cast<size_t>(nc) * tc_stages(kind, nc) * tc_stage_bytes(kind, stream_queries) +
+         sizeof(uint64_t) * nc * kTcQ * (kcap + 1) +
+         sizeof(uint64_t) * (1 + 2 * nc * tc_stages(kind, nc));
 }
 
-// KCAP: list capacity (k <= KCAP); NC: consumer warpgroups. A k <= 16
-// block keeps two warpgroups' lists; a k <= 128 block has room for one.
-template <int KCAP, int NC>
+// KIND: kBF16, kF32 (3xTF32) or kS8; KCAP: list capacity (k <= KCAP);
+// NC: consumer warpgroups. A k <= 16 block keeps two warpgroups' lists;
+// a k <= 128 block has room for one. qlo_map: the query tails (f32; the
+// other kinds never read it).
+template <int KIND, int KCAP, int NC>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
     tc_scan_kernel(const __grid_constant__ CUtensorMap xmap,
-                   const __grid_constant__ CUtensorMap qmap, const TcArgs a) {
+                   const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap qlo_map, const TcArgs a) {
+  using Acc = typename std::conditional<KIND == kS8, int, float>::type;
   constexpr int kRow = KCAP + 1;
+  constexpr int kStages = tc_stages(KIND, NC);
+  constexpr int kCols = tc_cols(KIND);
   extern __shared__ unsigned char tc_smem_raw[];
   unsigned char* base = tc_smem_raw + ((1024 - (smem_u32(tc_smem_raw) & 1023)) & 1023);
-  const int n_slices = a.d / kTcK;
+  const int n_slices = tc_slices(KIND, a.d);
   const bool qstream = a.stream_queries != 0;
-  const int stage_bytes = tc_stage_bytes(qstream);
-  unsigned char* qs = base;                                    // [n_slices][64][64] bf16, resident
-  unsigned char* xs = qs + (qstream ? 0 : n_slices * kTcQTileBytes);  // [NC][kTcStages] stages
-  uint64_t* lists = reinterpret_cast<uint64_t*>(xs + NC * kTcStages * stage_bytes);  // [NC][64][kRow]
+  const int stage_bytes = tc_stage_bytes(KIND, qstream);
+  unsigned char* qs = base;                                    // [n_slices][64][128 B], resident
+  unsigned char* xs = qs + (qstream ? 0 : n_slices * kTcQTileBytes);  // [NC][kStages] stages
+  uint64_t* lists = reinterpret_cast<uint64_t*>(xs + NC * kStages * stage_bytes);  // [NC][64][kRow]
   uint64_t* qbar = lists + NC * kTcQ * kRow;
-  uint64_t* full = qbar + 1;                                   // [NC][kTcStages]
-  uint64_t* empty = full + NC * kTcStages;
+  uint64_t* full = qbar + 1;                                   // [NC][kStages]
+  uint64_t* empty = full + NC * kStages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -709,7 +858,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
 
   if (tid == 0) {
     mbar_init(qbar, 1);
-    for (int i = 0; i < NC * kTcStages; ++i) {
+    for (int i = 0; i < NC * kStages; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], 4);  // one arrival per consumer warp
     }
@@ -724,8 +873,9 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
       if (!qstream) {
         mbar_expect_tx(qbar, n_slices * kTcQTileBytes);
         for (int s = 0; s < n_slices; ++s)
-          tma_load_2d(qs + s * kTcQTileBytes, &qmap, s * kTcK, q0, qbar);
+          tma_load_2d(qs + s * kTcQTileBytes, &qmap, s * kCols, q0, qbar);
       }
+      const int stage_tx = tc_stage_tx(KIND, qstream);
       int stage[NC];
       uint32_t phase[NC];
 #pragma unroll
@@ -735,14 +885,19 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
 #pragma unroll
           for (int w = 0; w < NC; ++w) {
             if (t + w >= n_tiles) continue;
-            const int i = w * kTcStages + stage[w];
+            const int i = w * kStages + stage[w];
+            unsigned char* st = xs + i * stage_bytes;
             mbar_wait(&empty[i], phase[w] ^ 1);
-            mbar_expect_tx(&full[i], stage_bytes);
-            tma_load_2d(xs + i * stage_bytes, &xmap, s * kTcK,
-                        static_cast<int>((tile0 + t + w) * kTcRows), &full[i]);
-            if (qstream)
-              tma_load_2d(xs + i * stage_bytes + kTcXTileBytes, &qmap, s * kTcK, q0, &full[i]);
-            if (++stage[w] == kTcStages) stage[w] = 0, phase[w] ^= 1;
+            mbar_expect_tx(&full[i], stage_tx);
+            tma_load_2d(st, &xmap, s * kCols, static_cast<int>((tile0 + t + w) * kTcRows),
+                        &full[i]);
+            if (qstream) {
+              tma_load_2d(st + tc_stage_q(KIND), &qmap, s * kCols, q0, &full[i]);
+              if (KIND == kF32)
+                tma_load_2d(st + tc_stage_q(KIND) + kTcQTileBytes, &qlo_map, s * kCols, q0,
+                            &full[i]);
+            }
+            if (++stage[w] == kStages) stage[w] = 0, phase[w] ^= 1;
           }
         }
       }
@@ -774,25 +929,45 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
     kth_v[j] = neg_inf();
   }
 
-  float acc[64];
+  Acc acc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
   if (!qstream) mbar_wait(qbar, 0);
   int stage = 0;
   uint32_t phase = 0;
   for (int t = w; t < n_tiles; t += NC) {
+    // s8: the tile's row scales of this lane's 32 columns, loaded before
+    // the products so that their latency hides under them (rows past
+    // n_valid are never read: they score 0 and are dropped by id)
+    float rs[KIND == kS8 ? 32 : 1];
+    if constexpr (KIND == kS8) {
+      const long long r0 = (tile0 + t) * kTcRows + 2 * t4;
+#pragma unroll
+      for (int m = 0; m < 16; ++m)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          rs[2 * m + c] = r0 + 8 * m + c < a.n_valid ? __ldg(a.scales + r0 + 8 * m + c) : 0.f;
+    }
     // one slice's products stay in flight while the next slice's wait
     int prev = -1;
     for (int s = 0; s < n_slices; ++s) {
-      const int i = w * kTcStages + stage;
+      const int i = w * kStages + stage;
       mbar_wait(&full[i], phase);
+      unsigned char* xt = xs + i * stage_bytes;
+      const unsigned char* qt = qstream ? xt + tc_stage_q(KIND) : qs + s * kTcQTileBytes;
+      if constexpr (KIND == kF32) {
+        // the rows' heads in place and tails beside them, written through
+        // the generic proxy: fenced for the async proxy that wgmma reads
+        // through, then the warpgroup meets before any warp reads them
+        tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+      }
       fence_acc(acc);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-      const unsigned char* xt = xs + i * stage_bytes;
-      const unsigned char* qt = qstream ? xt + kTcXTileBytes : qs + s * kTcQTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kTcK / 16; ++kk)
-        wgmma_m64n128k16(acc, sw128_desc(qt + kk * 32), sw128_desc(xt + kk * 32), s | kk);
+      for (int kk = 0; kk < 4; ++kk)
+        tc_mma<KIND>(acc, qt, xt, kk, s | kk);
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       fence_acc(acc);
       if (prev >= 0) {
@@ -801,31 +976,39 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
         if (lane == 0) mbar_arrive(&empty[prev]);
       }
       prev = i;
-      if (++stage == kTcStages) stage = 0, phase ^= 1;
+      if (++stage == kStages) stage = 0, phase ^= 1;
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // epilogue: mark the scores not below the query's k-th score (a lane
-    // whose best score is below skips it), drop rows past n_valid and
-    // filtered rows, then insert each quad's largest marked key until it
-    // is no larger than the k-th key
+    // epilogue: (s8) each score is float(acc) * row_scale, one rounded
+    // product; then mark the scores not below the query's k-th score (a
+    // lane whose best score is below skips it), drop rows past n_valid
+    // and filtered rows, then insert each quad's largest marked key until
+    // it is no larger than the k-th key
     const int rbase = static_cast<int>((tile0 + t) * kTcRows);
+    if constexpr (KIND == kS8) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] = __float_as_int(__fmul_rn(__int2float_rn(acc[i]), rs[2 * (i >> 2) + (i & 1)]));
+    }
     uint32_t bits[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      float top = acc[2 * j];
+      float top = tc_score(acc[2 * j]);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) top = fmaxf(top, fmaxf(acc[4 * i + 2 * j], acc[4 * i + 2 * j + 1]));
+      for (int i = 0; i < 16; ++i)
+        top = fmaxf(top, fmaxf(tc_score(acc[4 * i + 2 * j]), tc_score(acc[4 * i + 2 * j + 1])));
       bits[j] = 0;
       if (live[j] && top >= kth_v[j]) {
 #pragma unroll
         for (int i = 0; i < 16; ++i)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            bits[j] |= static_cast<uint32_t>(acc[4 * i + 2 * j + c] >= kth_v[j]) << (2 * i + c);
+            bits[j] |= static_cast<uint32_t>(tc_score(acc[4 * i + 2 * j + c]) >= kth_v[j])
+                       << (2 * i + c);
         for (uint32_t b = bits[j]; b != 0; b &= b - 1) {
           const int bit = __ffs(b) - 1;
           const long long row = rbase + 8 * (bit >> 1) + 2 * t4 + (bit & 1);
@@ -845,7 +1028,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
         for (int i = 0; i < 16; ++i)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            v[2 * i + c] = ((bits[j] >> (2 * i + c)) & 1u) ? acc[4 * i + 2 * j + c] : neg_inf();
+            v[2 * i + c] =
+                ((bits[j] >> (2 * i + c)) & 1u) ? tc_score(acc[4 * i + 2 * j + c]) : neg_inf();
 #pragma unroll
         for (int m = 0; m < 16; ++m) v[m] = fmaxf(v[m], v[m + 16]);
 #pragma unroll
@@ -860,7 +1044,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
         for (int i = 0; i < 16; ++i)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            at_top |= static_cast<uint32_t>(acc[4 * i + 2 * j + c] == top) << (2 * i + c);
+            at_top |= static_cast<uint32_t>(tc_score(acc[4 * i + 2 * j + c]) == top)
+                      << (2 * i + c);
         at_top &= bits[j];
         const int bit = __ffs(at_top) - 1;
         const uint64_t mine =
@@ -913,19 +1098,24 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [rows, d] row-major tensor, read in boxes of box_rows x 64
-// columns with the 128-byte swizzle; rows past `rows` read as zeros.
-cudaError_t bf16_map(CUtensorMap* map, const void* ptr, long long rows, int d, int box_rows) {
+// A [rows, d] row-major tensor of the kind's element type (int8 as its
+// bits, UINT8), read in boxes of box_rows x one 128-byte span with the
+// 128-byte swizzle; rows past `rows` and columns past d read as zeros.
+cudaError_t tile_map(CUtensorMap* map, int kind, const void* ptr, long long rows, int d,
+                     int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapDataType type = kind == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : kind == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {kTcK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem_bytes(kind)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(tc_cols(kind)),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -937,26 +1127,34 @@ size_t smem_optin() {
   return static_cast<size_t>(bytes);
 }
 
-// The queries stream through the ring where they do not fit beside it.
-bool tc_streams_queries(int kcap, int nc, int d) {
-  return tc_smem_bytes(kcap, nc, d, false) > smem_optin();
+// The queries stream through the ring where they do not fit beside it,
+// and always for f32 (its stages carry them).
+bool tc_streams_queries(int kind, int kcap, int nc, int d) {
+  return kind == kF32 || tc_smem_bytes(kind, kcap, nc, d, false) > smem_optin();
 }
 
-template <int KCAP, int NC>
-cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& qm, TcArgs a, int n_splits,
-                      cudaStream_t stream) {
-  a.stream_queries = tc_streams_queries(KCAP, NC, a.d);
-  const size_t smem = tc_smem_bytes(KCAP, NC, a.d, a.stream_queries);
-  cudaError_t err = cudaFuncSetAttribute(tc_scan_kernel<KCAP, NC>,
+template <int KIND, int KCAP, int NC>
+cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& qm, const CUtensorMap& qlm,
+                      TcArgs a, int n_splits, cudaStream_t stream) {
+  a.stream_queries = tc_streams_queries(KIND, KCAP, NC, a.d);
+  const size_t smem = tc_smem_bytes(KIND, KCAP, NC, a.d, a.stream_queries);
+  cudaError_t err = cudaFuncSetAttribute(tc_scan_kernel<KIND, KCAP, NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nq + kTcQ - 1) / kTcQ, n_splits);
-  tc_scan_kernel<KCAP, NC><<<grid, NC * 128 + 32, smem, stream>>>(xm, qm, a);
+  tc_scan_kernel<KIND, KCAP, NC><<<grid, NC * 128 + 32, smem, stream>>>(xm, qm, qlm, a);
   return cudaGetLastError();
 }
 
 constexpr int tc_lists(int k) { return k <= 16 ? 2 : 1; }
+
+template <int KIND>
+cudaError_t launch_tc_k(const CUtensorMap& xm, const CUtensorMap& qm, const CUtensorMap& qlm,
+                        const TcArgs& a, int n_splits, cudaStream_t s) {
+  return a.k <= 16 ? launch_tc<KIND, 16, tc_lists(16)>(xm, qm, qlm, a, n_splits, s)
+                   : launch_tc<KIND, kKMax, tc_lists(kKMax)>(xm, qm, qlm, a, n_splits, s);
+}
 
 size_t scan_smem_bytes(int kind, int qt, int d) {
   const size_t qbytes = kind == kS8 ? 1 : 4;
@@ -1017,34 +1215,44 @@ int arag_topk_scan(int kind, int qt, const void* x, const float* scales, const i
   }
 }
 
-// The tensor-core bf16 scan: shared memory per block on the current
-// card (queries resident where they fit, else streamed), and the number
-// of candidate lists each (split, query) writes, for k and dimension d.
-size_t arag_topk_tc_smem(int k, int d) {
+// The tensor-core scan of kind (0 f32, 1 bf16, 2 s8s8): shared memory per
+// block on the current card (queries resident where they fit, else
+// streamed), and the number of candidate lists each (split, query)
+// writes, for k and dimension d.
+size_t arag_topk_tc_smem(int kind, int k, int d) {
   const int kcap = k <= 16 ? 16 : kKMax;
   const int nc = tc_lists(kcap);
-  return tc_smem_bytes(kcap, nc, d, tc_streams_queries(kcap, nc, d));
+  return tc_smem_bytes(kind, kcap, nc, d, tc_streams_queries(kind, kcap, nc, d));
 }
 
 int arag_topk_tc_lists(int k) { return tc_lists(k); }
 
-// Flat scan of a bf16 index x [>= n_valid, d] for bf16 queries q [nq, d]
-// (d % 64 == 0, both 16-byte aligned) on the tensor cores, in n_splits
-// chunks of tiles_per_split 128-row tiles; row_masks/qmask null for an
-// unfiltered scan. Writes [n_splits * arag_topk_tc_lists(k), nq, k]
-// candidates for arag_topk_merge. Returns the launch's cudaError_t.
-int arag_topk_tc_scan(const void* x, const int* row_masks, const int* qmask, const void* q,
-                      long long n_valid, int d, int nq, int k, int tiles_per_split, int n_splits,
-                      float* cand_vals, int* cand_ids, void* stream) {
-  CUtensorMap xm, qm;
+// Flat scan on the tensor cores of an index x [>= n_valid, d] of kind
+// 0 (f32: 3xTF32; q the query heads, q_lo their tails, both f32 with the
+// low 13 bits zero), 1 (bf16; bf16 queries q) or 2 (s8s8; int8 queries q,
+// fp32 row scales) — d % 64 == 0, every operand 16-byte aligned — in
+// n_splits chunks of tiles_per_split 128-row tiles; row_masks/qmask null
+// for an unfiltered scan. Writes [n_splits * arag_topk_tc_lists(k), nq,
+// k] candidates for arag_topk_merge. Returns the launch's cudaError_t.
+int arag_topk_tc_scan(int kind, const void* x, const float* scales, const int* row_masks,
+                      const int* qmask, const void* q, const void* q_lo, long long n_valid, int d,
+                      int nq, int k, int tiles_per_split, int n_splits, float* cand_vals,
+                      int* cand_ids, void* stream) {
+  if (kind != kF32 && kind != kBF16 && kind != kS8) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, qm, qlm;
   // an empty scan still needs a map over one row; it never loads from it
-  cudaError_t err = bf16_map(&xm, x, n_valid > 0 ? n_valid : 1, d, kTcRows);
-  if (err == cudaSuccess) err = bf16_map(&qm, q, nq, d, kTcQ);
+  cudaError_t err = tile_map(&xm, kind, x, n_valid > 0 ? n_valid : 1, d, kTcRows);
+  if (err == cudaSuccess) err = tile_map(&qm, kind, q, nq, d, kTcQ);
+  if (err == cudaSuccess) err = tile_map(&qlm, kind, kind == kF32 ? q_lo : q, nq, d, kTcQ);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const TcArgs a{row_masks, qmask, n_valid, d, nq, k, tiles_per_split, 0, cand_vals, cand_ids};
+  const TcArgs a{scales, row_masks, qmask, n_valid, d, nq, k, tiles_per_split, 0,
+                 cand_vals, cand_ids};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(k <= 16 ? launch_tc<16, tc_lists(16)>(xm, qm, a, n_splits, s)
-                                  : launch_tc<kKMax, tc_lists(kKMax)>(xm, qm, a, n_splits, s));
+  switch (kind) {
+    case kF32: return static_cast<int>(launch_tc_k<kF32>(xm, qm, qlm, a, n_splits, s));
+    case kBF16: return static_cast<int>(launch_tc_k<kBF16>(xm, qm, qlm, a, n_splits, s));
+    default: return static_cast<int>(launch_tc_k<kS8>(xm, qm, qlm, a, n_splits, s));
+  }
 }
 
 // qscale may be null (no per-query scale). Returns the launch's cudaError_t.

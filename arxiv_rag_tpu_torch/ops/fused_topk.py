@@ -4,12 +4,20 @@ The port of ``arxiv_rag_tpu/ops/pallas_topk.py``: ``fused_topk`` :810
 (K1), ``fused_topk_int8`` :928 with its s8s8 default (K2) and its "row"
 variant (K3), and the masked forms ``fused_topk_masked`` :864 and
 ``fused_topk_int8_masked`` :1011 (K4). The kernels are in
-``csrc/fused_topk.cu``; their design and bound are noted there. A flat
-scan of a bf16 index runs on the tensor cores (``tc_scan_kernel``);
-every other kind, and every block table, on the CUDA cores
-(``scan_kernel``): ``scan_route`` chooses by kind and shape alone. The
-block-table scans of the IVF route (K5, K6) launch the same kernel
-through ``scan_table`` (see ``ops/ivf.py``).
+``csrc/fused_topk.cu``; their design and bound are noted there.
+``scan_route`` chooses the kernel by kind, shape and mask alone, with
+no fallback:
+
+- ``tc_scan_kernel`` (the tensor cores, wgmma fed by TMA): every flat
+  unmasked scan of an f32 (K1 f32, as 3×TF32: three TF32 products per
+  term, fp32-accurate, never a single TF32 pass), bf16 (K1 bf16) or
+  s8s8 (K2, int8 wgmma) index, and the flat masked bf16 scan (K4 bf16).
+  At the serving shapes K1 bf16 and K1 f32 are bound by their products
+  at large Q and by reading the index at small Q; K2 by reading the
+  index.
+- ``scan_kernel`` (the CUDA cores): the int8 row kind (K3), the masked
+  f32 and s8s8 scans (K4) and every block table, which the IVF route
+  (K5, K6) launches through ``scan_table`` (see ``ops/ivf.py``).
 
 Contract, shared with the TPU kernel: values [Q,k] fp32 and ids [Q,k]
 int32, k ≤ 128; scores ordered descending with the lowest row id first
@@ -17,7 +25,8 @@ among equal scores; rows with id ≥ ``n_valid`` never appear; slots that
 no row fills hold (-inf, -1).
 
 - ``fused_topk``: an f32 or bf16 index; queries rounded to the index
-  dtype; fp32 accumulation (full fp32 for an f32 index).
+  dtype; fp32 accumulation (fp32-accurate products for an f32 index:
+  the plain version's fp32 matmul, the kernel's 3×TF32, within 1e-4).
 - ``fused_topk_int8`` s8s8: queries quantized per row to int8 (scale
   max(max|q|, 1e-8)·float32(1/127), round half to even, clip ±127, as
   ``pallas_topk.py:904-908`` compiles); exact s32 products; ranked by
@@ -229,9 +238,10 @@ def _lib() -> ctypes.CDLL:
         lib.arag_topk_merge.restype = i32
         lib.arag_topk_scan_smem.argtypes = [i32, i32, i32]
         lib.arag_topk_scan_smem.restype = ctypes.c_size_t
-        lib.arag_topk_tc_scan.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, p, p, p]
+        lib.arag_topk_tc_scan.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, i32, i32, i32,
+                                          p, p, p]
         lib.arag_topk_tc_scan.restype = i32
-        lib.arag_topk_tc_smem.argtypes = [i32, i32]
+        lib.arag_topk_tc_smem.argtypes = [i32, i32, i32]
         lib.arag_topk_tc_smem.restype = ctypes.c_size_t
         lib.arag_topk_tc_lists.argtypes = [i32]
         lib.arag_topk_tc_lists.restype = i32
@@ -269,17 +279,40 @@ def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
     return per_split * TC_ROWS, -(-tiles // per_split), q_tiles
 
 
-def scan_route(kind: str, table: bool) -> str:
+def scan_route(kind: str, table: bool, masked: bool) -> str:
     """The kernel a scan launches: ``"tc"`` (the tensor-core kernel) for a
-    flat bf16 scan, ``"cuda_core"`` (``scan_kernel``) for every other kind
-    and for the block tables."""
-    return "tc" if kind == "bf16" and not table else "cuda_core"
+    flat unmasked f32, bf16 or s8s8 scan and a flat masked bf16 scan;
+    ``"cuda_core"`` (``scan_kernel``) for the int8 row kind, the masked
+    f32 and s8s8 scans and every block table."""
+    if table:
+        return "cuda_core"
+    if kind == "bf16" or (kind in ("f32", "s8s8") and not masked):
+        return "tc"
+    return "cuda_core"
 
 
 def tc_queries(queries: torch.Tensor) -> torch.Tensor:
     """The bf16 queries the tensor-core scan reads: fp32, then rounded to
     the nearest bf16 (ties to even), as ``round_queries`` rounds them."""
     return queries.to(torch.float32).to(torch.bfloat16).contiguous()
+
+
+def _tf32_head(v: torch.Tensor) -> torch.Tensor:
+    """``v`` (fp32) rounded to the nearest TF32 value, a tie away from
+    zero: half a TF32 step added to the bits, the low 13 bits cleared
+    (``csrc/fused_topk.cu::tf32_head``, bit for bit)."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3×TF32 split of fp32 queries: (head, tail), both contiguous
+    fp32 with their low 13 bits zero; head = the nearest TF32 value,
+    tail = the same rounding of ``q - head`` (exact in fp32), so
+    ``head + tail`` is ``q`` within 2⁻²²·|q|. The kernel splits the rows
+    by the same rule."""
+    q = queries.to(torch.float32).contiguous()
+    head = _tf32_head(q)
+    return head, _tf32_head(q - head).contiguous()
 
 
 def plan_splits(width: int, q_tiles: int, sm_count: int) -> int:
@@ -319,7 +352,7 @@ def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
     """Scan on the CUDA cores, then merge. ``table`` (int32 [tiles, width]
     block ids) selects the block-table scan; otherwise rows [0, n_valid)
     are scanned flat."""
-    if scan_route(kind, table is not None) != "cuda_core":
+    if scan_route(kind, table is not None, row_masks is not None) != "cuda_core":
         raise ValueError(f"a flat {kind} scan runs on the tensor-core kernel")
     _check_operands(x, q, scales, row_masks, qmask)
     lib = _lib()
@@ -351,27 +384,43 @@ def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
         return _merge(lib, cand_v, cand_i, qscale, stream)
 
 
-def _launch_tc(x, row_masks, qmask, q, k, n_valid):
-    """The flat bf16 scan on the tensor cores (bf16 queries ``q``), then
-    the merge of its [splits × lists, Q, k] candidates."""
-    _check_operands(x, q, None, row_masks, qmask)
+def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
+    """A flat scan on the tensor cores, then the merge of its [splits ×
+    lists, Q, k] candidates (× the s8s8 query scale). Queries ``q`` as
+    the kind reads them: bf16; int8 (s8s8); the TF32 heads for f32, with
+    ``q_lo`` their tails."""
+    if scan_route(kind, False, row_masks is not None) != "tc":
+        raise ValueError(f"a {'masked ' if row_masks is not None else ''}{kind} scan "
+                         "runs on the CUDA-core kernel")
+    _check_operands(x, q, scales, row_masks, qmask)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "s8s8": torch.int8}[kind]
+    if x.dtype != dtype or q.dtype != dtype:
+        raise ValueError(f"a {kind} scan takes a {dtype} index and queries, "
+                         f"not {x.dtype} and {q.dtype}")
+    if (scales is not None) != (kind == "s8s8"):
+        raise ValueError("row scales go with an s8s8 scan, and only with it")
+    if (q_lo is not None) != (kind == "f32") or q_lo is not None and (
+            q_lo.shape != q.shape or q_lo.dtype != q.dtype or q_lo.device != q.device
+            or not q_lo.is_contiguous()):
+        raise ValueError("an f32 scan takes query tails shaped as the heads; no other does")
     lib = _lib()
     dev = x.device
     d = x.shape[1]
     nq = q.shape[0]
-    props = _check_smem(lib.arag_topk_tc_smem(k, d), dev, d)
+    props = _check_smem(lib.arag_topk_tc_smem(_KIND[kind], k, d), dev, d)
     split_rows, n_splits, _ = plan_tc(n_valid, nq, props.multi_processor_count)
     cand_v, cand_i = _scratch(n_splits * lib.arag_topk_tc_lists(k), nq, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arag_topk_tc_scan(
+            _KIND[kind],
             x.data_ptr() if x.shape[0] else q.data_ptr(),  # an empty index loads nothing
-            _ptr(row_masks), _ptr(qmask if row_masks is not None else None), q.data_ptr(),
-            n_valid, d, nq, k, split_rows // TC_ROWS, n_splits,
+            _ptr(scales), _ptr(row_masks), _ptr(qmask if row_masks is not None else None),
+            q.data_ptr(), _ptr(q_lo), n_valid, d, nq, k, split_rows // TC_ROWS, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
         _raise_on(lib, err, "tensor-core top-k scan")
-        return _merge(lib, cand_v, cand_i, None, stream)
+        return _merge(lib, cand_v, cand_i, qscale, stream)
 
 
 def _ptr(t):
@@ -422,22 +471,26 @@ def _route(t: torch.Tensor) -> str:
 
 
 def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n):
-    """Launch a flat scan: a bf16 index on the tensor cores (bf16 queries),
-    the other kinds on the CUDA cores (fp32 queries, int8 for s8s8)."""
-    tc = scan_route(kind, table=False) == "tc"
-    qscale = None
-    if tc:
-        q = tc_queries(queries)
-    elif kind == "s8s8":
+    """Launch a flat scan on the kernel ``scan_route`` names, with the
+    queries as it reads them: int8 for s8s8; bf16 (tensor cores) or fp32
+    (CUDA cores) for bf16; the 3×TF32 halves (tensor cores) or fp32
+    (CUDA cores) for f32; fp32 for the row kind."""
+    tc = scan_route(kind, table=False, masked=row_masks is not None) == "tc"
+    q_lo = qscale = None
+    if kind == "s8s8":
         q8, qs = quantize_queries(queries)
         q, qscale = q8.contiguous(), qs.contiguous()
+    elif tc and kind == "bf16":
+        q = tc_queries(queries)
+    elif tc:
+        q, q_lo = tf32_split(queries)
     else:
         q = queries.to(torch.float32).contiguous()
     if q.shape[0] == 0:
         _check_cuda(values, q)
         return _empty(k, values.device)
     if tc:
-        return _launch_tc(values, row_masks, query_mask, q, k, n)
+        return _launch_tc(kind, values, scales, row_masks, query_mask, q, q_lo, qscale, k, n)
     return _launch(kind, _QT, values, scales, row_masks, query_mask, q, qscale, k, n)
 
 

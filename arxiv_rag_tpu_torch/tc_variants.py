@@ -1,4 +1,4 @@
-"""Time variants of the tensor-core bf16 scan, to see what bounds it:
+"""Time variants of the tensor-core scan, to see what bounds it:
 
     python3 arxiv_rag_tpu_torch/tc_variants.py [--seed 0]
 
@@ -7,15 +7,23 @@ its text (one ``nvcc`` each, all at once, into ``build/variants/``):
 
 - ``no_epilogue``: the top-k marking and merging skipped (wrong results);
 - ``no_mma``: the wgmma products skipped (wrong results);
-- ``no_mma_no_epilogue``: loads and barriers alone;
+- ``no_mma_no_epilogue``: loads and barriers alone (f32: and the split);
 - ``3wg_2stages`` and ``2wg_2stages``: other consumer warpgroups x ring
-  stages for k <= 16.
+  stages for bf16 at k <= 16;
+- ``s8_3stages``: the s8 ring 3 stages deep, not 4;
+- ``f32_1wg_2stages``: the f32 k <= 128 form with two stages, not three;
+- ``f32_no_split``: the rows' in-smem 3xTF32 split skipped (wrong
+  results);
+- ``f32_one_product``: one TF32 product per k-step, the heads', not
+  three (a single TF32 pass: wrong beyond 1e-4).
 
-Each runs ``fused_topk`` on a 2,000,000 x 768 bf16 index made on the
-card from ``--seed``, at Q = 64 and 512 and k = 10 and 128. The script
-prints one JSON line per variant and case: the scan kernel's time alone
-(``torch.profiler``, mean of 5 calls) and whether the result matches
-the plain version (within 1e-4). Needs a card.
+Each variant runs the kinds it concerns on 2,000,000 x 768 indexes made
+on the card from ``--seed`` (bf16 ``fused_topk``, f32 ``fused_topk``,
+s8s8 ``fused_topk_int8``) at Q = 64 and 512 and k = 10 and 128. The
+script prints one JSON line per variant and case: the scan kernel's
+time alone (``torch.profiler``, mean of 5 calls) and whether the result
+matches the plain version (s8s8 bitwise, the float kinds within 1e-4).
+Needs a card.
 """
 
 from __future__ import annotations
@@ -30,14 +38,26 @@ from pathlib import Path
 import torch
 
 EPILOGUE = "    const int rbase = static_cast<int>((tile0 + t) * kTcRows);"
-MMA = ("        wgmma_m64n128k16(acc, sw128_desc(qt + kk * 32), sw128_desc(xt + kk * 32), "
-       "s | kk);")
+MMA = "        tc_mma<KIND>(acc, qt, xt, kk, s | kk);"
 LISTS = "constexpr int tc_lists(int k) { return k <= 16 ? 2 : 1; }"
 STAGES = "constexpr int kTcStages = 3;"
+S8_STAGES = "constexpr int kTcStagesS8 = 4;"
+F32_STAGES = "return kind == kF32 ? (nc == 1 ? 3 : 2)"
+SPLIT = "        tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);"
+TF32_PRODUCTS = (
+    "    wgmma_tf32(acc, sw128_desc(q + kTcQTileBytes), sw128_desc(x), accumulate);\n"
+    "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x + kTcXTileBytes), 1);\n"
+    "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x), 1);\n")
+
+ALL = ("bf16", "f32", "s8s8")
+# variant -> the kinds it is timed on
+KINDS = {"as_is": ALL, "no_epilogue": ALL, "no_mma": ALL, "no_mma_no_epilogue": ALL,
+         "3wg_2stages": ("bf16",), "2wg_2stages": ("bf16",), "s8_3stages": ("s8s8",),
+         "f32_1wg_2stages": ("f32",), "f32_no_split": ("f32",), "f32_one_product": ("f32",)}
 
 
 def variants(src: str) -> dict[str, str]:
-    for anchor in (EPILOGUE, MMA, LISTS, STAGES):
+    for anchor in (EPILOGUE, MMA, LISTS, STAGES, S8_STAGES, F32_STAGES, SPLIT, TF32_PRODUCTS):
         if anchor not in src:
             raise SystemExit(f"tc_variants: csrc/fused_topk.cu no longer has {anchor!r}")
     no_epi = src.replace(EPILOGUE, "    continue;\n" + EPILOGUE)
@@ -49,6 +69,11 @@ def variants(src: str) -> dict[str, str]:
         "no_mma_no_epilogue": no_epi.replace(MMA, "        (void)kk;"),
         "3wg_2stages": two_stages.replace(LISTS, LISTS.replace("? 2", "? 3")),
         "2wg_2stages": two_stages,
+        "s8_3stages": src.replace(S8_STAGES, S8_STAGES.replace("4", "3")),
+        "f32_1wg_2stages": src.replace(F32_STAGES, F32_STAGES.replace("(nc == 1 ? 3 : 2)", "2")),
+        "f32_no_split": src.replace(SPLIT, ""),
+        "f32_one_product": src.replace(
+            TF32_PRODUCTS, "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x), accumulate);\n"),
     }
 
 
@@ -73,6 +98,7 @@ def main() -> int:
         print("tc_variants: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from arxiv_rag_tpu_torch.index.store import build_index
     from arxiv_rag_tpu_torch.ops import _build
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
@@ -91,22 +117,37 @@ def main() -> int:
             raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    x = torch.nn.functional.normalize(
-        torch.randn(2_000_000, 768, generator=gen, device="cuda"), dim=1).to(torch.bfloat16)
+    emb = torch.randn(2_000_000, 768, generator=gen, device="cuda")
+    int8 = build_index(emb, dtype="int8").to_device()
+    x8, s8 = int8._device_values, int8._device_scales
+    xs = {"bf16": torch.nn.functional.normalize(emb, dim=1).to(torch.bfloat16),
+          "f32": torch.nn.functional.normalize(emb, dim=1)}
+    del emb
+    scans = {
+        "bf16": (lambda q, k: ft.fused_topk(xs["bf16"], q, k),
+                 lambda q, k: ft.fused_topk_plain(xs["bf16"], q, k)),
+        "f32": (lambda q, k: ft.fused_topk(xs["f32"], q, k),
+                lambda q, k: ft.fused_topk_plain(xs["f32"], q, k)),
+        "s8s8": (lambda q, k: ft.fused_topk_int8(x8, s8, q, k),
+                 lambda q, k: ft.fused_topk_int8_plain(x8, s8, q, k)),
+    }
     queries = {nq: torch.nn.functional.normalize(
         torch.randn(nq, 768, generator=gen, device="cuda"), dim=1) for nq in (64, 512)}
     for name in builds:
         ft._LIB.clear()  # the wrapper binds whichever library _build hands it
         _build._LIBS["fused_topk"] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        for nq, q in queries.items():
-            for k in (10, 128):
-                v, _ = ft.fused_topk(x, q, k)
-                pv, _ = ft.fused_topk_plain(x, q, k)
-                print(json.dumps({
-                    "variant": name, "q": nq, "k": k,
-                    "kernel_ms": scan_ms(lambda: ft.fused_topk(x, q, k)),
-                    "matches_plain": bool((v - pv).abs().max().item() <= 1e-4),
-                }), flush=True)
+        for kind in KINDS[name]:
+            run, plain = scans[kind]
+            for nq, q in queries.items():
+                for k in (10, 128):
+                    v, i = run(q, k)
+                    pv, pi = plain(q, k)
+                    same = (torch.equal(v, pv) and torch.equal(i, pi) if kind == "s8s8"
+                            else bool((v - pv).abs().max().item() <= 1e-4))
+                    print(json.dumps({
+                        "variant": name, "kind": kind, "q": nq, "k": k,
+                        "kernel_ms": scan_ms(lambda: run(q, k)), "matches_plain": same,
+                    }), flush=True)
     ft._LIB.clear()
     _build._LIBS.pop("fused_topk", None)
     return 0

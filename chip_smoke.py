@@ -14,10 +14,13 @@ its first failure:
    (one nvcc per source, all started together);
 2. kernels against their plain versions at full size, with times
    (median of CUDA-event timings), bounds and a library yardstick:
-   K1/K2 flat scans, K4 masked scans, K3 int8 row scan (K1 and K4 on a
-   bf16 index run on the tensor cores: their achieved TFLOP/s and GB/s,
-   the kernel's ptxas report, and the library call with fp32 scores as
-   the yardstick, its bf16-score form beside it); then an IVF
+   K1 flat scans of a bf16 index and of f32 indexes of 2M and 262,144
+   rows, K2 flat s8s8 scans, K4 masked scans, K3 int8 row scan (K1, K2
+   and bf16 K4 run on the tensor-core kernel: their achieved TFLOP/s or
+   TOP/s and GB/s, and the ptxas report of every instantiation; K1 f32's
+   bound counts its products at the 3xTF32 rate, the fp32 CUDA-core
+   figure beside it; K1 bf16's library call keeps fp32 scores, its
+   bf16-score form beside it); then an IVF
    index (k-means on the card, 4096 clusters) over a clustered corpus:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
@@ -28,6 +31,7 @@ its first failure:
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
    (device plan and host plan), checked against the plain scans; then
+   the 2M f32 index through the engine (K1 f32); then
    the W8A8 encoder (``Embedder(quant_int8=True)``): its weights
    quantized on the card bitwise the CPU's, bitwise its plain route,
    cosine against the bf16 encoder, its searches against the
@@ -37,7 +41,8 @@ its first failure:
 5. the kernels line, then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
-slices 1–2 (phases 3–4) and again before the W8A8 path, read just after.
+slices 1–2 (phases 3–4), again before the f32 route and again before
+the W8A8 path, read just after each.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -70,7 +75,10 @@ TIMING_RUNS = 20
 PLAIN_RUNS = 5  # the plain versions and library calls of slice 2 (slow, steady)
 K1_TOL = 1e-4  # fp32 sums over 768 terms in another order than the plain matmul
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+# operand type -> peak dense operations per second; "tf32x3": fp32-accurate
+# products as three TF32 products each (495 TFLOP/s / 3)
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
+            "tf32x3": 495e12 / 3}
 CATS = [f"cs.{i}" for i in range(8)]  # row masks 1 << randint(0, 8), as bench.py:146-152
 FILTER = CATS[:3]  # query mask 0b111: 3 of 8 categories, ~37% of rows
 W8A8_M = (8192, 65536)  # encoder rows (batch x 128 tokens) at 64 and 512 queries
@@ -124,10 +132,10 @@ def flat_bytes(n_rows: int, nq: int, k: int, dtype: torch.dtype, row_extra: int 
 
 
 def bound_ms(n_rows: int, nq: int, k: int, dtype: torch.dtype, *, row_extra: int = 0,
-             op_dtype: torch.dtype | None = None):
+             op_dtype: torch.dtype | str | None = None):
     """Least time for a flat scan: ``flat_bytes`` at the memory rate,
     against the products 2·Q·N·D at the peak rate of ``op_dtype`` (the
-    operand type; the index's by default)."""
+    operand type, a key of ``PEAK_OPS``; the index's by default)."""
     nbytes = flat_bytes(n_rows, nq, k, dtype, row_extra)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * nq * n_rows * DIM / PEAK_OPS[op_dtype or dtype] * 1e3
@@ -216,19 +224,24 @@ def report(c: dict) -> None:
     lib = "none" if c.get("library_ms") is None else f"{c['library_ms']:.3f} ms"
     if "library_bf16_ms" in c:
         lib += f" (fp32 scores; bf16 scores {c['library_bf16_ms']:.3f} ms)"
-    rates = (f", {c['tflops']:.1f} TFLOP/s, {c['gbps']:.1f} GB/s effective"
+    unit = "TOP/s" if c["dtype"].startswith("int8") else "TFLOP/s"
+    rates = (f", {c['tflops']:.1f} {unit}, {c['gbps']:.1f} GB/s effective"
              if "tflops" in c else "")
-    print(f"  {c['dtype']} Q={c['q']} k={c['k']}: kernel {c['ms']:.3f} ms, plain "
-          f"{c['plain_ms']:.3f} ms, library {lib}, "
-          f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}){rates}", flush=True)
+    fp32 = (f" [fp32 CUDA-core figure {c['bound_fp32_ms']:.3f} ms]"
+            if "bound_fp32_ms" in c else "")
+    print(f"  {c['dtype']} N={c['rows']} Q={c['q']} k={c['k']} on {c['kernel']}: kernel "
+          f"{c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, library {lib}, "
+          f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}){fp32}{rates}", flush=True)
 
 
-def tc_rates(case: dict, row_extra: int = 0) -> None:
-    """Achieved rates of a tensor-core scan: the products 2·Q·N·D and
-    ``flat_bytes`` over its time."""
+def tc_rates(case: dict, dtype: torch.dtype, row_extra: int = 0) -> None:
+    """Achieved rates of a tensor-core scan of a ``dtype`` index: the
+    products 2·Q·N·D (TOP/s for int8; fp32-accurate products for f32,
+    each three TF32 products on the card) and ``flat_bytes`` over its
+    time."""
     n, nq, ms = case["rows"], case["q"], case["ms"]
     case["tflops"] = 2.0 * nq * n * DIM / ms / 1e9
-    case["gbps"] = flat_bytes(n, nq, case["k"], torch.bfloat16, row_extra) / ms / 1e6
+    case["gbps"] = flat_bytes(n, nq, case["k"], dtype, row_extra) / ms / 1e6
 
 
 def library_topk(q, x, k, row_masks=None, qmask=None, out_dtype=torch.float32):
@@ -254,7 +267,8 @@ def build_with_categories(emb, dtype, gen):
     return build_index(emb, categories=cats, category_names=CATS, dtype=dtype).to_device()
 
 
-def phase_kernels(gen, results) -> dict:
+def phase_kernels(gen, results) -> tuple[dict, object]:
+    """Returns the 2M bf16 and int8 indexes (by dtype) and the 2M f32 index."""
     from arxiv_rag_tpu_torch.index.store import build_index
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops.quant import quantize_int8
@@ -268,26 +282,26 @@ def phase_kernels(gen, results) -> dict:
     bf16 = build_with_categories(emb, "bfloat16", gen)
     int8 = build_with_categories(emb, "int8", gen)
     f32 = build_index(emb[:N_F32], dtype="float32").to_device()
+    f32_2m = build_index(emb, dtype="float32").to_device()  # the corpus size, 6.1 GB
     del emb
     torch.cuda.synchronize()
     print(f"  built indexes on the card in {time.perf_counter() - t0:.1f} s "
           f"(bf16 {tuple(bf16._device_values.shape)}, int8, both with 8 categories; "
-          f"f32 {N_F32} rows)", flush=True)
-    xb, x8, s8, xf = (bf16._device_values, int8._device_values,
-                      int8._device_scales, f32._device_values)
+          f"f32 {tuple(f32_2m._device_values.shape)} and {N_F32} rows)", flush=True)
+    xb, x8, s8, xf, xf2 = (bf16._device_values, int8._device_values, int8._device_scales,
+                           f32._device_values, f32_2m._device_values)
     mb, m8 = bf16._device_masks, int8._device_masks
     cases = {key: [] for key in ("K1", "K2", "K3", "K4")}
     # Q=64 and Q=512 are the heights the main path's windows scan at
     for nq, k in ((32, 10), (64, 10), (512, 10), (32, 128)):
         q = unit_rows(nq, gen)
-        for label, x, n_valid in (("bf16", xb, N_RAGGED), ("f32", xf, N_F32)):
-            if label == "f32" and k != 10:
-                continue
+        for label, x, n_valid in (("bf16", xb, N_RAGGED), ("f32", xf, N_F32),
+                                  ("f32", xf2, N_RAGGED)):
             fv, fi = ft.fused_topk(x, q, k, n_valid=n_valid)
             pv, pi = ft.fused_topk_plain(x, q, k, n_valid=n_valid)
             err = check_k1(fv, fi, pv, pi, f"K1 {label} N={n_valid} Q={nq} k={k}")
-            qx = q.to(x.dtype)
-            case = {"dtype": label, "rows": n_valid, "q": nq, "k": k, "max_abs_err": err}
+            case = {"dtype": label, "rows": n_valid, "q": nq, "k": k, "max_abs_err": err,
+                    "kernel": "tc_scan_kernel"}
             if k == 10:
                 case["ms"] = median_ms(lambda: ft.fused_topk(x, q, k, n_valid=n_valid))
                 case["plain_ms"] = median_ms(lambda: ft.fused_topk_plain(x, q, k, n_valid=n_valid))
@@ -295,27 +309,33 @@ def phase_kernels(gen, results) -> dict:
                     case["library_ms"] = median_ms(lambda: library_topk(q, x, k))
                     case["library_bf16_ms"] = median_ms(
                         lambda: library_topk(q, x, k, out_dtype=torch.bfloat16))
-                    tc_rates(case)
-                else:
-                    case["library_ms"] = median_ms(lambda: torch.topk(torch.matmul(qx, x.T), k))
-                case["bound_ms"], case["bound_by"] = bound_ms(n_valid, nq, k, x.dtype)
+                    case["bound_ms"], case["bound_by"] = bound_ms(n_valid, nq, k, x.dtype)
+                else:  # true fp32 (TF32 off, device.py), over all rows of the index
+                    case["library_ms"] = median_ms(lambda: torch.topk(torch.matmul(q, x.T), k))
+                    case["bound_ms"], case["bound_by"] = bound_ms(n_valid, nq, k, x.dtype,
+                                                                  op_dtype="tf32x3")
+                    case["bound_fp32_ms"] = bound_ms(n_valid, nq, k, x.dtype)[0]
+                tc_rates(case, x.dtype)
                 report(case)
             cases["K1"].append(case)
         fv, fi = ft.fused_topk_int8(x8, s8, q, k, n_valid=N_RAGGED)
         pv, pi = ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=N_RAGGED)
         check_k2(fv, fi, pv, pi, f"K2 s8s8 N={N_RAGGED} Q={nq} k={k} vs plain")
-        case = {"dtype": "int8", "rows": N_RAGGED, "q": nq, "k": k, "max_abs_err": 0.0}
+        case = {"dtype": "int8", "rows": N_RAGGED, "q": nq, "k": k, "max_abs_err": 0.0,
+                "kernel": "tc_scan_kernel"}
         if k == 10:
             case["ms"] = median_ms(lambda: ft.fused_topk_int8(x8, s8, q, k, n_valid=N_RAGGED))
             case["plain_ms"] = median_ms(
                 lambda: ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=N_RAGGED))
             case["library_ms"] = median_ms(lambda: int8_library(x8, s8, q, k))
             case["bound_ms"], case["bound_by"] = bound_ms(N_RAGGED, nq, k, torch.int8)
+            tc_rates(case, torch.int8)
             report(case)
         cases["K2"].append(case)
+    del f32
     phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases)
     results["cases"] = cases
-    return {"bf16": bf16, "int8": int8}
+    return {"bf16": bf16, "int8": int8}, f32_2m
 
 
 def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
@@ -339,7 +359,8 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
         err = check_k1(fv, fi, pv, pi, f"K4 bf16 masked Q={nq} k={k}")
         if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
             fail("K4 bf16: the mask-0 query returned rows")
-        case = {"dtype": "bf16", "rows": n, "q": nq, "k": k, "max_abs_err": err}
+        case = {"dtype": "bf16", "rows": n, "q": nq, "k": k, "max_abs_err": err,
+                "kernel": "tc_scan_kernel"}
         if timed:
             case["ms"] = median_ms(lambda: ft.fused_topk_masked(xb, mb, qm, q, k, n_valid=n))
             case["plain_ms"] = median_ms(
@@ -351,7 +372,7 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
                 PLAIN_RUNS)
             case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.bfloat16,
                                                           row_extra=4)
-            tc_rates(case, row_extra=4)
+            tc_rates(case, torch.bfloat16, row_extra=4)
             report(case)
         cases["K4"].append(case)
         # K4, s8s8 (the reference's int8 default)
@@ -360,7 +381,8 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
         check_k2(fv, fi, pv, pi, f"K4 s8s8 masked Q={nq} k={k} vs plain")
         if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
             fail("K4 s8s8: the mask-0 query returned rows")
-        case = {"dtype": "int8 s8s8", "rows": n, "q": nq, "k": k, "max_abs_err": 0.0}
+        case = {"dtype": "int8 s8s8", "rows": n, "q": nq, "k": k, "max_abs_err": 0.0,
+                "kernel": "scan_kernel"}
         if timed:
             case["ms"] = median_ms(
                 lambda: ft.fused_topk_int8_masked(x8, s8, m8, qm, q, k, n_valid=n))
@@ -378,7 +400,8 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
         fv, fi = ft.fused_topk_int8(x8, s8, q, k, n_valid=n, variant="row")
         pv, pi = ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=n, variant="row")
         err = check_k1(fv, fi, pv, pi, f"K3 int8 row Q={nq} k={k}")
-        case = {"dtype": "int8 row", "rows": n, "q": nq, "k": k, "max_abs_err": err}
+        case = {"dtype": "int8 row", "rows": n, "q": nq, "k": k, "max_abs_err": err,
+                "kernel": "scan_kernel"}
         if timed:
             qb = q.to(torch.bfloat16)
             case["ms"] = median_ms(
@@ -792,6 +815,28 @@ def phase_slice(indexes, ivfs, seed, results) -> tuple[dict, list[str]]:
     return engines, texts
 
 
+def phase_f32_route(f32_index, embedder, texts, results) -> dict:
+    """The f32 dense route (K1 f32, ``index --dtype float32``): text
+    queries through ``SearchEngine`` over the 2M f32 index at windows of
+    32 and 512, checked against the plain scan. Returns the launches of
+    this path's counted run."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    print("== phase 3 (f32): SearchEngine over the 2M f32 index", flush=True)
+    engine = SearchEngine(f32_index, embedder=embedder)
+    reset_all_launches()  # the f32 route's run starts here
+    for nq in (32, 512):
+        qtexts = texts[:nq]
+        hits = timed_search(engine, qtexts, results, f"f32_q{nq}", ("fused_topk",))
+        got_v, got_i = hits_arrays(hits, nq, f"f32 Q={nq}")
+        emb, n = embedder.encode_window_device(qtexts)
+        pv, pi = ft.fused_topk_plain(f32_index._device_values, emb[:n], 10,
+                                     n_valid=f32_index._n_valid)
+        check_k1(got_v, got_i, pv, pi, f"engine f32 Q={nq} rows")
+    return all_launches()
+
+
 @contextlib.contextmanager
 def plain_w8a8_route():
     """Every W8A8 dense layer through the plain version (on the card), for
@@ -947,42 +992,52 @@ def phase_serving(engines, texts, routes=(("bf16", None), ("int8", None), ("bf16
 
 
 KERNELS = (
-    # key, counter, what, TPU kernel, main case (dtype, Q)
-    ("K1", "fused_topk", "fused_topk", "arxiv_rag_tpu/ops/pallas_topk.py:67", ("bf16", 512)),
+    # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
+    # kernel it runs on, the counted path its launches come from
+    ("K1", "fused_topk", "fused_topk", "arxiv_rag_tpu/ops/pallas_topk.py:67",
+     ("bf16", 512, N_RAGGED), "tc_scan_kernel", "main"),
+    ("K1", "fused_topk", "fused_topk", "arxiv_rag_tpu/ops/pallas_topk.py:67",
+     ("f32", 512, N_RAGGED), "tc_scan_kernel (3xTF32)", "f32"),
     ("K2", "fused_topk_int8", "fused_topk_int8 s8s8", "arxiv_rag_tpu/ops/pallas_topk.py:67",
-     ("int8", 512)),
+     ("int8", 512, N_RAGGED), "tc_scan_kernel", "main"),
     ("K3", "fused_topk_int8_row", "fused_topk_int8 row variant",
-     "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512)),
+     "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512, N_RAGGED), "scan_kernel", "main"),
     ("K4", "fused_topk_masked", "fused_topk_masked / fused_topk_int8_masked",
-     "arxiv_rag_tpu/ops/pallas_topk.py:217", ("bf16", 512)),
+     "arxiv_rag_tpu/ops/pallas_topk.py:217", ("bf16", 512, N_RAGGED),
+     "tc_scan_kernel (bf16), scan_kernel (s8s8)", "main"),
     ("K5", "ivf_topk", "ivf_topk block-table scan", "arxiv_rag_tpu/ops/pallas_ivf.py:61",
-     ("int8", 32)),
+     ("int8", 32, None), "scan_kernel", "main"),
     ("K6", "ivf_topk_device", "ivf_topk_device (device plan + K5)",
-     "arxiv_rag_tpu/ops/pallas_ivf.py:482", ("int8", 32)),
+     "arxiv_rag_tpu/ops/pallas_ivf.py:482", ("int8", 32, None), "scan_kernel", "main"),
 )
 
 
 W8A8_KERNELS = (
-    # key, counter, what, TPU kernel
+    # key, counter, what, TPU kernel, the kernel it runs on
     ("K7", "w8a8_matmul", "w8a8_matmul (not on the encoder's path)",
-     "arxiv_rag_tpu/ops/pallas_matmul.py:74"),
+     "arxiv_rag_tpu/ops/pallas_matmul.py:74", "tile_kernel"),
     ("K8", "w8a8_matmul_fused_quant", "w8a8_matmul_fused_quant / w8a8_dense",
-     "arxiv_rag_tpu/ops/pallas_matmul.py:88"),
+     "arxiv_rag_tpu/ops/pallas_matmul.py:88", "resident_kernel"),
 )
 
 
 def kernels_line(results, launches, w8a8_launches) -> dict:
+    """``launches``: counted path -> its launches ("main": slices 1-2,
+    "f32": the f32 route)."""
     out = []
     all_cases = {**results["cases"], **results["ivf_cases"]}
-    for key, counter, what, replaces, (dtype, nq) in KERNELS:
-        cases = all_cases[key]
-        main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10)
+    for key, counter, what, replaces, (dtype, nq, rows), kernel, path in KERNELS:
+        # K1's rows: one per index dtype
+        cases = [c for c in all_cases[key] if key != "K1" or c["dtype"] == dtype]
+        main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10
+                    and rows in (None, c["rows"]))
         out.append({
             "name": f"{what} ({key}, {dtype}, Q={nq}, k=10)",
             "route": "cuda",
             "source": "arxiv_rag_tpu_torch/csrc/fused_topk.cu",
+            "kernel": kernel,
             "replaces": replaces,
-            "launches": launches[counter],
+            "launches": launches[path][counter],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -990,13 +1045,14 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
             "cases": cases,
         })
     m, k, n = W8A8_MAIN
-    for key, counter, what, replaces in W8A8_KERNELS:
+    for key, counter, what, replaces, kernel in W8A8_KERNELS:
         cases = results["w8a8_cases"][key]
         main = next(c for c in cases if (c["m"], c["k"], c["n"]) == W8A8_MAIN)
         out.append({
             "name": f"{what} ({key}, bf16 out, M={m} K={k} N={n})",
             "route": "cuda",
             "source": "arxiv_rag_tpu_torch/csrc/w8a8.cu",
+            "kernel": kernel,
             "replaces": replaces,
             "launches": w8a8_launches[counter],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1008,25 +1064,29 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
     return {"kernels": out}
 
 
+TC_KINDS = {0: "f32 (3xTF32)", 1: "bf16", 2: "s8"}  # csrc/fused_topk.cu Kind
+
+
 def tc_ptxas(log: str) -> list[str]:
-    """The tensor-core scan's ptxas report, one line per instantiation:
-    registers, stack and spills, and the dynamic shared memory a block
-    takes at D = 768 (its ptxas line counts only the static part)."""
+    """The tensor-core scan's ptxas report, one line per instantiation
+    (kind, list capacity, warpgroups): registers, stack and spills, and
+    the dynamic shared memory a block takes at D = 768 (its ptxas line
+    counts only the static part)."""
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
     lib, out, name = ft._lib(), [], None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"tc_scan_kernelILi(\d+)ELi(\d+)E", line)
-            name = m and (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"tc_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            name = m and (int(m.group(1)), int(m.group(2)), int(m.group(3)))
         elif name and ("stack frame" in line or "registers" in line):
             out.append((name, line.split(":", 1)[-1].strip()))
     lines = []
-    for kcap, nc in sorted({n for n, _ in out}):
-        facts = "; ".join(f for n, f in out if n == (kcap, nc))
-        smem = lib.arag_topk_tc_smem(kcap, DIM)
-        lines.append(f"ptxas tc_scan_kernel<KCAP={kcap}, warpgroups={nc}>: {facts}; "
-                     f"dynamic shared memory {smem} B at D={DIM}")
+    for kind, kcap, nc in sorted({n for n, _ in out}):
+        facts = "; ".join(f for n, f in out if n == (kind, kcap, nc))
+        smem = lib.arag_topk_tc_smem(kind, kcap, DIM)
+        lines.append(f"ptxas tc_scan_kernel<{TC_KINDS.get(kind, kind)}, KCAP={kcap}, "
+                     f"warpgroups={nc}>: {facts}; dynamic shared memory {smem} B at D={DIM}")
     return lines or ["ptxas tc_scan_kernel: no report (the library was built before this run)"]
 
 
@@ -1061,18 +1121,22 @@ def main() -> int:
 
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    indexes = phase_kernels(gen, results)
+    indexes, f32_index = phase_kernels(gen, results)
     ivfs = phase_ivf(gen, results)
     phase_w8a8_kernels(gen, results)
 
     reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)
     phase_serving(engines, texts)
-    launches = all_launches()
-    for key, counter, *_ in KERNELS:
-        if launches[counter] < 1:
-            fail(f"the main path launched no {key} ({counter}) kernel")
-    print(f"== main path launches (slices 1-2): {launches}", flush=True)
+    launches = {"main": all_launches()}
+    print(f"== main path launches (slices 1-2): {launches['main']}", flush=True)
+    launches["f32"] = phase_f32_route(f32_index, engines["bf16"].embedder, texts, results)
+    print(f"== f32 route launches: {launches['f32']}", flush=True)
+    del f32_index
+    torch.cuda.empty_cache()
+    for key, counter, _, _, (dtype, *_), _, path in KERNELS:
+        if launches[path][counter] < 1:
+            fail(f"the {path} path launched no {key} {dtype} ({counter}) kernel")
     w8a8_launches = phase_w8a8_slice(indexes, engines, texts, results)  # counts its own run
     for key, counter in (("K8", "w8a8_matmul_fused_quant"), ("K1", "fused_topk"),
                          ("K2", "fused_topk_int8")):

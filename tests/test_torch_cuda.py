@@ -86,7 +86,7 @@ def test_launches_are_counted(gen, dtype):
     assert ft.LAUNCHES["fused_topk"] == 1
 
 
-# -- the tensor-core bf16 scan (K1 bf16, K4 bf16) ------------------------------
+# -- the tensor-core scan (K1 f32 and bf16, K2, K4 bf16) -----------------------
 
 
 def _check_like_plain(v, i, pv, pi, n_valid):
@@ -125,15 +125,60 @@ _TC_CASES = [
     (64, 17, 1408, 5_000, 4_937, True),
     (70, 16, 2048, 5_000, 4_937, False),
 ]
+_KINDS = ("bf16", "f32", "s8s8")
+# f32 and s8s8 beyond the cases above: the largest D the CUDA-core scan
+# took (f32 1408), s8s8 past its resident limit (D = 1280; 1536 for
+# k > 16) up to the CUDA-core scan's largest (5760)
+_TC_MORE = [
+    *[(nq, 10, 768, 20_000, 19_937) for nq in (1, 63, 64, 65, 129, 512)],
+    (64, 16, 1408, 5_000, 4_937),
+    (129, 128, 1408, 5_000, 4_937),
+    (512, 10, 2048, 3_000, 2_937),
+]
+_S8_MORE = [(65, 10, 4096, 3_000, 2_937), (64, 128, 4096, 3_000, 2_937),
+            (63, 17, 5760, 2_000, 1_937)]
+_TC_PARAMS = [
+    *[(kind, *case) for case in _TC_CASES for kind in _KINDS if kind == "bf16" or not case[-1]],
+    *[(kind, *case, False) for case in _TC_MORE for kind in ("f32", "s8s8")],
+    *[("s8s8", *case, False) for case in _S8_MORE],
+]
 
 
-@pytest.mark.parametrize("nq,k,d,n,n_valid,masked", _TC_CASES)
-def test_tc_scan_matches_plain(gen, nq, k, d, n, n_valid, masked):
+def _tc_index(kind, x, n_valid):
+    """Unit rows as an index of ``kind`` (s8s8: quantized, the rows past
+    n_valid with a large row scale)."""
+    if kind != "s8s8":
+        return x.to(torch.float32 if kind == "f32" else torch.bfloat16), None
+    x8, s = quantize_int8(x)
+    s[n_valid:] = 1e3
+    return x8, s
+
+
+def _tc_scan(kind, x, s, q, k, n_valid=None):
+    """(kernel, plain) results of an unmasked flat scan of ``kind``."""
+    if kind == "s8s8":
+        return (ft.fused_topk_int8(x, s, q, k, n_valid=n_valid),
+                ft.fused_topk_int8_plain(x, s, q, k, n_valid=n_valid))
+    return ft.fused_topk(x, q, k, n_valid=n_valid), ft.fused_topk_plain(x, q, k, n_valid=n_valid)
+
+
+def _check_kind(kind, got, want, n_valid):
+    """s8s8 bitwise; the float kinds as ``_check_like_plain``."""
+    (v, i), (pv, pi) = got, want
+    if kind == "s8s8":
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+        assert i.max().item() < n_valid
+    else:
+        _check_like_plain(v, i, pv, pi, n_valid)
+
+
+@pytest.mark.parametrize("kind,nq,k,d,n,n_valid,masked", _TC_PARAMS)
+def test_tc_scan_matches_plain(gen, kind, nq, k, d, n, n_valid, masked):
     """The rows past n_valid are copies of a query: read, they would win."""
     x = _unit(n, d, gen)
     q = _unit(nq, d, gen)
     x[n_valid:] = q[0]
-    x = x.to(torch.bfloat16)
+    x, s = _tc_index(kind, x, n_valid)
     ft.reset_launches()
     if masked:
         rm, qm = _masks(n, nq, gen)
@@ -142,30 +187,78 @@ def test_tc_scan_matches_plain(gen, nq, k, d, n, n_valid, masked):
         assert (i[0] == -1).all() and torch.isinf(v[0]).all()  # the mask-0 query
         assert ft.LAUNCHES["fused_topk_masked"] == 1
     else:
-        v, i = ft.fused_topk(x, q, k, n_valid=n_valid)
-        pv, pi = ft.fused_topk_plain(x, q, k, n_valid=n_valid)
-        assert ft.LAUNCHES["fused_topk"] == 1
+        (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k, n_valid)
+        assert ft.LAUNCHES["fused_topk_int8" if kind == "s8s8" else "fused_topk"] == 1
     assert v.shape == (nq, k) and v.dtype == torch.float32 and i.dtype == torch.int32
-    _check_like_plain(v, i, pv, pi, n_valid)
+    _check_kind(kind, (v, i), (pv, pi), n_valid)
 
 
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kind,masked", [("bf16", False), ("bf16", True), ("f32", False),
+                                         ("s8s8", False)])
 @pytest.mark.parametrize("k", [10, 128])
-def test_tc_ties_ids_bitwise_plain(gen, k, masked):
-    """Duplicated bf16 rows tie exactly across tiles, splits and lists:
-    the lowest ids win, as in the plain version, id for id."""
+def test_tc_ties_ids_bitwise_plain(gen, k, kind, masked):
+    """Duplicated rows tie exactly across tiles, splits and lists: the
+    lowest ids win, as in the plain version, id for id."""
     base = _unit(40, 128, gen)
-    x = base.repeat(40, 1).to(torch.bfloat16)
+    x, s = _tc_index(kind, base.repeat(40, 1), 1600)
     q = _unit(70, 128, gen)
     if masked:
         rm, qm = _masks(x.shape[0], 70, gen)
         v, i = ft.fused_topk_masked(x, rm, qm, q, k)
         pv, pi = ft.fused_topk_masked_plain(x, rm, qm, q, k)
     else:
-        v, i = ft.fused_topk(x, q, k)
-        pv, pi = ft.fused_topk_plain(x, q, k)
+        (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k)
     assert torch.equal(i, pi)
+    _check_kind(kind, (v, i), (pv, pi), x.shape[0])
+
+
+@pytest.mark.parametrize("kind", ["f32", "s8s8"])
+def test_flat_f32_and_s8s8_launch_the_tensor_core_kernel(gen, kind):
+    """The flat unmasked f32 and s8s8 scans run tc_scan_kernel (and the
+    merge), never the CUDA-core scan_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, s = _tc_index(kind, _unit(20_000, 768, gen), 20_000)
+    q = _unit(65, 768, gen)
+    _tc_scan(kind, x, s, q, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _tc_scan(kind, x, s, q, 10)[0][0].cpu()
+    names = [e.key for e in prof.key_averages()]
+    assert any("tc_scan_kernel" in n for n in names), names
+    assert not any("scan_kernel" in n and "tc_scan_kernel" not in n for n in names), names
+
+
+def test_tc_s8s8_zero_query_and_scales_from_1e8_to_1(gen):
+    """An all-zero query (the scale floor: every score 0, ties by id) and
+    row scales spanning 1e-8 to 1, bitwise the plain version."""
+    x8, _ = quantize_int8(_unit(30_000, 768, gen))
+    s = 10.0 ** -(8 * torch.rand(30_000, generator=gen, device="cuda"))
+    s[:2] = torch.tensor([1e-8, 1.0], device="cuda")
+    q = _unit(70, 768, gen)
+    q[3] = 0
+    (v, i), (pv, pi) = _tc_scan("s8s8", x8, s, q, 17, n_valid=29_900)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert (v[3] == 0).all() and torch.equal(i[3].cpu(), torch.arange(17, dtype=torch.int32))
+
+
+def test_tc_f32_crafted_low_bits_within_1e4(gen):
+    """Rows and queries whose f32 values all have low bits 0x0fff (a
+    single TF32 pass drops ~2^-11 of each, all one way: ~1e-3 at the
+    score near 1) and a query that copies a row: the 3xTF32 kernel stays
+    within 1e-4 of the plain fp32 scan."""
+    def low_bits(t):
+        return ((t.view(torch.int32) & -0x2000) | 0x0FFF).view(torch.float32)
+
+    x = low_bits(_unit(50_000, 768, gen))
+    q = low_bits(_unit(64, 768, gen))
+    q[0] = x[777]
+    (v, i), (pv, pi) = _tc_scan("f32", x, None, q, 10)
+    assert i[0, 0].item() == 777
     _check_like_plain(v, i, pv, pi, x.shape[0])
+    head = ft._tf32_head
+    one_pass = (head(q[:1]) @ head(x[777:778]).T).item()  # what a single TF32 pass scores
+    assert abs(one_pass - pv[0, 0].item()) > 5e-4
 
 
 

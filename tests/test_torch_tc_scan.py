@@ -1,5 +1,7 @@
-"""The glue of the tensor-core bf16 scan on the CPU: its planner, its
-bf16 query rounding against JAX's, and the choice of kernel by kind.
+"""The glue of the tensor-core scan on the CPU: its planner, its bf16
+query rounding against JAX's, the choice of kernel by kind, shape and
+mask, and the 3xTF32 arithmetic of its f32 kind (the split rule, and a
+float64 model of the kernel against the JAX package's fp32 scan).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py)."""
 
@@ -44,17 +46,22 @@ def test_tc_queries_round_as_jax_bfloat16():
                                                                torch.bfloat16))
 
 
-@pytest.mark.parametrize("kind,table,route", [
-    ("bf16", False, "tc"),
-    ("bf16", True, "cuda_core"),  # the IVF block tables at q_block 8
-    ("f32", False, "cuda_core"),
-    ("f32", True, "cuda_core"),
-    ("s8s8", False, "cuda_core"),
-    ("row", False, "cuda_core"),
-    ("row", True, "cuda_core"),
+@pytest.mark.parametrize("kind,table,masked,route", [
+    ("bf16", False, False, "tc"),
+    ("bf16", False, True, "tc"),
+    ("bf16", True, False, "cuda_core"),  # the IVF block tables at q_block 8
+    ("bf16", True, True, "cuda_core"),
+    ("f32", False, False, "tc"),  # 3xTF32
+    ("f32", False, True, "cuda_core"),
+    ("f32", True, False, "cuda_core"),
+    ("s8s8", False, False, "tc"),  # int8 wgmma
+    ("s8s8", False, True, "cuda_core"),
+    ("row", False, False, "cuda_core"),
+    ("row", False, True, "cuda_core"),
+    ("row", True, False, "cuda_core"),
 ])
-def test_scan_route_by_kind_and_shape(kind, table, route):
-    assert ft.scan_route(kind, table) == route
+def test_scan_route_by_kind_and_shape(kind, table, masked, route):
+    assert ft.scan_route(kind, table, masked) == route
 
 
 def test_flat_bf16_scan_refuses_the_cuda_core_kernel():
@@ -62,6 +69,124 @@ def test_flat_bf16_scan_refuses_the_cuda_core_kernel():
     q = torch.zeros((2, 64))
     with pytest.raises(ValueError, match="tensor-core"):
         ft._launch("bf16", 16, x, None, None, None, q, None, 5, 256)
+
+
+@pytest.mark.parametrize("kind", ["f32", "s8s8"])
+def test_flat_unmasked_f32_and_s8s8_refuse_the_cuda_core_kernel(kind):
+    x = torch.zeros((256, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
+    q = torch.zeros((2, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
+    scales = torch.ones(256) if kind == "s8s8" else None
+    with pytest.raises(ValueError, match="tensor-core"):
+        ft._launch(kind, 16, x, scales, None, None, q, None, 5, 256)
+
+
+@pytest.mark.parametrize("kind", ["f32", "s8s8"])
+def test_masked_f32_and_s8s8_refuse_the_tensor_core_kernel(kind):
+    """Until the masked forms move, their scans stay on ``scan_kernel``."""
+    x = torch.zeros((256, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
+    q = torch.zeros((2, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
+    masks, qmask = torch.ones(256, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA-core"):
+        ft._launch_tc(kind, x, None, masks, qmask, q, None, None, 5, 256)
+
+
+# -- the 3xTF32 split of the f32 scan ------------------------------------------
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.int32).numpy().view(np.uint32)
+
+
+def test_tf32_split_leaves_low_bits_zero_and_sums_to_q():
+    """Both halves carry zeros in the 13 mantissa bits TF32 drops, and
+    head + tail is q within 2^-21·|q| elementwise (the rule gives
+    2^-22); a tie at half a TF32 step rounds away from zero."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((64, 768)).astype(np.float32)
+    q[1] *= 1e-6
+    q[2] *= 1e6
+    q[3, :4] = [1 + 2.0**-11, -(1 + 2.0**-11), 1 + 3 * 2.0**-11, 0.0]  # ties, zero
+    head, tail = ft.tf32_split(torch.from_numpy(q))
+    assert head.dtype == tail.dtype == torch.float32
+    assert head.is_contiguous() and tail.is_contiguous()
+    assert not (_bits(head) & 0x1FFF).any() and not (_bits(tail) & 0x1FFF).any()
+    q64 = q.astype(np.float64)
+    err = np.abs(head.numpy().astype(np.float64) + tail.numpy().astype(np.float64) - q64)
+    assert (err <= 2.0**-21 * np.abs(q64)).all()
+    np.testing.assert_array_equal(head.numpy()[3, :4], [1 + 2.0**-10, -(1 + 2.0**-10),
+                                                        1 + 4 * 2.0**-11, 0.0])
+    assert (tail.numpy()[3, :4] == [-(2.0**-11), 2.0**-11, -(2.0**-11), 0.0]).all()
+
+
+def _model_scan(x: np.ndarray, q: np.ndarray, k: int, passes: int = 3):
+    """The f32 tensor-core scan's arithmetic in float64: rows and queries
+    split by the kernel's rule, q_lo·x_hi + q_hi·x_lo + q_hi·x_hi (passes
+    = 3) or q_hi·x_hi alone (passes = 1, a single TF32 pass), the fp32
+    score, top-k in the kernels' order."""
+    xh, xl = (t.numpy().astype(np.float64) for t in ft.tf32_split(torch.from_numpy(x)))
+    qh, ql = (t.numpy().astype(np.float64) for t in ft.tf32_split(torch.from_numpy(q)))
+    s = qh @ xh.T
+    if passes == 3:
+        s = ql @ xh.T + qh @ xl.T + s
+    return ft.kernel_order(torch.from_numpy(s.astype(np.float32)), k)
+
+
+def _jax_f32_topk(x: np.ndarray, q: np.ndarray, k: int):
+    from arxiv_rag_tpu.ops.pallas_topk import fused_topk as jax_fused_topk
+
+    jv, ji = jax_fused_topk(jnp.asarray(x), jnp.asarray(q), k, block_rows=512, interpret=True)
+    return np.asarray(jv), np.asarray(ji)
+
+
+def _unit_rows(rng, n: int, d: int) -> np.ndarray:
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _agrees(v, i, jv, ji, tol=1e-4) -> bool:
+    from arxiv_rag_tpu_torch.ops.topk import recall_at_k
+
+    v, i = v.numpy(), i.numpy()
+    return (np.abs(v - jv).max() <= tol
+            and recall_at_k(i, ji, jv, tie_tol=tol, candidate_scores=v) == 1.0)
+
+
+def test_tf32x3_model_matches_jax_f32_scan():
+    """The kernel's 3xTF32 arithmetic, modelled in float64, gives the JAX
+    package's fp32 (Precision.HIGHEST) scan within 1e-4 with tie-tolerant
+    recall 1.0."""
+    rng = np.random.default_rng(12)
+    x, q = _unit_rows(rng, 2000, 256), _unit_rows(rng, 24, 256)
+    q[0] = x[17]
+    jv, ji = _jax_f32_topk(x, q, 10)
+    v, i = _model_scan(x, q, 10)
+    assert _agrees(v, i, jv, ji)
+    assert np.abs(v.numpy() - jv).max() <= 1e-5  # the dropped q_lo·x_lo term is ~2^-21
+
+
+def _low_bits_0fff(a: np.ndarray) -> np.ndarray:
+    """Every f32 value's low 13 bits set to 0x0fff: just under half a TF32
+    step, so rounding and truncation both drop ~2^-11 of each value, all
+    toward zero."""
+    b = a.view(np.uint32)
+    return ((b & np.uint32(0xFFFFE000)) | np.uint32(0x0FFF)).view(np.float32)
+
+
+def test_crafted_low_bits_case_is_sharp():
+    """Unit rows and queries whose values all have low bits 0x0fff, one
+    query a copy of a row: a single TF32 pass misses 1e-4 (~1e-3 at the
+    score near 1), the 3xTF32 model holds it against JAX."""
+    rng = np.random.default_rng(13)
+    x = _low_bits_0fff(_unit_rows(rng, 1500, 256))
+    q = _low_bits_0fff(_unit_rows(rng, 16, 256))
+    q[0] = x[42]
+    jv, ji = _jax_f32_topk(x, q, 10)
+    assert ji[0, 0] == 42 and abs(jv[0, 0] - 1.0) < 1e-3
+    v3, i3 = _model_scan(x, q, 10)
+    assert _agrees(v3, i3, jv, ji)
+    v1, _ = _model_scan(x, q, 10, passes=1)
+    assert abs(v1.numpy()[0, 0] - jv[0, 0]) > 5e-4
+    assert not np.abs(v1.numpy() - jv).max() <= 1e-4
 
 
 def test_tc_variants_still_apply_to_the_kernel_source():
