@@ -1,6 +1,6 @@
-"""Time the flat scans K1 (bf16 and f32), K2 (s8s8) and K4 (bf16, masked)
-of one checkout of this repository, for A/B comparisons of two checkouts
-on one card:
+"""Time the flat scans K1 (bf16 and f32), K2 (s8s8), K3 (int8 row) and K4
+(masked: bf16, s8s8 and f32) of one checkout of this repository, for A/B
+comparisons of two checkouts on one card:
 
     python3 arxiv_rag_tpu_torch/ab_scans.py --repo CHECKOUT [--seed 0]
 
@@ -8,7 +8,7 @@ imports ``arxiv_rag_tpu_torch`` from ``CHECKOUT`` (building its kernels
 there), scans a 2,000,000 × 768 index made on the card from ``--seed``
 at Q = 32, 64 and 512, k = 10 (K1 f32 also over its first 262,144 rows;
 K4: each row in one of 8 categories, the query mask 3 of them, the last
-query none), and prints one JSON line:
+query none; K4 f32 over the 2M f32 rows), and prints one JSON line:
 the card, the checkout, nvcc's register/spill report and the median of
 20 CUDA-event timings per case. Run two checkouts in turns (A, B, B, A)
 in one call. Needs a card; uses only the wrappers both checkouts have.
@@ -86,6 +86,15 @@ def main() -> int:
         out[f"K4_bf16_q{nq}"] = _median_ms(
             lambda: ft.fused_topk_masked(bf16._device_values, row_masks, qmask, q, 10,
                                          n_valid=n))
+        out[f"K4_s8s8_q{nq}"] = _median_ms(
+            lambda: ft.fused_topk_int8_masked(int8._device_values, int8._device_scales,
+                                              row_masks, qmask, q, 10, n_valid=n))
+        out[f"K4_f32_q{nq}"] = _median_ms(
+            lambda: ft.fused_topk_masked(f32._device_values, row_masks, qmask, q, 10,
+                                         n_valid=n))
+        out[f"K3_row_q{nq}"] = _median_ms(
+            lambda: ft.fused_topk_int8(int8._device_values, int8._device_scales, q, 10,
+                                       n_valid=n, variant="row"))
     print(json.dumps({"card": card, "repo": args.repo, "ms": out, "ptxas": report}))
     return 0
 

@@ -10,12 +10,12 @@
 //       Precision.HIGHEST is itself split bf16 passes on the TPU's MXU;
 //       bf16: bf16 x bf16 products on the tensor cores).
 //   K2  s8s8 scan (fused_topk_int8): int8 index and int8 queries, exact
-//       s32 accumulation (int8 wgmma; __dp4a in a masked scan), score =
-//       float(acc) * row_scale; the per-query scale multiplies only the k
-//       survivors (merge kernel).
+//       s32 accumulation (int8 wgmma), score = float(acc) * row_scale; the
+//       per-query scale multiplies only the k survivors (merge kernel).
 //   K3  int8 "row" scan (fused_topk_int8 variant="row"): int8 index, bf16
-//       queries, fp32 sums of the exact int8 x bf16 products, then one
-//       rounded product with the row scale (pallas_topk.py:184-203).
+//       queries, fp32 sums of the exact int8 x bf16 products (bf16 wgmma
+//       on rows widened to bf16), then one rounded product with the row
+//       scale (pallas_topk.py:184-203).
 //   K4  the masked forms of K1..K3 (fused_topk_masked,
 //       fused_topk_int8_masked): a row counts for a query only where
 //       (row_mask & query_mask) != 0; the others never become candidates
@@ -41,15 +41,15 @@
 //          (a k-way merge in the same total order, so it is lossless) and
 //          applies the s8s8 query scale.
 // The kernels allocate nothing and launch on the caller's stream. There
-// are two scans; the wrapper chooses by kind, shape and mask alone
+// are two scans; the wrapper chooses by shape alone, flat or block table
 // (ops/fused_topk.py::scan_route):
 //
-//   tc_scan_kernel<KIND, KCAP, NC>: every flat unmasked scan of an f32,
-//     bf16 or s8s8 index (K1 f32, K1 bf16, K2) and the flat masked bf16
-//     scan (K4 bf16), on the tensor cores. The three kinds share one
-//     geometry: a ring slice is one 128-byte swizzle span of each row (64
-//     bf16, 32 f32 or 128 int8 columns), a row tile 16 KB, a query tile
-//     8 KB, and each wgmma k-step takes 32 bytes of the span:
+//   tc_scan_kernel<KIND, KCAP, NC>: every flat scan, masked or not, of
+//     an f32, bf16 or int8 index (K1 f32, K1 bf16, K2, K3, K4), on the
+//     tensor cores. The four kinds share one geometry: the products read
+//     one 128-byte swizzle span of each row per ring slice (64 bf16, 32
+//     f32 or 128 int8 columns), a row tile 16 KB, a query tile 8 KB, and
+//     each wgmma k-step takes 32 bytes of the span:
 //       bf16  wgmma.m64n128k16 bf16 x bf16 -> fp32;
 //       f32   3xTF32 (the note at tf32_head): each operand split into a
 //             TF32 head and a TF32 tail, and per k-step three
@@ -58,25 +58,30 @@
 //             dropped: ~2^-21 of each |q_i x_i|). The queries arrive split
 //             (two tensors); the consumers split each arriving row slice
 //             in shared memory, the head in place and the tail beside it;
-//       s8    wgmma.m64n128k32 s8 x s8 -> s32, exact (|acc| <= 768 *
-//             127^2 < 2^24 at D = 768), then score = float(acc) *
-//             row_scale, one rounded product as in scan_kernel and the
-//             plain version; the per-query scale multiplies only the
-//             survivors, in the merge.
+//       s8    wgmma.m64n128k32 s8 x s8 -> s32, exact (|acc| <= D *
+//             127^2 < 2^31), then score = float(acc) * row_scale, one
+//             rounded product as in the reference and the plain version;
+//             the per-query scale multiplies only the survivors, in the
+//             merge;
+//       row   the bf16 products against int8 rows: TMA brings a half-span
+//             int8 slice (128 rows x 64 columns, 8 KB, unswizzled) and the
+//             consumers widen it in shared memory into exactly one bf16
+//             slice of the bf16 kind (16 KB, swizzled as TMA would), which
+//             is exact; then the bf16 kind's queries, descriptors and
+//             k-steps, and score = acc * row_scale, one rounded product.
 //     A block takes 64 queries (the wgmma M) and scans a contiguous
 //     split of 128-row tiles. Where they fit beside the ring (bf16 to D =
 //     896, s8 to D = 1280; 1536 for k > 16), its queries stay in shared
-//     memory for the
-//     whole call, loaded once by TMA; otherwise, and always for f32
-//     (resident heads and tails would take 384 KB at D = 768), each ring
-//     stage carries the query slice (8 KB; f32: head and tail) beside the
-//     row slice, so any D fits and the queries are re-read from L2 once
-//     per row tile. One producer warp
-//     feeds each of NC consumer warpgroups a ring of slices (128 rows x
-//     128 bytes; bf16 3 stages, s8 4, f32 2 beside two warpgroups and 3
-//     beside one)
-//     by TMA with the 128-byte swizzle, through
-//     full/empty mbarriers; the index's tensor map ends at n_valid, so
+//     memory for the whole call, loaded once by TMA; otherwise, and
+//     always for f32 (resident heads and tails would take 384 KB at D =
+//     768) and row (faster streamed), each ring stage carries the query
+//     slice (8 KB; f32: head and tail) beside the row slice, so any D
+//     fits and the queries are re-read from L2 once per row tile. One
+//     producer warp feeds each of NC consumer warpgroups a ring of slices
+//     (128 rows x 128 bytes; bf16 and row 3 stages, s8 4, f32 2 beside
+//     two warpgroups and 3 beside one) by TMA with the 128-byte swizzle
+//     (the row kind's int8 unswizzled), through full/empty mbarriers;
+//     the index's tensor map ends at n_valid, so
 //     the ragged last tile arrives zero-filled (those rows score 0 and
 //     are dropped by id). Warpgroup w takes every NC-th tile of the
 //     split and runs the kind's products over the slices of D (both
@@ -85,8 +90,9 @@
 //     runs from the accumulators: the fragment gives each query's 128
 //     tile scores to the four lanes of one quad, 32 each. A lane marks the
 //     scores not below its query's k-th score (it skips the marking when
-//     its largest is below), drops rows past n_valid and, for K4, rows
-//     whose mask misses the query's (a mask-0 query is skipped whole);
+//     its largest is below), drops rows past n_valid and, for K4 (any
+//     kind), rows whose mask misses the query's (a mask-0 query is
+//     skipped whole);
 //     then each lane offers its largest marked entry and the quad merges
 //     the four offers into the query's sorted list in shared memory by
 //     rank, until no lane's largest beats the k-th. Entries are 64-bit
@@ -101,12 +107,10 @@
 //     at Q <= 64 the index is read from HBM once and at Q = 512 its eight
 //     query tiles read each row tile within a short window, the later
 //     ones from L2.
-//   scan_kernel: the int8 row kind (K3), the masked f32 and s8s8 scans
-//     (K4) and every block table (K5, K6), on the CUDA cores. Grid (query
-//     tiles of QT, splits). QT is 16 for the flat
-//     scans, and 8 or 16 for the block tables (the reference's
-//     ivf_q_block, 8 by default), a template parameter. A flat
-//     split is a contiguous chunk of rows; a table split walks every
+//   scan_kernel: every block table (K5, K6; an f32, bf16 or int8 index,
+//     int8 scored with the row kind), on the CUDA cores. Grid (query
+//     tiles of QT, splits). QT is 8 or 16 (the reference's ivf_q_block,
+//     8 by default), a template parameter. A split walks every
 //     splits-th entry of its tile's table row, so the dead visits that a
 //     device plan sorts to the end of a row spread over all splits. A
 //     visit's rows are clipped at n_valid before anything is loaded: a
@@ -114,7 +118,7 @@
 //     costs one loop step. A block stages its queries in shared memory,
 //     streams rows in tiles of 512 (each 64-byte slice of the tile loaded
 //     coalesced into padded shared rows), and each thread accumulates 2
-//     rows x QT queries in registers (fp32 FMA, __dp4a). Rows beating a
+//     rows x QT queries in registers (fp32 FMA). Rows beating a
 //     query's current k-th score are appended to a per-query candidate
 //     list; one warp per query then merges the candidates into its sorted
 //     running top-k by computing each element's rank in the union (the
@@ -130,15 +134,17 @@
 //   (2QND fp32-accurate products at 165 TFLOP/s) need 9.5 ms at Q = 512,
 //   so it is bound by operations from Q ~ 100 on.
 //   K2 and K3 read 1.54 GB: 0.46 ms; K2's products at Q = 512 need
-//   0.79 ms of int8 tensor-core time. K4 adds 8 MB of row masks.
+//   0.79 ms of int8 tensor-core time, K3's (bf16) 1.59 ms. K4 adds 8 MB
+//   of row masks.
 //   K5/K6 read only the probed blocks: at nprobe 8 of 4096 clusters a
 //   tile of 8 queries touches a few dozen 1024-row blocks, tens of MB.
 // What the designs do about it: tc_scan_kernel streams the index once
 // per query tile at the tensor cores' rate and keeps its scores in
 // registers; what is left between it and its bound is its epilogue (the
 // marking and merging run between one tile's products and the next)
-// and, for f32, the split of each row slice in shared memory (every
-// query tile splits the rows again; the index stays one f32 copy).
+// and, for f32 and row, the split or widening of each row slice in
+// shared memory (every query tile does it again; the index stays one
+// copy in its own type).
 // scan_kernel runs on the CUDA cores, so at large Q it is bound by
 // CUDA-core arithmetic and by re-reading the index once per 16 queries;
 // masked rows are still scored (as on the TPU). Measured times are in
@@ -244,14 +250,13 @@ __device__ void merge_warp(float* rv, int* ri, const float* cv, const int* ci,
 
 struct ScanArgs {
   const unsigned char* x;   // [rows, d] index values
-  const float* scales;      // [rows] row scales (int8 kinds)
+  const float* scales;      // [rows] row scales (int8 row kind)
   const int* row_masks;     // [rows] category bits, or null (no filter)
   const int* qmask;         // [nq] query bits (with row_masks)
-  const void* q;            // [nq, d] f32 queries, int8 for s8s8
+  const float* q;           // [nq, d] f32 queries
   long long n_valid;        // rows at or past this id are never read
   int d, nq, k;
-  long long chunk_rows;     // flat: rows per split
-  const int* blkids;        // table: [tiles, width] block ids, or null (flat)
+  const int* blkids;        // [tiles, width] block ids
   int width, block_rows;
   float* cand_vals;         // [splits, nq, k]
   int* cand_ids;
@@ -259,20 +264,17 @@ struct ScanArgs {
 
 // One block of 16 queries fills an SM's shared memory (188 KB at D=768),
 // so its registers may use the whole SM: saying so (min blocks 1) let
-// nvcc give K2 128 registers instead of 80, which took K2 at Q=512 from
-// 50.5 to 40.9 ms (ab_scans.py, PERF.md). An 8-query block (112 KB) fits
-// twice per SM, and keeps that room.
+// nvcc give the scan up to 128 registers instead of 80 (PERF.md).
+// An 8-query block (112 KB) fits twice per SM, and keeps that room.
 template <int KIND, int QT>
 __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs a) {
-  using Acc = typename std::conditional<KIND == kS8, int, float>::type;
   constexpr int kElem = elem_bytes(KIND);
-  constexpr int kQBytes = KIND == kS8 ? 1 : 4;
   constexpr int kVec = 16 / kElem;  // index elements per 16-byte load
   const int d = a.d, nq = a.nq, k = a.k;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qsm = smem;
-  unsigned char* tile = qsm + QT * d * kQBytes;
+  float* qsm = reinterpret_cast<float*>(smem);
+  unsigned char* tile = smem + QT * d * sizeof(float);
   float* cand_v = reinterpret_cast<float*>(tile + kTileRows * kRowStride);
   int* cand_i = reinterpret_cast<int*>(cand_v + QT * kTileRows);
   float* run_v = reinterpret_cast<float*>(cand_i + QT * kTileRows);
@@ -289,22 +291,15 @@ __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs 
   const int split = blockIdx.y;
   const int splits = gridDim.y;
   const long long row_bytes = static_cast<long long>(d) * kElem;
-  const bool table = a.blkids != nullptr;
   const bool masked = a.row_masks != nullptr;
 
-  // queries: fp32 for the float kinds (rounded to bf16 first for a bf16
-  // or int8-row index), int8 for s8s8
+  // queries in fp32, rounded to bf16 first for a bf16 or int8-row index
   for (int i = tid; i < QT * d; i += kThreads) {
     const int qi = i / d;
     const long long src = static_cast<long long>(q0 + qi) * d + (i - qi * d);
-    const bool real = q0 + qi < nq;
-    if constexpr (KIND == kS8) {
-      reinterpret_cast<int8_t*>(qsm)[i] = real ? static_cast<const int8_t*>(a.q)[src] : 0;
-    } else {
-      float v = real ? static_cast<const float*>(a.q)[src] : 0.f;
-      if constexpr (KIND == kBF16 || KIND == kS8Row) v = __bfloat162float(__float2bfloat16_rn(v));
-      reinterpret_cast<float*>(qsm)[i] = v;
-    }
+    float v = q0 + qi < nq ? a.q[src] : 0.f;
+    if constexpr (KIND == kBF16 || KIND == kS8Row) v = __bfloat162float(__float2bfloat16_rn(v));
+    qsm[i] = v;
   }
   for (int i = tid; i < QT * kKMax; i += kThreads) {
     run_v[i] = neg_inf();
@@ -315,20 +310,13 @@ __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs 
     qm[tid] = masked && q0 + tid < nq ? a.qmask[q0 + tid] : 0;
   }
 
-  const int n_visits = table ? a.width : 1;
-  for (int visit = table ? split : 0; visit < n_visits; visit += table ? splits : 1) {
-    long long seg_begin, seg_end;
-    if (table) {
-      const int blk = a.blkids[static_cast<long long>(blockIdx.x) * a.width + visit];
-      if (blk < 0) continue;
-      seg_begin = static_cast<long long>(blk) * a.block_rows;
-      seg_end = min(seg_begin + a.block_rows, a.n_valid);
-    } else {
-      seg_begin = split * a.chunk_rows;
-      seg_end = min(seg_begin + a.chunk_rows, a.n_valid);
-    }
+  for (int visit = split; visit < a.width; visit += splits) {
+    const int blk = a.blkids[static_cast<long long>(blockIdx.x) * a.width + visit];
+    if (blk < 0) continue;
+    const long long seg_begin = static_cast<long long>(blk) * a.block_rows;
+    const long long seg_end = min(seg_begin + a.block_rows, a.n_valid);
     for (long long t0 = seg_begin; t0 < seg_end; t0 += kTileRows) {
-      Acc acc[2][QT];
+      float acc[2][QT];
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -352,46 +340,23 @@ __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs 
           const uint4 xb4 =
               *reinterpret_cast<const uint4*>(tile + (tid + kThreads) * kRowStride + part * 16);
           const int e0 = static_cast<int>((b0 + part * 16) / kElem);  // element offset
-          if constexpr (KIND == kS8) {
-            // all QT query words first, then the products: the loads
-            // issue back to back instead of one ahead of each query's
-            // __dp4a chain
-            uint4 wq[QT];
+          float xa[kVec], xb[kVec];
+          unpack(xa4, xa, std::integral_constant<int, KIND>());
+          unpack(xb4, xb, std::integral_constant<int, KIND>());
 #pragma unroll
-            for (int qi = 0; qi < QT; ++qi)
-              wq[qi] = *reinterpret_cast<const uint4*>(qsm + qi * d + e0);
+          for (int qi = 0; qi < QT; ++qi) {
+            const float4* qp = reinterpret_cast<const float4*>(qsm + qi * d + e0);
 #pragma unroll
-            for (int qi = 0; qi < QT; ++qi) {
-              const uint4 w = wq[qi];
-              acc[0][qi] = __dp4a(static_cast<int>(xa4.x), static_cast<int>(w.x), acc[0][qi]);
-              acc[0][qi] = __dp4a(static_cast<int>(xa4.y), static_cast<int>(w.y), acc[0][qi]);
-              acc[0][qi] = __dp4a(static_cast<int>(xa4.z), static_cast<int>(w.z), acc[0][qi]);
-              acc[0][qi] = __dp4a(static_cast<int>(xa4.w), static_cast<int>(w.w), acc[0][qi]);
-              acc[1][qi] = __dp4a(static_cast<int>(xb4.x), static_cast<int>(w.x), acc[1][qi]);
-              acc[1][qi] = __dp4a(static_cast<int>(xb4.y), static_cast<int>(w.y), acc[1][qi]);
-              acc[1][qi] = __dp4a(static_cast<int>(xb4.z), static_cast<int>(w.z), acc[1][qi]);
-              acc[1][qi] = __dp4a(static_cast<int>(xb4.w), static_cast<int>(w.w), acc[1][qi]);
-            }
-          } else {
-            float xa[kVec], xb[kVec];
-            unpack(xa4, xa, std::integral_constant<int, KIND>());
-            unpack(xb4, xb, std::integral_constant<int, KIND>());
-            const float* qf = reinterpret_cast<const float*>(qsm);
-#pragma unroll
-            for (int qi = 0; qi < QT; ++qi) {
-              const float4* qp = reinterpret_cast<const float4*>(qf + qi * d + e0);
-#pragma unroll
-              for (int j = 0; j < kVec / 4; ++j) {
-                const float4 w = qp[j];
-                acc[0][qi] = fmaf(xa[4 * j], w.x, acc[0][qi]);
-                acc[0][qi] = fmaf(xa[4 * j + 1], w.y, acc[0][qi]);
-                acc[0][qi] = fmaf(xa[4 * j + 2], w.z, acc[0][qi]);
-                acc[0][qi] = fmaf(xa[4 * j + 3], w.w, acc[0][qi]);
-                acc[1][qi] = fmaf(xb[4 * j], w.x, acc[1][qi]);
-                acc[1][qi] = fmaf(xb[4 * j + 1], w.y, acc[1][qi]);
-                acc[1][qi] = fmaf(xb[4 * j + 2], w.z, acc[1][qi]);
-                acc[1][qi] = fmaf(xb[4 * j + 3], w.w, acc[1][qi]);
-              }
+            for (int j = 0; j < kVec / 4; ++j) {
+              const float4 w = qp[j];
+              acc[0][qi] = fmaf(xa[4 * j], w.x, acc[0][qi]);
+              acc[0][qi] = fmaf(xa[4 * j + 1], w.y, acc[0][qi]);
+              acc[0][qi] = fmaf(xa[4 * j + 2], w.z, acc[0][qi]);
+              acc[0][qi] = fmaf(xa[4 * j + 3], w.w, acc[0][qi]);
+              acc[1][qi] = fmaf(xb[4 * j], w.x, acc[1][qi]);
+              acc[1][qi] = fmaf(xb[4 * j + 1], w.y, acc[1][qi]);
+              acc[1][qi] = fmaf(xb[4 * j + 2], w.z, acc[1][qi]);
+              acc[1][qi] = fmaf(xb[4 * j + 3], w.w, acc[1][qi]);
             }
           }
         }
@@ -404,19 +369,13 @@ __global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs 
         const long long row = t0 + tid + r * kThreads;
         if (row < seg_end) {
           float scale = 1.f;
-          if constexpr (KIND == kS8 || KIND == kS8Row) scale = a.scales[row];
+          if constexpr (KIND == kS8Row) scale = a.scales[row];
           const int rm = masked ? a.row_masks[row] : 0;
 #pragma unroll
           for (int qi = 0; qi < QT; ++qi) {
             if (q0 + qi < nq && (!masked || (rm & qm[qi]) != 0)) {
-              float s;
-              if constexpr (KIND == kS8) {
-                s = __int2float_rn(acc[r][qi]) * scale;
-              } else if constexpr (KIND == kS8Row) {
-                s = acc[r][qi] * scale;  // one rounded product, no add after it
-              } else {
-                s = acc[r][qi];
-              }
+              float s = acc[r][qi];
+              if constexpr (KIND == kS8Row) s *= scale;  // one rounded product, no add after it
               if (s > run_v[qi * kKMax + k - 1]) {
                 const int slot = atomicAdd(&cnt[qi], 1);
                 cand_v[qi * kTileRows + slot] = s;
@@ -521,7 +480,7 @@ merge_kernel(const float* __restrict__ cand_vals, const int* __restrict__ cand_i
   }
 }
 
-// -- the flat scans on the tensor cores (K1 f32 and bf16, K2, K4 bf16) --------
+// -- the flat scans on the tensor cores (K1 f32 and bf16, K2, K3, K4) ---------
 //
 // (tc_scan_kernel in the note at the head of this file.)
 
@@ -533,8 +492,11 @@ constexpr int kTcStagesS8 = 4;           // the same for s8 (tc_stages)
 constexpr int kTcQTileBytes = kTcQ * kTcSpan;
 constexpr int kTcXTileBytes = kTcRows * kTcSpan;
 
-// Columns per slice: 64 bf16, 32 f32, 128 int8.
-__host__ __device__ constexpr int tc_cols(int kind) { return kTcSpan / elem_bytes(kind); }
+// Columns per slice: 64 bf16, 32 f32, 128 int8 (s8); 64 for the row
+// kind, whose 64-byte int8 slice widens into one bf16 slice.
+__host__ __device__ constexpr int tc_cols(int kind) {
+  return kind == kS8Row ? kTcSpan / 2 : kTcSpan / elem_bytes(kind);
+}
 
 // Slices per row; a last partial int8 slice reads zeros past D.
 __host__ __device__ constexpr int tc_slices(int kind, int d) {
@@ -546,7 +508,8 @@ __host__ __device__ constexpr int tc_slices(int kind, int d) {
 // are half bf16's (48 KB at D = 768), 1-4% faster than 3; an f32 stage is
 // three times the others (48 KB: rows, their tails, query heads and
 // tails), so two fit beside two warpgroups' lists, and beside one three
-// (faster than two).
+// (faster than two); a row stage carries the int8 slice, its bf16
+// widening and the query slice (32 KB), three of them.
 __host__ __device__ constexpr int tc_stages(int kind, int nc) {
   return kind == kF32 ? (nc == 1 ? 3 : 2) : kind == kS8 ? kTcStagesS8 : kTcStages;
 }
@@ -687,16 +650,53 @@ __device__ __forceinline__ void tf32_split_slice(unsigned char* x, unsigned char
   }
 }
 
+// Four int8 values (one word) as four bf16 values (two words), exactly:
+// each byte, biased to unsigned, becomes the low byte of 2^23's fp32
+// mantissa; less 2^23 + 128 that is the value, an integer |v| <= 128
+// whose fp32 bits below the upper half are zero, so the upper half is
+// its bf16. Integer and fp32 pipes only (no conversion instructions).
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)), 8388736.f);
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// Widen one arriving 128 x 64 int8 row slice (row r at r * 64 bytes, as
+// TMA wrote it unswizzled) into a bf16 slice of the bf16 kind: 128 rows
+// of 128 bytes, 16-byte chunk c of row r at chunk c ^ (r & 7) (the
+// 128-byte swizzle of a 1024-byte-aligned tile). One warpgroup, 128
+// threads, 16 bytes read each per step: consecutive threads read
+// consecutive bytes and write two rows' eight chunk positions, without
+// bank conflicts.
+__device__ __forceinline__ void widen_slice(const unsigned char* src, unsigned char* dst, int t) {
+#pragma unroll
+  for (int i = 0; i < kTcXTileBytes / 2 / 16 / 128; ++i) {
+    const int idx = i * 128 + t;
+    const int r = idx >> 2;
+    const int p = idx & 3;  // int8 columns 16p .. 16p+15: bf16 chunks 2p, 2p+1
+    const uint4 w = reinterpret_cast<const uint4*>(src)[idx];
+    const uint2 a = widen4(w.x), b = widen4(w.y), c = widen4(w.z), d = widen4(w.w);
+    unsigned char* row = dst + r * kTcSpan;
+    *reinterpret_cast<uint4*>(row + (((2 * p) ^ (r & 7)) << 4)) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(row + (((2 * p + 1) ^ (r & 7)) << 4)) =
+        make_uint4(c.x, c.y, d.x, d.y);
+  }
+}
+
 // One k-step (32 bytes of the slice) of a tile's products. qt and xt are
-// the query and row slices; for f32, the tails lie one tile further on
-// (queries: kTcQTileBytes; rows: kTcXTileBytes), and the two cross terms
-// go in before the heads' product.
+// the query and row slices (row: the widened rows); for f32, the tails
+// lie one tile further on (queries: kTcQTileBytes; rows: kTcXTileBytes),
+// and the two cross terms go in before the heads' product.
 template <int KIND, typename Acc>
 __device__ __forceinline__ void tc_mma(Acc (&acc)[64], const unsigned char* qt,
                                        const unsigned char* xt, int kk, int accumulate) {
   const unsigned char* q = qt + kk * 32;
   const unsigned char* x = xt + kk * 32;
-  if constexpr (KIND == kBF16) {
+  if constexpr (KIND == kBF16 || KIND == kS8Row) {
     wgmma_bf16(acc, sw128_desc(q), sw128_desc(x), accumulate);
   } else if constexpr (KIND == kS8) {
     wgmma_s8(acc, sw128_desc(q), sw128_desc(x), accumulate);
@@ -782,7 +782,7 @@ __device__ __forceinline__ void quad_merge(uint64_t* list, int k, const uint64_t
 }
 
 struct TcArgs {
-  const float* scales;   // [rows] row scales (s8), or null
+  const float* scales;   // [rows] row scales (s8, row), or null
   const int* row_masks;  // [rows] category bits, or null (no filter)
   const int* qmask;      // [nq] query bits (with row_masks)
   long long n_valid;     // rows at or past this id never count
@@ -793,22 +793,36 @@ struct TcArgs {
   int* cand_ids;
 };
 
-// A ring stage: the row slice, then the query slice when they stream;
-// for f32 the rows' tails, then the query heads and tails (they always
-// stream).
+// A ring stage: the row slice the products read, then the query slice
+// when they stream; for f32 the rows' tails, then the query heads and
+// tails (they always stream); for row the int8 slice that TMA brings
+// (8 KB) after its bf16 widening, then the query slice when they stream.
 __host__ __device__ constexpr int tc_stage_bytes(int kind, bool stream_queries) {
-  return kind == kF32 ? 2 * kTcXTileBytes + 2 * kTcQTileBytes
-                      : kTcXTileBytes + (stream_queries ? kTcQTileBytes : 0);
+  return kind == kF32     ? 2 * kTcXTileBytes + 2 * kTcQTileBytes
+         : kind == kS8Row ? kTcXTileBytes + kTcXTileBytes / 2 +
+                                (stream_queries ? kTcQTileBytes : 0)
+                          : kTcXTileBytes + (stream_queries ? kTcQTileBytes : 0);
 }
 
-// What TMA brings into a stage (an f32 stage's row tails are computed).
+// What TMA brings into a stage (an f32 stage's row tails and a row
+// stage's widened rows are computed).
 __host__ __device__ constexpr int tc_stage_tx(int kind, bool stream_queries) {
-  return kind == kF32 ? kTcXTileBytes + 2 * kTcQTileBytes : tc_stage_bytes(kind, stream_queries);
+  return kind == kF32     ? kTcXTileBytes + 2 * kTcQTileBytes
+         : kind == kS8Row ? kTcXTileBytes / 2 + (stream_queries ? kTcQTileBytes : 0)
+                          : tc_stage_bytes(kind, stream_queries);
+}
+
+// Where TMA puts a stage's rows: the stage's start, or for row past the
+// widened rows.
+__host__ __device__ constexpr int tc_stage_x(int kind) {
+  return kind == kS8Row ? kTcXTileBytes : 0;
 }
 
 // Where a stage's query slice starts.
 __host__ __device__ constexpr int tc_stage_q(int kind) {
-  return kind == kF32 ? 2 * kTcXTileBytes : kTcXTileBytes;
+  return kind == kF32     ? 2 * kTcXTileBytes
+         : kind == kS8Row ? kTcXTileBytes + kTcXTileBytes / 2
+                          : kTcXTileBytes;
 }
 
 // A list row holds KCAP keys and one of padding, so that the eight quads
@@ -822,7 +836,7 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int kind, int kcap, int nc, i
          sizeof(uint64_t) * (1 + 2 * nc * tc_stages(kind, nc));
 }
 
-// KIND: kBF16, kF32 (3xTF32) or kS8; KCAP: list capacity (k <= KCAP);
+// KIND: kBF16, kF32 (3xTF32), kS8 or kS8Row; KCAP: list capacity (k <= KCAP);
 // NC: consumer warpgroups. A k <= 16 block keeps two warpgroups' lists;
 // a k <= 128 block has room for one. qlo_map: the query tails (f32; the
 // other kinds never read it).
@@ -889,8 +903,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
             unsigned char* st = xs + i * stage_bytes;
             mbar_wait(&empty[i], phase[w] ^ 1);
             mbar_expect_tx(&full[i], stage_tx);
-            tma_load_2d(st, &xmap, s * kCols, static_cast<int>((tile0 + t + w) * kTcRows),
-                        &full[i]);
+            tma_load_2d(st + tc_stage_x(KIND), &xmap, s * kCols,
+                        static_cast<int>((tile0 + t + w) * kTcRows), &full[i]);
             if (qstream) {
               tma_load_2d(st + tc_stage_q(KIND), &qmap, s * kCols, q0, &full[i]);
               if (KIND == kF32)
@@ -936,11 +950,12 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   int stage = 0;
   uint32_t phase = 0;
   for (int t = w; t < n_tiles; t += NC) {
-    // s8: the tile's row scales of this lane's 32 columns, loaded before
-    // the products so that their latency hides under them (rows past
-    // n_valid are never read: they score 0 and are dropped by id)
-    float rs[KIND == kS8 ? 32 : 1];
-    if constexpr (KIND == kS8) {
+    // s8, row: the tile's row scales of this lane's 32 columns, loaded
+    // before the products so that their latency hides under them (rows
+    // past n_valid are never read: they score 0 and are dropped by id)
+    constexpr bool kScaled = KIND == kS8 || KIND == kS8Row;
+    float rs[kScaled ? 32 : 1];
+    if constexpr (kScaled) {
       const long long r0 = (tile0 + t) * kTcRows + 2 * t4;
 #pragma unroll
       for (int m = 0; m < 16; ++m)
@@ -955,11 +970,15 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
       mbar_wait(&full[i], phase);
       unsigned char* xt = xs + i * stage_bytes;
       const unsigned char* qt = qstream ? xt + tc_stage_q(KIND) : qs + s * kTcQTileBytes;
-      if constexpr (KIND == kF32) {
-        // the rows' heads in place and tails beside them, written through
-        // the generic proxy: fenced for the async proxy that wgmma reads
-        // through, then the warpgroup meets before any warp reads them
-        tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);
+      if constexpr (KIND == kF32 || KIND == kS8Row) {
+        // f32: the rows' heads in place and tails beside them; row: the
+        // int8 rows widened to bf16. Written through the generic proxy:
+        // fenced for the async proxy that wgmma reads through, then the
+        // warpgroup meets before any warp reads them
+        if constexpr (KIND == kF32)
+          tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);
+        else
+          widen_slice(xt + tc_stage_x(KIND), xt, tid & 127);
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
       }
@@ -983,8 +1002,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // epilogue: (s8) each score is float(acc) * row_scale, one rounded
-    // product; then mark the scores not below the query's k-th score (a
+    // epilogue: (s8) each score is float(acc) * row_scale, (row) acc *
+    // row_scale, one rounded product; then mark the scores not below the query's k-th score (a
     // lane whose best score is below skips it), drop rows past n_valid
     // and filtered rows, then insert each quad's largest marked key until
     // it is no larger than the k-th key
@@ -993,6 +1012,9 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
 #pragma unroll
       for (int i = 0; i < 64; ++i)
         acc[i] = __float_as_int(__fmul_rn(__int2float_rn(acc[i]), rs[2 * (i >> 2) + (i & 1)]));
+    } else if constexpr (KIND == kS8Row) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fmul_rn(acc[i], rs[2 * (i >> 2) + (i & 1)]);
     }
     uint32_t bits[2];
 #pragma unroll
@@ -1099,8 +1121,9 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A [rows, d] row-major tensor of the kind's element type (int8 as its
-// bits, UINT8), read in boxes of box_rows x one 128-byte span with the
-// 128-byte swizzle; rows past `rows` and columns past d read as zeros.
+// bits, UINT8), read in boxes of box_rows x one slice (tc_cols) with the
+// 128-byte swizzle, the row kind's 64-byte int8 slices unswizzled; rows
+// past `rows` and columns past d read as zeros.
 cudaError_t tile_map(CUtensorMap* map, int kind, const void* ptr, long long rows, int d,
                      int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
@@ -1114,7 +1137,8 @@ cudaError_t tile_map(CUtensorMap* map, int kind, const void* ptr, long long rows
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            kind == kS8Row ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1128,9 +1152,11 @@ size_t smem_optin() {
 }
 
 // The queries stream through the ring where they do not fit beside it,
-// and always for f32 (its stages carry them).
+// and always for f32 (its stages carry them) and row (three 32 KB
+// stages, 9-15% faster at D = 768 than resident queries beside two:
+// tc_variants.py, PERF.md).
 bool tc_streams_queries(int kind, int kcap, int nc, int d) {
-  return kind == kF32 || tc_smem_bytes(kind, kcap, nc, d, false) > smem_optin();
+  return kind == kF32 || kind == kS8Row || tc_smem_bytes(kind, kcap, nc, d, false) > smem_optin();
 }
 
 template <int KIND, int KCAP, int NC>
@@ -1156,16 +1182,15 @@ cudaError_t launch_tc_k(const CUtensorMap& xm, const CUtensorMap& qm, const CUte
                    : launch_tc<KIND, kKMax, tc_lists(kKMax)>(xm, qm, qlm, a, n_splits, s);
 }
 
-size_t scan_smem_bytes(int kind, int qt, int d) {
-  const size_t qbytes = kind == kS8 ? 1 : 4;
-  return qt * d * qbytes + static_cast<size_t>(kTileRows) * kRowStride +
+size_t scan_smem_bytes(int qt, int d) {
+  return qt * d * sizeof(float) + static_cast<size_t>(kTileRows) * kRowStride +
          2 * sizeof(float) * qt * kTileRows + 4 * sizeof(float) * qt * kKMax +
          2 * sizeof(int) * qt;
 }
 
 template <int KIND, int QT>
 cudaError_t launch_scan(const ScanArgs& a, int n_splits, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(KIND, QT, a.d);
+  const size_t smem = scan_smem_bytes(QT, a.d);
   cudaError_t err = cudaFuncSetAttribute(
       scan_kernel<KIND, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1179,7 +1204,6 @@ cudaError_t launch_kind(int kind, const ScanArgs& a, int n_splits, cudaStream_t 
   switch (kind) {
     case kF32: return launch_scan<kF32, QT>(a, n_splits, s);
     case kBF16: return launch_scan<kBF16, QT>(a, n_splits, s);
-    case kS8: return launch_scan<kS8, QT>(a, n_splits, s);
     case kS8Row: return launch_scan<kS8Row, QT>(a, n_splits, s);
     default: return cudaErrorInvalidValue;
   }
@@ -1189,24 +1213,22 @@ cudaError_t launch_kind(int kind, const ScanArgs& a, int n_splits, cudaStream_t 
 
 extern "C" {
 
-// Shared memory one scan block needs for kind, query-tile height qt and
-// dimension d (the wrapper checks it against the card's limit).
-size_t arag_topk_scan_smem(int kind, int qt, int d) { return scan_smem_bytes(kind, qt, d); }
+// Shared memory one block-table scan block needs for query-tile height
+// qt and dimension d (the wrapper checks it against the card's limit).
+size_t arag_topk_scan_smem(int qt, int d) { return scan_smem_bytes(qt, d); }
 
-// kind: 0 f32, 1 bf16, 2 s8s8 (int8 queries), 3 int8 row variant (f32
-// queries); qt: 16 or 8 queries per block. q is f32 [nq, d] except for
-// s8s8 (int8). row_masks/qmask are null for an unfiltered scan. blkids
-// null: a flat scan of rows [0, n_valid) in n_splits chunks of
-// chunk_rows; else a block-table scan, blkids [ceil(nq/qt), width] of
-// block ids (ascending, each real block once), each covering block_rows
-// rows. Writes [n_splits, nq, k] candidates. Returns the launch's
+// The block-table scan: kind 0 f32, 1 bf16 or 3 int8 row variant; qt: 16
+// or 8 queries per block; q f32 [nq, d]; row_masks/qmask null for an
+// unfiltered scan; blkids [ceil(nq/qt), width] block ids (ascending, each
+// real block once), each covering block_rows rows, read by n_splits
+// splits. Writes [n_splits, nq, k] candidates. Returns the launch's
 // cudaError_t.
 int arag_topk_scan(int kind, int qt, const void* x, const float* scales, const int* row_masks,
-                   const int* qmask, const void* q, long long n_valid, int d, int nq, int k,
-                   long long chunk_rows, const int* blkids, int width, int block_rows,
-                   int n_splits, float* cand_vals, int* cand_ids, void* stream) {
+                   const int* qmask, const float* q, long long n_valid, int d, int nq, int k,
+                   const int* blkids, int width, int block_rows, int n_splits,
+                   float* cand_vals, int* cand_ids, void* stream) {
   const ScanArgs a{static_cast<const unsigned char*>(x), scales, row_masks, qmask, q, n_valid,
-                   d, nq, k, chunk_rows, blkids, width, block_rows, cand_vals, cand_ids};
+                   d, nq, k, blkids, width, block_rows, cand_vals, cand_ids};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qt) {
     case 16: return static_cast<int>(launch_kind<16>(kind, a, n_splits, s));
@@ -1215,7 +1237,7 @@ int arag_topk_scan(int kind, int qt, const void* x, const float* scales, const i
   }
 }
 
-// The tensor-core scan of kind (0 f32, 1 bf16, 2 s8s8): shared memory per
+// The tensor-core scan of kind (0 f32, 1 bf16, 2 s8s8, 3 row): shared memory per
 // block on the current card (queries resident where they fit, else
 // streamed), and the number of candidate lists each (split, query)
 // writes, for k and dimension d.
@@ -1229,8 +1251,9 @@ int arag_topk_tc_lists(int k) { return tc_lists(k); }
 
 // Flat scan on the tensor cores of an index x [>= n_valid, d] of kind
 // 0 (f32: 3xTF32; q the query heads, q_lo their tails, both f32 with the
-// low 13 bits zero), 1 (bf16; bf16 queries q) or 2 (s8s8; int8 queries q,
-// fp32 row scales) — d % 64 == 0, every operand 16-byte aligned — in
+// low 13 bits zero), 1 (bf16; bf16 queries q), 2 (s8s8; int8 queries q,
+// fp32 row scales) or 3 (row: int8 x, bf16 queries q, fp32 row scales) —
+// d % 64 == 0, every operand 16-byte aligned — in
 // n_splits chunks of tiles_per_split 128-row tiles; row_masks/qmask null
 // for an unfiltered scan. Writes [n_splits * arag_topk_tc_lists(k), nq,
 // k] candidates for arag_topk_merge. Returns the launch's cudaError_t.
@@ -1238,12 +1261,13 @@ int arag_topk_tc_scan(int kind, const void* x, const float* scales, const int* r
                       const int* qmask, const void* q, const void* q_lo, long long n_valid, int d,
                       int nq, int k, int tiles_per_split, int n_splits, float* cand_vals,
                       int* cand_ids, void* stream) {
-  if (kind != kF32 && kind != kBF16 && kind != kS8) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind < kF32 || kind > kS8Row) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xm, qm, qlm;
+  const int qkind = kind == kS8Row ? kBF16 : kind;  // the row kind's queries are bf16
   // an empty scan still needs a map over one row; it never loads from it
   cudaError_t err = tile_map(&xm, kind, x, n_valid > 0 ? n_valid : 1, d, kTcRows);
-  if (err == cudaSuccess) err = tile_map(&qm, kind, q, nq, d, kTcQ);
-  if (err == cudaSuccess) err = tile_map(&qlm, kind, kind == kF32 ? q_lo : q, nq, d, kTcQ);
+  if (err == cudaSuccess) err = tile_map(&qm, qkind, q, nq, d, kTcQ);
+  if (err == cudaSuccess) err = tile_map(&qlm, qkind, kind == kF32 ? q_lo : q, nq, d, kTcQ);
   if (err != cudaSuccess) return static_cast<int>(err);
   const TcArgs a{scales, row_masks, qmask, n_valid, d, nq, k, tiles_per_split, 0,
                  cand_vals, cand_ids};
@@ -1251,7 +1275,8 @@ int arag_topk_tc_scan(int kind, const void* x, const float* scales, const int* r
   switch (kind) {
     case kF32: return static_cast<int>(launch_tc_k<kF32>(xm, qm, qlm, a, n_splits, s));
     case kBF16: return static_cast<int>(launch_tc_k<kBF16>(xm, qm, qlm, a, n_splits, s));
-    default: return static_cast<int>(launch_tc_k<kS8>(xm, qm, qlm, a, n_splits, s));
+    case kS8: return static_cast<int>(launch_tc_k<kS8>(xm, qm, qlm, a, n_splits, s));
+    default: return static_cast<int>(launch_tc_k<kS8Row>(xm, qm, qlm, a, n_splits, s));
   }
 }
 

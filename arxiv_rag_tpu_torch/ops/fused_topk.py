@@ -9,15 +9,14 @@ variant (K3), and the masked forms ``fused_topk_masked`` :864 and
 no fallback:
 
 - ``tc_scan_kernel`` (the tensor cores, wgmma fed by TMA): every flat
-  unmasked scan of an f32 (K1 f32, as 3×TF32: three TF32 products per
-  term, fp32-accurate, never a single TF32 pass), bf16 (K1 bf16) or
-  s8s8 (K2, int8 wgmma) index, and the flat masked bf16 scan (K4 bf16).
-  At the serving shapes K1 bf16 and K1 f32 are bound by their products
-  at large Q and by reading the index at small Q; K2 by reading the
-  index.
-- ``scan_kernel`` (the CUDA cores): the int8 row kind (K3), the masked
-  f32 and s8s8 scans (K4) and every block table, which the IVF route
-  (K5, K6) launches through ``scan_table`` (see ``ops/ivf.py``).
+  scan, masked (K4) or not, of an f32 (K1 f32, as 3×TF32: three TF32
+  products per term, fp32-accurate, never a single TF32 pass), bf16
+  (K1 bf16) or int8 index, s8s8 (K2, int8 wgmma) or "row" (K3: the
+  int8 rows widened to bf16 in shared memory, then bf16 wgmma). At the
+  serving shapes K1 bf16, K1 f32 and K3 are bound by their products at
+  large Q and by reading the index at small Q; K2 by reading the index.
+- ``scan_kernel`` (the CUDA cores): every block table, which the IVF
+  route (K5, K6) launches through ``scan_table`` (see ``ops/ivf.py``).
 
 Contract, shared with the TPU kernel: values [Q,k] fp32 and ids [Q,k]
 int32, k ≤ 128; scores ordered descending with the lowest row id first
@@ -53,8 +52,7 @@ import torch
 from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 K_MAX = 128
-_QT = 16  # queries per CUDA-core scan block (csrc/fused_topk.cu, template QT)
-_TILE_ROWS = 512  # rows per CUDA-core scan tile (kTileRows)
+_QT = 16  # the larger query tile of the block-table scan (csrc/fused_topk.cu, template QT)
 TC_QUERIES = 64  # queries per tensor-core scan block (kTcQ, the wgmma M)
 TC_ROWS = 128  # rows per tensor-core scan tile (kTcRows, the wgmma N)
 _KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
@@ -134,16 +132,35 @@ def _eligible(row_masks: torch.Tensor, query_mask: torch.Tensor) -> torch.Tensor
     return (row_masks.to(torch.int32)[None, :] & query_mask.to(torch.int32)[:, None]) != 0
 
 
+def _exact_int8_scores(q8: torch.Tensor, x8: torch.Tensor) -> torch.Tensor:
+    """fp32 ``q8·x8ᵀ`` of int8 operands, each sum exact and rounded once,
+    as the s32 sum of the kernels and the reference converted to fp32:
+    the products summed in float64 (exact below 2⁵³, where an fp32 sum
+    stops being exact past 2²⁴), a bounded number of rows converted at a
+    time."""
+    out = torch.empty((q8.shape[0], x8.shape[0]), dtype=torch.float32, device=x8.device)
+    qd = q8.to(torch.float64)
+    rows = max(1, _PLAIN_SCORE_ELEMS // max(1, x8.shape[1]))
+    for r in range(0, x8.shape[0], rows):
+        out[:, r : r + rows] = qd @ x8[r : r + rows].to(torch.float64).T
+    return out
+
+
 def score_plain(x: torch.Tensor, q: torch.Tensor, k: int, *, scales=None,
                 row_masks=None, query_mask=None, qscale=None):
     """The scans' function in plain PyTorch over every row of ``x``: fp32
-    scores ``q·xᵀ`` of fp32 operands (× the row scale, one rounded
-    product), filtered rows at -inf, top-k in the kernels' order, then the
-    survivors × ``qscale``. Scores a bounded number of pairs at a time."""
+    scores ``q·xᵀ`` of fp32 operands, or for int8 ``x`` and ``q`` (s8s8)
+    the exact integer sums rounded once to fp32; × the row scale (one
+    rounded product), filtered rows at -inf, top-k in the kernels' order,
+    then the survivors × ``qscale``. Scores a bounded number of pairs at
+    a time."""
     step = max(1, _PLAIN_SCORE_ELEMS // max(1, x.shape[0]))
     vals, ids = [], []
     for s in range(0, q.shape[0], step):
-        scores = q[s : s + step] @ x.T
+        if x.dtype == torch.int8:
+            scores = _exact_int8_scores(q[s : s + step], x)
+        else:
+            scores = q[s : s + step] @ x.T
         if scales is not None:
             scores = scores * scales[None, :]
         if row_masks is not None:
@@ -164,11 +181,10 @@ def _flat_plain(values, queries, k, n_valid, *, kind, scales=None, row_masks=Non
     """Any flat scan kind in plain PyTorch over rows [0, n_valid)."""
     _check_k(k)
     n = _n_valid(values.shape[0], n_valid)
-    x = values[:n].to(torch.float32)
+    x = values[:n] if kind == "s8s8" else values[:n].to(torch.float32)
     qscale = None
     if kind == "s8s8":
-        q8, qscale = quantize_queries(queries)
-        q = q8.to(torch.float32)
+        q, qscale = quantize_queries(queries)
     else:
         q = round_queries(queries, torch.float32 if kind == "f32" else torch.bfloat16)
     return score_plain(
@@ -195,9 +211,9 @@ def fused_topk_plain(index, queries, k, *, n_valid=None):
 
 def fused_topk_int8_plain(values, scales, queries, k, *, n_valid=None, variant="s8s8"):
     """K2's (s8s8) or K3's ("row") function in plain PyTorch. s8s8: the
-    int8 products summed in fp32 (exact: |s8·s8| ≤ 16129 and 768 of them
-    stay below 2^24), times the row scale, ranked, then the survivors
-    times the query scale. row: bf16 queries, fp32 sums, × row scale."""
+    exact integer sum of the int8 products (at any D) rounded once to
+    fp32, times the row scale, ranked, then the survivors times the
+    query scale. row: bf16 queries, fp32 sums, × row scale."""
     _check_variant(variant)
     return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales)
 
@@ -231,12 +247,12 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("fused_topk")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.arag_topk_scan.argtypes = [i32, i32, p, p, p, p, p, i64, i32, i32, i32, i64,
+        lib.arag_topk_scan.argtypes = [i32, i32, p, p, p, p, p, i64, i32, i32, i32,
                                        p, i32, i32, i32, p, p, p]
         lib.arag_topk_scan.restype = i32
         lib.arag_topk_merge.argtypes = [p, p, i32, i32, i32, p, p, p, p]
         lib.arag_topk_merge.restype = i32
-        lib.arag_topk_scan_smem.argtypes = [i32, i32, i32]
+        lib.arag_topk_scan_smem.argtypes = [i32, i32]
         lib.arag_topk_scan_smem.restype = ctypes.c_size_t
         lib.arag_topk_tc_scan.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, i32, i32, i32,
                                           p, p, p]
@@ -257,16 +273,6 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({lib.arag_error_string(err).decode()})")
 
 
-def plan_chunks(n_rows: int, nq: int, sm_count: int) -> tuple[int, int]:
-    """(rows per chunk, chunks): about four scan blocks per SM, chunks a
-    whole number of 512-row tiles."""
-    q_tiles = -(-nq // _QT)
-    tiles = max(1, -(-n_rows // _TILE_ROWS))
-    n_chunks = min(tiles, max(1, -(-4 * sm_count // q_tiles)))
-    per_chunk = -(-tiles // n_chunks)
-    return per_chunk * _TILE_ROWS, -(-tiles // per_chunk)
-
-
 def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
     """(rows per split, splits, query tiles) of the tensor-core scan: one
     block per SM (its shared memory holds one), the query tiles of a split
@@ -280,20 +286,16 @@ def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
 
 
 def scan_route(kind: str, table: bool, masked: bool) -> str:
-    """The kernel a scan launches: ``"tc"`` (the tensor-core kernel) for a
-    flat unmasked f32, bf16 or s8s8 scan and a flat masked bf16 scan;
-    ``"cuda_core"`` (``scan_kernel``) for the int8 row kind, the masked
-    f32 and s8s8 scans and every block table."""
-    if table:
-        return "cuda_core"
-    if kind == "bf16" or (kind in ("f32", "s8s8") and not masked):
-        return "tc"
-    return "cuda_core"
+    """The kernel a scan launches: ``"tc"`` (the tensor-core kernel) for
+    every flat scan, of any kind (f32, bf16, s8s8, row), masked or not;
+    ``"cuda_core"`` (``scan_kernel``) for every block table."""
+    return "cuda_core" if table else "tc"
 
 
 def tc_queries(queries: torch.Tensor) -> torch.Tensor:
-    """The bf16 queries the tensor-core scan reads: fp32, then rounded to
-    the nearest bf16 (ties to even), as ``round_queries`` rounds them."""
+    """The bf16 queries the tensor-core scan reads for a bf16 or an int8
+    row index: fp32, then rounded to the nearest bf16 (ties to even), as
+    ``round_queries`` rounds them."""
     return queries.to(torch.float32).to(torch.bfloat16).contiguous()
 
 
@@ -349,9 +351,10 @@ def _check_qmask(query_mask: torch.Tensor, q: torch.Tensor) -> None:
 
 def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
             table=None, block_rows=0):
-    """Scan on the CUDA cores, then merge. ``table`` (int32 [tiles, width]
-    block ids) selects the block-table scan; otherwise rows [0, n_valid)
-    are scanned flat."""
+    """The block-table scan on the CUDA cores (tile t of ``qt`` queries
+    scans the blocks listed in ``table[t]``, int32 [tiles, width]), then
+    the merge. A flat scan (no table) runs on the tensor cores and is
+    refused here."""
     if scan_route(kind, table is not None, row_masks is not None) != "cuda_core":
         raise ValueError(f"a flat {kind} scan runs on the tensor-core kernel")
     _check_operands(x, q, scales, row_masks, qmask)
@@ -359,46 +362,44 @@ def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
     dev = x.device
     d = x.shape[1]
     nq = q.shape[0]
-    props = _check_smem(lib.arag_topk_scan_smem(_KIND[kind], qt, d), dev, d)
+    props = _check_smem(lib.arag_topk_scan_smem(qt, d), dev, d)
     q_tiles = -(-nq // qt)
-    if table is None:
-        chunk_rows, n_splits = plan_chunks(n_valid, nq, props.multi_processor_count)
-        width = 0
-    else:
-        if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != q_tiles
-                or table.device != dev or not table.is_contiguous()):
-            raise ValueError(f"block table must be contiguous int32 [{q_tiles}, width] "
-                             f"on {dev}, got {table.dtype} {tuple(table.shape)}")
-        chunk_rows, width = 0, table.shape[1]
-        n_splits = plan_splits(width, q_tiles, props.multi_processor_count)
+    if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != q_tiles
+            or table.device != dev or not table.is_contiguous()):
+        raise ValueError(f"block table must be contiguous int32 [{q_tiles}, width] "
+                         f"on {dev}, got {table.dtype} {tuple(table.shape)}")
+    width = table.shape[1]
+    n_splits = plan_splits(width, q_tiles, props.multi_processor_count)
     cand_v, cand_i = _scratch(n_splits, nq, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arag_topk_scan(
             _KIND[kind], qt, x.data_ptr(), _ptr(scales), _ptr(row_masks),
             _ptr(qmask if row_masks is not None else None), q.data_ptr(), n_valid, d, nq, k,
-            chunk_rows, _ptr(table), width, block_rows, n_splits,
+            _ptr(table), width, block_rows, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
         _raise_on(lib, err, "fused top-k scan")
         return _merge(lib, cand_v, cand_i, qscale, stream)
 
 
+# kind -> (index dtype, query dtype) of the tensor-core scan
+_TC_DTYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+              "s8s8": (torch.int8, torch.int8), "row": (torch.int8, torch.bfloat16)}
+
+
 def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
-    """A flat scan on the tensor cores, then the merge of its [splits ×
-    lists, Q, k] candidates (× the s8s8 query scale). Queries ``q`` as
-    the kind reads them: bf16; int8 (s8s8); the TF32 heads for f32, with
-    ``q_lo`` their tails."""
-    if scan_route(kind, False, row_masks is not None) != "tc":
-        raise ValueError(f"a {'masked ' if row_masks is not None else ''}{kind} scan "
-                         "runs on the CUDA-core kernel")
+    """A flat scan on the tensor cores, masked or not, then the merge of
+    its [splits × lists, Q, k] candidates (× the s8s8 query scale).
+    Queries ``q`` as the kind reads them: bf16 (bf16 and row); int8
+    (s8s8); the TF32 heads for f32, with ``q_lo`` their tails."""
     _check_operands(x, q, scales, row_masks, qmask)
-    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "s8s8": torch.int8}[kind]
-    if x.dtype != dtype or q.dtype != dtype:
-        raise ValueError(f"a {kind} scan takes a {dtype} index and queries, "
+    x_dtype, q_dtype = _TC_DTYPES[kind]
+    if x.dtype != x_dtype or q.dtype != q_dtype:
+        raise ValueError(f"a {kind} scan takes a {x_dtype} index and {q_dtype} queries, "
                          f"not {x.dtype} and {q.dtype}")
-    if (scales is not None) != (kind == "s8s8"):
-        raise ValueError("row scales go with an s8s8 scan, and only with it")
+    if (scales is not None) != (x_dtype == torch.int8):
+        raise ValueError("row scales go with the int8 scans (s8s8, row), and only with them")
     if (q_lo is not None) != (kind == "f32") or q_lo is not None and (
             q_lo.shape != q.shape or q_lo.dtype != q.dtype or q_lo.device != q.device
             or not q_lo.is_contiguous()):
@@ -471,27 +472,21 @@ def _route(t: torch.Tensor) -> str:
 
 
 def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n):
-    """Launch a flat scan on the kernel ``scan_route`` names, with the
-    queries as it reads them: int8 for s8s8; bf16 (tensor cores) or fp32
-    (CUDA cores) for bf16; the 3×TF32 halves (tensor cores) or fp32
-    (CUDA cores) for f32; fp32 for the row kind."""
-    tc = scan_route(kind, table=False, masked=row_masks is not None) == "tc"
+    """Launch a flat scan on the tensor-core kernel, with the queries as
+    it reads them: int8 and their scales for s8s8; the 3×TF32 halves for
+    f32; bf16 for bf16 and row."""
     q_lo = qscale = None
     if kind == "s8s8":
         q8, qs = quantize_queries(queries)
         q, qscale = q8.contiguous(), qs.contiguous()
-    elif tc and kind == "bf16":
-        q = tc_queries(queries)
-    elif tc:
+    elif kind == "f32":
         q, q_lo = tf32_split(queries)
     else:
-        q = queries.to(torch.float32).contiguous()
+        q = tc_queries(queries)
     if q.shape[0] == 0:
         _check_cuda(values, q)
         return _empty(k, values.device)
-    if tc:
-        return _launch_tc(kind, values, scales, row_masks, query_mask, q, q_lo, qscale, k, n)
-    return _launch(kind, _QT, values, scales, row_masks, query_mask, q, qscale, k, n)
+    return _launch_tc(kind, values, scales, row_masks, query_mask, q, q_lo, qscale, k, n)
 
 
 def fused_topk(index: torch.Tensor, queries: torch.Tensor, k: int, *,

@@ -15,11 +15,16 @@ its text (one ``nvcc`` each, all at once, into ``build/variants/``):
 - ``f32_no_split``: the rows' in-smem 3xTF32 split skipped (wrong
   results);
 - ``f32_one_product``: one TF32 product per k-step, the heads', not
-  three (a single TF32 pass: wrong beyond 1e-4).
+  three (a single TF32 pass: wrong beyond 1e-4);
+- ``row_resident``: the row kind's queries resident in shared memory
+  beside a 2-stage ring (24 KB stages), not streamed through a 3-stage
+  one (32 KB);
+- ``row_no_widen``: the row kind's int8 -> bf16 widening skipped (wrong
+  results).
 
 Each variant runs the kinds it concerns on 2,000,000 x 768 indexes made
 on the card from ``--seed`` (bf16 ``fused_topk``, f32 ``fused_topk``,
-s8s8 ``fused_topk_int8``) at Q = 64 and 512 and k = 10 and 128. The
+s8s8 and row ``fused_topk_int8``) at Q = 64 and 512 and k = 10 and 128. The
 script prints one JSON line per variant and case: the scan kernel's
 time alone (``torch.profiler``, mean of 5 calls) and whether the result
 matches the plain version (s8s8 bitwise, the float kinds within 1e-4).
@@ -43,21 +48,26 @@ LISTS = "constexpr int tc_lists(int k) { return k <= 16 ? 2 : 1; }"
 STAGES = "constexpr int kTcStages = 3;"
 S8_STAGES = "constexpr int kTcStagesS8 = 4;"
 F32_STAGES = "return kind == kF32 ? (nc == 1 ? 3 : 2)"
-SPLIT = "        tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);"
+SPLIT = "          tf32_split_slice(xt, xt + kTcXTileBytes, tid & 127);"
+WIDEN = "          widen_slice(xt + tc_stage_x(KIND), xt, tid & 127);"
+STREAMS = "  return kind == kF32 || kind == kS8Row || tc_smem_bytes(kind, kcap, nc, d, false) > smem_optin();"
+TC_STAGES = "kind == kS8 ? kTcStagesS8 : kTcStages;"
 TF32_PRODUCTS = (
     "    wgmma_tf32(acc, sw128_desc(q + kTcQTileBytes), sw128_desc(x), accumulate);\n"
     "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x + kTcXTileBytes), 1);\n"
     "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x), 1);\n")
 
-ALL = ("bf16", "f32", "s8s8")
+ALL = ("bf16", "f32", "s8s8", "row")
 # variant -> the kinds it is timed on
 KINDS = {"as_is": ALL, "no_epilogue": ALL, "no_mma": ALL, "no_mma_no_epilogue": ALL,
          "3wg_2stages": ("bf16",), "2wg_2stages": ("bf16",), "s8_3stages": ("s8s8",),
-         "f32_1wg_2stages": ("f32",), "f32_no_split": ("f32",), "f32_one_product": ("f32",)}
+         "f32_1wg_2stages": ("f32",), "f32_no_split": ("f32",), "f32_one_product": ("f32",),
+         "row_resident": ("row",), "row_no_widen": ("row",)}
 
 
 def variants(src: str) -> dict[str, str]:
-    for anchor in (EPILOGUE, MMA, LISTS, STAGES, S8_STAGES, F32_STAGES, SPLIT, TF32_PRODUCTS):
+    for anchor in (EPILOGUE, MMA, LISTS, STAGES, S8_STAGES, F32_STAGES, SPLIT, TF32_PRODUCTS,
+                   WIDEN, STREAMS, TC_STAGES):
         if anchor not in src:
             raise SystemExit(f"tc_variants: csrc/fused_topk.cu no longer has {anchor!r}")
     no_epi = src.replace(EPILOGUE, "    continue;\n" + EPILOGUE)
@@ -71,9 +81,12 @@ def variants(src: str) -> dict[str, str]:
         "2wg_2stages": two_stages,
         "s8_3stages": src.replace(S8_STAGES, S8_STAGES.replace("4", "3")),
         "f32_1wg_2stages": src.replace(F32_STAGES, F32_STAGES.replace("(nc == 1 ? 3 : 2)", "2")),
-        "f32_no_split": src.replace(SPLIT, ""),
+        "f32_no_split": src.replace(SPLIT, "          (void)0;"),
         "f32_one_product": src.replace(
             TF32_PRODUCTS, "    wgmma_tf32(acc, sw128_desc(q), sw128_desc(x), accumulate);\n"),
+        "row_resident": src.replace(STREAMS, STREAMS.replace(" kind == kS8Row ||", "")).replace(
+            TC_STAGES, "kind == kS8 ? kTcStagesS8 : kind == kS8Row ? 2 : kTcStages;"),
+        "row_no_widen": src.replace(WIDEN, "          (void)0;"),
     }
 
 
@@ -130,6 +143,8 @@ def main() -> int:
                 lambda q, k: ft.fused_topk_plain(xs["f32"], q, k)),
         "s8s8": (lambda q, k: ft.fused_topk_int8(x8, s8, q, k),
                  lambda q, k: ft.fused_topk_int8_plain(x8, s8, q, k)),
+        "row": (lambda q, k: ft.fused_topk_int8(x8, s8, q, k, variant="row"),
+                lambda q, k: ft.fused_topk_int8_plain(x8, s8, q, k, variant="row")),
     }
     queries = {nq: torch.nn.functional.normalize(
         torch.randn(nq, 768, generator=gen, device="cuda"), dim=1) for nq in (64, 512)}

@@ -15,12 +15,12 @@ its first failure:
 2. kernels against their plain versions at full size, with times
    (median of CUDA-event timings), bounds and a library yardstick:
    K1 flat scans of a bf16 index and of f32 indexes of 2M and 262,144
-   rows, K2 flat s8s8 scans, K4 masked scans, K3 int8 row scan (K1, K2
-   and bf16 K4 run on the tensor-core kernel: their achieved TFLOP/s or
-   TOP/s and GB/s, and the ptxas report of every instantiation; K1 f32's
-   bound counts its products at the 3xTF32 rate, the fp32 CUDA-core
-   figure beside it; K1 bf16's library call keeps fp32 scores, its
-   bf16-score form beside it); then an IVF
+   rows, K2 flat s8s8 scans, K4 masked scans (bf16, s8s8 and f32), K3
+   int8 row scan (every flat scan runs on the tensor-core kernel: their
+   achieved TFLOP/s or TOP/s and GB/s, and the ptxas report of every
+   instantiation; an f32 scan's bound counts its products at the 3xTF32
+   rate, the fp32 CUDA-core figure beside it; the bf16 library calls
+   keep fp32 scores, their bf16-score form beside them); then an IVF
    index (k-means on the card, 4096 clusters) over a clustered corpus:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
@@ -224,7 +224,7 @@ def report(c: dict) -> None:
     lib = "none" if c.get("library_ms") is None else f"{c['library_ms']:.3f} ms"
     if "library_bf16_ms" in c:
         lib += f" (fp32 scores; bf16 scores {c['library_bf16_ms']:.3f} ms)"
-    unit = "TOP/s" if c["dtype"].startswith("int8") else "TFLOP/s"
+    unit = "TOP/s" if c["dtype"] in ("int8", "int8 s8s8") else "TFLOP/s"
     rates = (f", {c['tflops']:.1f} {unit}, {c['gbps']:.1f} GB/s effective"
              if "tflops" in c else "")
     fp32 = (f" [fp32 CUDA-core figure {c['bound_fp32_ms']:.3f} ms]"
@@ -333,13 +333,15 @@ def phase_kernels(gen, results) -> tuple[dict, object]:
             report(case)
         cases["K2"].append(case)
     del f32
-    phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases)
+    phase_masked_and_row(gen, xb, x8, s8, xf2, mb, m8, cases)
     results["cases"] = cases
     return {"bf16": bf16, "int8": int8}, f32_2m
 
 
-def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
-    """K4 (bf16 and s8s8 masked) and K3 (int8 row) on the 2M indexes."""
+def phase_masked_and_row(gen, xb, x8, s8, xf, mb, m8, cases) -> None:
+    """K4 (bf16, s8s8 and f32 masked) and K3 (int8 row) on the 2M indexes
+    (the f32 index ``xf`` holds the bf16 index's rows, so it takes its
+    row masks ``mb``)."""
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
     n = N_RAGGED
@@ -382,7 +384,7 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
         if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
             fail("K4 s8s8: the mask-0 query returned rows")
         case = {"dtype": "int8 s8s8", "rows": n, "q": nq, "k": k, "max_abs_err": 0.0,
-                "kernel": "scan_kernel"}
+                "kernel": "tc_scan_kernel"}
         if timed:
             case["ms"] = median_ms(
                 lambda: ft.fused_topk_int8_masked(x8, s8, m8, qm, q, k, n_valid=n))
@@ -394,6 +396,29 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
             case["library_ms"] = median_ms(
                 lambda: int8_library(x8, s8, q, k, m8, qm), PLAIN_RUNS)
             case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.int8, row_extra=4)
+            tc_rates(case, torch.int8, row_extra=4)
+            report(case)
+        cases["K4"].append(case)
+        # K4, f32 (3xTF32)
+        fv, fi = ft.fused_topk_masked(xf, mb, qm, q, k, n_valid=n)
+        pv, pi = ft.fused_topk_masked_plain(xf, mb, qm, q, k, n_valid=n)
+        err = check_k1(fv, fi, pv, pi, f"K4 f32 masked Q={nq} k={k}")
+        if not ((fi[-1] == -1).all() and torch.isinf(fv[-1]).all()):
+            fail("K4 f32: the mask-0 query returned rows")
+        case = {"dtype": "f32", "rows": n, "q": nq, "k": k, "max_abs_err": err,
+                "kernel": "tc_scan_kernel"}
+        if timed:
+            case["ms"] = median_ms(lambda: ft.fused_topk_masked(xf, mb, qm, q, k, n_valid=n))
+            case["plain_ms"] = median_ms(
+                lambda: ft.fused_topk_masked_plain(xf, mb, qm, q, k, n_valid=n), PLAIN_RUNS)
+            # true fp32 (TF32 off, device.py) over all rows, those past
+            # n_valid with mask 0
+            case["library_ms"] = median_ms(lambda: torch.topk(torch.where(
+                eligible(mb_lib, qm), torch.matmul(q, xf.T), float("-inf")), k), PLAIN_RUNS)
+            case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.float32, row_extra=4,
+                                                          op_dtype="tf32x3")
+            case["bound_fp32_ms"] = bound_ms(n, nq, k, torch.float32, row_extra=4)[0]
+            tc_rates(case, torch.float32, row_extra=4)
             report(case)
         cases["K4"].append(case)
         # K3: int8 storage, bf16 queries, fp32 sums, × row scale
@@ -401,7 +426,7 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
         pv, pi = ft.fused_topk_int8_plain(x8, s8, q, k, n_valid=n, variant="row")
         err = check_k1(fv, fi, pv, pi, f"K3 int8 row Q={nq} k={k}")
         case = {"dtype": "int8 row", "rows": n, "q": nq, "k": k, "max_abs_err": err,
-                "kernel": "scan_kernel"}
+                "kernel": "tc_scan_kernel"}
         if timed:
             qb = q.to(torch.bfloat16)
             case["ms"] = median_ms(
@@ -416,6 +441,7 @@ def phase_masked_and_row(gen, xb, x8, s8, mb, m8, cases) -> None:
                 PLAIN_RUNS)
             case["bound_ms"], case["bound_by"] = bound_ms(n, nq, k, torch.int8,
                                                           op_dtype=torch.bfloat16)
+            tc_rates(case, torch.int8)
             report(case)
         cases["K3"].append(case)
 
@@ -546,7 +572,9 @@ def phase_ivf(gen, results) -> dict:
                 cases[key].append(c)
     for name, ivf in ivfs.items():
         # full probe: every block of the IVF order, so the flat scan of the
-        # same IVF-ordered values must come out, ties and ids included
+        # same IVF-ordered values must come out; the flat scans (K1 bf16,
+        # K3) sum on the tensor cores, in another order than the table
+        # scan: within 1e-4, tie-tolerant recall 1.0
         q = clustered_rows(centers, 32, gen)
         kw = {"scales": ivf.scales} if name == "int8" else {}
         v, i = oivf.ivf_topk_device(ivf.values, ivf._device_cb, ivf._device_centroids, q, 10,
@@ -559,10 +587,7 @@ def phase_ivf(gen, results) -> dict:
                                         variant="row")
         what = (f"K6 {name} full probe (nprobe {N_CLUSTERS}) vs the flat "
                 f"{'K1' if name == 'bf16' else 'K3'} scan of the IVF order")
-        if name == "bf16":  # K1 bf16 sums on the tensor cores, in another order
-            check_k1(v, i, fv, fi, what)
-        else:
-            check_k2(v, i, fv, fi, what)
+        check_k1(v, i, fv, fi, what)
     results["ivf_cases"] = cases
     return {"dense": dense, "ivf": ivfs}
 
@@ -1001,10 +1026,12 @@ KERNELS = (
     ("K2", "fused_topk_int8", "fused_topk_int8 s8s8", "arxiv_rag_tpu/ops/pallas_topk.py:67",
      ("int8", 512, N_RAGGED), "tc_scan_kernel", "main"),
     ("K3", "fused_topk_int8_row", "fused_topk_int8 row variant",
-     "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512, N_RAGGED), "scan_kernel", "main"),
+     "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512, N_RAGGED),
+     "tc_scan_kernel (row); the counted launches are the int8 IVF block tables (K5, K6), "
+     "which score with the row kind", "main"),
     ("K4", "fused_topk_masked", "fused_topk_masked / fused_topk_int8_masked",
      "arxiv_rag_tpu/ops/pallas_topk.py:217", ("bf16", 512, N_RAGGED),
-     "tc_scan_kernel (bf16), scan_kernel (s8s8)", "main"),
+     "tc_scan_kernel (bf16, f32 as 3xTF32, s8s8, row)", "main"),
     ("K5", "ivf_topk", "ivf_topk block-table scan", "arxiv_rag_tpu/ops/pallas_ivf.py:61",
      ("int8", 32, None), "scan_kernel", "main"),
     ("K6", "ivf_topk_device", "ivf_topk_device (device plan + K5)",
@@ -1064,7 +1091,7 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
     return {"kernels": out}
 
 
-TC_KINDS = {0: "f32 (3xTF32)", 1: "bf16", 2: "s8"}  # csrc/fused_topk.cu Kind
+TC_KINDS = {0: "f32 (3xTF32)", 1: "bf16", 2: "s8", 3: "row"}  # csrc/fused_topk.cu Kind
 
 
 def tc_ptxas(log: str) -> list[str]:

@@ -86,7 +86,7 @@ def test_launches_are_counted(gen, dtype):
     assert ft.LAUNCHES["fused_topk"] == 1
 
 
-# -- the tensor-core scan (K1 f32 and bf16, K2, K4 bf16) -----------------------
+# -- the tensor-core scan: every flat scan (K1 f32 and bf16, K2, K3, K4) -------
 
 
 def _check_like_plain(v, i, pv, pi, n_valid):
@@ -104,8 +104,9 @@ def _check_like_plain(v, i, pv, pi, n_valid):
 # (Q, k, D, rows, n_valid, masked): the query tile's edges (64 per block),
 # the list capacity's (16 per list, 128), D at one, two and twelve slices;
 # n_valid off the 128-row tile, below one tile, and 0. D = 896 is the
-# largest whose queries stay resident in shared memory; from 960 on they
-# stream through the ring (1408: the largest D the CUDA-core scan took)
+# largest whose bf16 queries stay resident in shared memory; from 960 on
+# they stream through the ring, as f32 and row queries always do (1408:
+# the largest D the CUDA-core scan took for bf16)
 _TC_CASES = [
     *[(nq, 10, 768, 20_000, 19_937, False) for nq in (1, 63, 64, 65, 129, 512)],
     *[(65, k, 128, 20_000, 19_937, False) for k in (1, 16, 17, 128)],
@@ -125,45 +126,57 @@ _TC_CASES = [
     (64, 17, 1408, 5_000, 4_937, True),
     (70, 16, 2048, 5_000, 4_937, False),
 ]
-_KINDS = ("bf16", "f32", "s8s8")
-# f32 and s8s8 beyond the cases above: the largest D the CUDA-core scan
-# took (f32 1408), s8s8 past its resident limit (D = 1280; 1536 for
-# k > 16) up to the CUDA-core scan's largest (5760)
+_KINDS = ("bf16", "f32", "s8s8", "row")
+# f32, s8s8 and row beyond the cases above, unmasked and (past the
+# resident limits) masked: the largest D the CUDA-core scans took (f32
+# 1408), s8s8 past its resident limit (D = 1280; 1536 for k > 16) and
+# both int8 kinds up to the CUDA-core scan's largest (5760)
 _TC_MORE = [
-    *[(nq, 10, 768, 20_000, 19_937) for nq in (1, 63, 64, 65, 129, 512)],
-    (64, 16, 1408, 5_000, 4_937),
-    (129, 128, 1408, 5_000, 4_937),
-    (512, 10, 2048, 3_000, 2_937),
+    *[(nq, 10, 768, 20_000, 19_937, False) for nq in (1, 63, 64, 65, 129, 512)],
+    *[(*case, masked) for case in ((64, 16, 1408, 5_000, 4_937), (129, 128, 1408, 5_000, 4_937),
+                                   (512, 10, 2048, 3_000, 2_937)) for masked in (False, True)],
 ]
-_S8_MORE = [(65, 10, 4096, 3_000, 2_937), (64, 128, 4096, 3_000, 2_937),
-            (63, 17, 5760, 2_000, 1_937)]
+_S8_MORE = [(*case, masked) for case in ((65, 10, 4096, 3_000, 2_937),
+                                         (64, 128, 4096, 3_000, 2_937),
+                                         (63, 17, 5760, 2_000, 1_937))
+            for masked in (False, True)]
 _TC_PARAMS = [
-    *[(kind, *case) for case in _TC_CASES for kind in _KINDS if kind == "bf16" or not case[-1]],
-    *[(kind, *case, False) for case in _TC_MORE for kind in ("f32", "s8s8")],
-    *[("s8s8", *case, False) for case in _S8_MORE],
+    *[(kind, *case) for case in _TC_CASES for kind in _KINDS],
+    *[(kind, *case) for case in _TC_MORE for kind in ("f32", "s8s8", "row")],
+    *[(kind, *case) for case in _S8_MORE for kind in ("s8s8", "row")],
 ]
+_INT8 = ("s8s8", "row")
 
 
 def _tc_index(kind, x, n_valid):
-    """Unit rows as an index of ``kind`` (s8s8: quantized, the rows past
-    n_valid with a large row scale)."""
-    if kind != "s8s8":
+    """Unit rows as an index of ``kind`` (s8s8, row: quantized, the rows
+    past n_valid with a large row scale)."""
+    if kind not in _INT8:
         return x.to(torch.float32 if kind == "f32" else torch.bfloat16), None
     x8, s = quantize_int8(x)
     s[n_valid:] = 1e3
     return x8, s
 
 
-def _tc_scan(kind, x, s, q, k, n_valid=None):
-    """(kernel, plain) results of an unmasked flat scan of ``kind``."""
-    if kind == "s8s8":
-        return (ft.fused_topk_int8(x, s, q, k, n_valid=n_valid),
-                ft.fused_topk_int8_plain(x, s, q, k, n_valid=n_valid))
-    return ft.fused_topk(x, q, k, n_valid=n_valid), ft.fused_topk_plain(x, q, k, n_valid=n_valid)
+def _tc_scan(kind, x, s, q, k, n_valid=None, masks=None):
+    """(kernel, plain) results of a flat scan of ``kind``, under the
+    category filter ``masks`` = (row masks, query masks) when given."""
+    if kind in _INT8 and masks is None:
+        return (ft.fused_topk_int8(x, s, q, k, n_valid=n_valid, variant=kind),
+                ft.fused_topk_int8_plain(x, s, q, k, n_valid=n_valid, variant=kind))
+    if kind in _INT8:
+        return (ft.fused_topk_int8_masked(x, s, *masks, q, k, n_valid=n_valid, variant=kind),
+                ft.fused_topk_int8_masked_plain(x, s, *masks, q, k, n_valid=n_valid,
+                                                variant=kind))
+    if masks is None:
+        return (ft.fused_topk(x, q, k, n_valid=n_valid),
+                ft.fused_topk_plain(x, q, k, n_valid=n_valid))
+    return (ft.fused_topk_masked(x, *masks, q, k, n_valid=n_valid),
+            ft.fused_topk_masked_plain(x, *masks, q, k, n_valid=n_valid))
 
 
 def _check_kind(kind, got, want, n_valid):
-    """s8s8 bitwise; the float kinds as ``_check_like_plain``."""
+    """s8s8 bitwise; the float sums (f32, bf16, row) as ``_check_like_plain``."""
     (v, i), (pv, pi) = got, want
     if kind == "s8s8":
         assert torch.equal(v, pv) and torch.equal(i, pi)
@@ -180,50 +193,52 @@ def test_tc_scan_matches_plain(gen, kind, nq, k, d, n, n_valid, masked):
     x[n_valid:] = q[0]
     x, s = _tc_index(kind, x, n_valid)
     ft.reset_launches()
+    (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k, n_valid, _masks(n, nq, gen) if masked else None)
     if masked:
-        rm, qm = _masks(n, nq, gen)
-        v, i = ft.fused_topk_masked(x, rm, qm, q, k, n_valid=n_valid)
-        pv, pi = ft.fused_topk_masked_plain(x, rm, qm, q, k, n_valid=n_valid)
         assert (i[0] == -1).all() and torch.isinf(v[0]).all()  # the mask-0 query
-        assert ft.LAUNCHES["fused_topk_masked"] == 1
-    else:
-        (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k, n_valid)
-        assert ft.LAUNCHES["fused_topk_int8" if kind == "s8s8" else "fused_topk"] == 1
+    counter = ("fused_topk_masked" if masked else
+               {"s8s8": "fused_topk_int8", "row": "fused_topk_int8_row"}.get(kind, "fused_topk"))
+    assert ft.LAUNCHES[counter] == 1
+    assert ft.LAUNCHES["fused_topk_int8_row"] == (kind == "row")
     assert v.shape == (nq, k) and v.dtype == torch.float32 and i.dtype == torch.int32
     _check_kind(kind, (v, i), (pv, pi), n_valid)
 
 
 @pytest.mark.parametrize("kind,masked", [("bf16", False), ("bf16", True), ("f32", False),
-                                         ("s8s8", False)])
+                                         ("f32", True), ("s8s8", False), ("s8s8", True),
+                                         ("row", False), ("row", True)])
 @pytest.mark.parametrize("k", [10, 128])
 def test_tc_ties_ids_bitwise_plain(gen, k, kind, masked):
     """Duplicated rows tie exactly across tiles, splits and lists: the
-    lowest ids win, as in the plain version, id for id."""
-    base = _unit(40, 128, gen)
+    lowest ids win, as in the plain version, id for id. Values are small
+    multiples of 1/16, so every product and sum is exact in any order (in
+    fp32, bf16, 3xTF32 and the int8 kinds): scores tie exactly or differ
+    clearly, copies always tie, and so do many different rows. (Random
+    unit rows put two different rows within an ulp of each other now and
+    then, which two summation orders may rank either way.)"""
+    base = torch.randint(-8, 9, (40, 128), generator=gen, device="cuda") / 16
     x, s = _tc_index(kind, base.repeat(40, 1), 1600)
-    q = _unit(70, 128, gen)
-    if masked:
-        rm, qm = _masks(x.shape[0], 70, gen)
-        v, i = ft.fused_topk_masked(x, rm, qm, q, k)
-        pv, pi = ft.fused_topk_masked_plain(x, rm, qm, q, k)
-    else:
-        (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k)
+    q = torch.randint(-8, 9, (70, 128), generator=gen, device="cuda") / 16
+    masks = _masks(x.shape[0], 70, gen) if masked else None
+    (v, i), (pv, pi) = _tc_scan(kind, x, s, q, k, masks=masks)
     assert torch.equal(i, pi)
     _check_kind(kind, (v, i), (pv, pi), x.shape[0])
 
 
-@pytest.mark.parametrize("kind", ["f32", "s8s8"])
-def test_flat_f32_and_s8s8_launch_the_tensor_core_kernel(gen, kind):
-    """The flat unmasked f32 and s8s8 scans run tc_scan_kernel (and the
-    merge), never the CUDA-core scan_kernel."""
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kind", _KINDS)
+def test_flat_scans_launch_the_tensor_core_kernel(gen, kind, masked):
+    """Every flat scan, of every kind, masked or not, runs tc_scan_kernel
+    (and the merge), never the CUDA-core scan_kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     x, s = _tc_index(kind, _unit(20_000, 768, gen), 20_000)
     q = _unit(65, 768, gen)
-    _tc_scan(kind, x, s, q, 10)
+    masks = _masks(20_000, 65, gen) if masked else None
+    _tc_scan(kind, x, s, q, 10, masks=masks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _tc_scan(kind, x, s, q, 10)[0][0].cpu()
+        _tc_scan(kind, x, s, q, 10, masks=masks)[0][0].cpu()
     names = [e.key for e in prof.key_averages()]
     assert any("tc_scan_kernel" in n for n in names), names
     assert not any("scan_kernel" in n and "tc_scan_kernel" not in n for n in names), names
@@ -259,6 +274,28 @@ def test_tc_f32_crafted_low_bits_within_1e4(gen):
     head = ft._tf32_head
     one_pass = (head(q[:1]) @ head(x[777:778]).T).item()  # what a single TF32 pass scores
     assert abs(one_pass - pv[0, 0].item()) > 5e-4
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tc_s8s8_crafted_large_d_bitwise_plain(gen, masked):  # gen: skips without a card
+    """D = 5760, int8 values ±64..127, 64 queries that copy rows (sums
+    ~5.5e7, past fp32's 2^24; tests/test_torch_s8s8_exact.py holds the
+    plain version to JAX on the same data): the kernel's exact s32 sums
+    equal the plain version's exact float64 sums, bit for bit."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    vals = (rng.integers(64, 128, (512, 5760)) * rng.choice([-1, 1], (512, 5760))).astype(np.int8)
+    x8 = torch.from_numpy(vals).cuda()
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, 512).astype(np.float32)).cuda()
+    q = x8[torch.from_numpy(rng.choice(512, 64, replace=False)).cuda()].to(torch.float32)
+    qm = torch.full((64,), 0b111, dtype=torch.int32)
+    qm[-1] = 0
+    rm = torch.from_numpy((1 << rng.integers(0, 8, 512)).astype(np.int32))
+    masks = (rm.cuda(), qm.cuda()) if masked else None
+    (v, i), (pv, pi) = _tc_scan("s8s8", x8, s, q, 10, masks=masks)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert v.abs().max().item() > 2**24  # the sums past fp32's exact range
 
 
 

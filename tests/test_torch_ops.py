@@ -176,14 +176,6 @@ def test_int8_search_matches_jax(data):
                        candidate_scores=tv.numpy()) == 1.0
 
 
-@pytest.mark.parametrize("n_rows,nq", [(2_000_000, 32), (2_000_000, 512), (3000, 1), (0, 8)])
-def test_plan_chunks_covers_rows_in_whole_tiles(n_rows, nq):
-    chunk_rows, n_chunks = ft.plan_chunks(n_rows, nq, sm_count=132)
-    assert chunk_rows % 512 == 0 and 1 <= n_chunks <= 65535
-    assert chunk_rows * n_chunks >= n_rows
-    assert chunk_rows * (n_chunks - 1) < max(n_rows, 1)
-
-
 def test_wrappers_refuse_other_devices(data):
     index, queries = data
     meta = torch.empty((N, D), device="meta")

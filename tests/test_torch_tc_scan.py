@@ -1,7 +1,8 @@
 """The glue of the tensor-core scan on the CPU: its planner, its bf16
 query rounding against JAX's, the choice of kernel by kind, shape and
-mask, and the 3xTF32 arithmetic of its f32 kind (the split rule, and a
-float64 model of the kernel against the JAX package's fp32 scan).
+mask, the operands each kind takes, the 3xTF32 arithmetic of its f32
+kind (the split rule, and a float64 model of the kernel against the JAX
+package's fp32 scan) and the int8 -> bf16 widening of its row kind.
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py)."""
 
@@ -52,15 +53,17 @@ def test_tc_queries_round_as_jax_bfloat16():
     ("bf16", True, False, "cuda_core"),  # the IVF block tables at q_block 8
     ("bf16", True, True, "cuda_core"),
     ("f32", False, False, "tc"),  # 3xTF32
-    ("f32", False, True, "cuda_core"),
+    ("f32", False, True, "tc"),
     ("f32", True, False, "cuda_core"),
     ("s8s8", False, False, "tc"),  # int8 wgmma
-    ("s8s8", False, True, "cuda_core"),
-    ("row", False, False, "cuda_core"),
-    ("row", False, True, "cuda_core"),
-    ("row", True, False, "cuda_core"),
+    ("s8s8", False, True, "tc"),
+    ("row", False, False, "tc"),  # int8 rows widened to bf16, bf16 wgmma
+    ("row", False, True, "tc"),
+    ("row", True, False, "cuda_core"),  # an int8 IVF block table
 ])
 def test_scan_route_by_kind_and_shape(kind, table, masked, route):
+    """Every flat scan runs on the tensor cores, every block table on
+    the CUDA cores."""
     assert ft.scan_route(kind, table, masked) == route
 
 
@@ -80,14 +83,60 @@ def test_flat_unmasked_f32_and_s8s8_refuse_the_cuda_core_kernel(kind):
         ft._launch(kind, 16, x, scales, None, None, q, None, 5, 256)
 
 
-@pytest.mark.parametrize("kind", ["f32", "s8s8"])
-def test_masked_f32_and_s8s8_refuse_the_tensor_core_kernel(kind):
-    """Until the masked forms move, their scans stay on ``scan_kernel``."""
+@pytest.mark.parametrize("kind,masked", [("f32", True), ("s8s8", True), ("row", False),
+                                         ("row", True)])
+def test_masked_and_row_scans_refuse_the_cuda_core_kernel(kind, masked):
+    """The masked f32 and s8s8 scans and the row kind, masked or not, run
+    on the tensor-core kernel: ``scan_kernel`` takes only block tables."""
     x = torch.zeros((256, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
-    q = torch.zeros((2, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
-    masks, qmask = torch.ones(256, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA-core"):
-        ft._launch_tc(kind, x, None, masks, qmask, q, None, None, 5, 256)
+    q = torch.zeros((2, 64), dtype=torch.int8 if kind == "s8s8" else torch.float32)
+    scales = None if kind == "f32" else torch.ones(256)
+    masks, qmask = ((torch.ones(256, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
+                    if masked else (None, None))
+    with pytest.raises(ValueError, match="tensor-core"):
+        ft._launch(kind, 16, x, scales, masks, qmask, q, None, 5, 256)
+
+
+class _Reached(Exception):
+    """Raised in place of loading the kernels: the operands were taken."""
+
+
+def _no_lib():
+    raise _Reached
+
+
+_F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
+
+
+@pytest.mark.parametrize("kind,x_dtype,q_dtype,scaled,taken", [
+    ("row", _I8, _BF16, True, True),  # int8 rows, bf16 queries, row scales
+    ("row", _I8, _F32, True, False),  # the queries as the CUDA-core scan read them
+    ("row", _I8, _I8, True, False),  # s8s8's queries
+    ("row", _I8, _BF16, False, False),  # no row scales
+    ("row", _BF16, _BF16, True, False),  # a bf16 index
+    ("s8s8", _I8, _I8, True, True),
+    ("s8s8", _I8, _BF16, True, False),  # the row kind's queries under s8s8
+    ("bf16", _BF16, _BF16, False, True),
+    ("bf16", _BF16, _BF16, True, False),  # scales with a float index
+    ("bf16", _I8, _BF16, False, False),
+    ("f32", _F32, _F32, False, True),
+    ("f32", _F32, _BF16, False, False),
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_launch_tc_takes_each_kinds_operands_and_refuses_other_mixes(
+        monkeypatch, kind, x_dtype, q_dtype, scaled, taken, masked):
+    """``_launch_tc`` takes the row kind's int8 rows with bf16 queries and
+    row scales, each other kind's own operands, masked or not, and
+    refuses every other mix before it loads a kernel."""
+    monkeypatch.setattr(ft, "_lib", _no_lib)
+    x = torch.zeros((256, 64), dtype=x_dtype)
+    q = torch.zeros((2, 64), dtype=q_dtype)
+    q_lo = torch.zeros_like(q) if kind == "f32" else None
+    scales = torch.ones(256) if scaled else None
+    masks, qmask = ((torch.ones(256, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
+                    if masked else (None, None))
+    with pytest.raises(_Reached if taken else ValueError):
+        ft._launch_tc(kind, x, scales, masks, qmask, q, q_lo, None, 5, 256)
 
 
 # -- the 3xTF32 split of the f32 scan ------------------------------------------
@@ -199,3 +248,37 @@ def test_tc_variants_still_apply_to_the_kernel_source():
     made = tc_variants.variants(src)
     assert made["as_is"] == src
     assert len(set(made.values())) == len(made)  # every variant differs from the rest
+
+
+# -- the int8 -> bf16 widening of the row kind ---------------------------------
+
+
+def _byte_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays: byte n of the
+    result is byte (nibble n of ``sel``) of the 8 bytes {y:x}."""
+    out = np.zeros_like(x)
+    for n in range(4):
+        src = (sel >> (4 * n)) & 7
+        word = x if src < 4 else y
+        out |= ((word >> np.uint32(8 * (src & 3))) & np.uint32(0xFF)) << np.uint32(8 * n)
+    return out
+
+
+def _widen4_model(w: np.ndarray) -> np.ndarray:
+    """``csrc/fused_topk.cu::widen4`` step for step: four int8 values in a
+    word (little-endian) to four bf16 values in two words."""
+    u = w ^ np.uint32(0x80808080)
+    magic = np.full_like(u, 0x4B000000)
+    f = [(_byte_perm(u, magic, 0x7540 + b).view(np.float32) - np.float32(8388736.0))
+         .astype(np.float32).view(np.uint32) for b in range(4)]
+    return np.stack([_byte_perm(f[0], f[1], 0x7632), _byte_perm(f[2], f[3], 0x7632)], axis=-1)
+
+
+def test_row_widening_is_exact_for_every_int8_value():
+    """The kernel's byte-permute widening gives every int8 value's bf16
+    bits, in memory order, as ``int8.to(bfloat16)`` does."""
+    vals = np.arange(-128, 128, dtype=np.int8)
+    words = np.ascontiguousarray(vals).view(np.uint32)  # 4 values per word
+    got = _widen4_model(words).reshape(-1).view(np.uint16)
+    want = torch.from_numpy(vals).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(got, want)
