@@ -1,16 +1,23 @@
 """Time the flat scans K1 (bf16 and f32), K2 (s8s8), K3 (int8 row) and K4
-(masked: bf16, s8s8 and f32) of one checkout of this repository, for A/B
-comparisons of two checkouts on one card:
+(masked: bf16, s8s8 and f32), and the W8A8 matmuls K7 and K8, of one
+checkout of this repository, for A/B comparisons of two checkouts on one
+card:
 
     python3 arxiv_rag_tpu_torch/ab_scans.py --repo CHECKOUT [--seed 0]
+        [--what all|scans|w8a8]
 
 imports ``arxiv_rag_tpu_torch`` from ``CHECKOUT`` (building its kernels
 there), scans a 2,000,000 × 768 index made on the card from ``--seed``
 at Q = 32, 64 and 512, k = 10 (K1 f32 also over its first 262,144 rows;
 K4: each row in one of 8 categories, the query mask 3 of them, the last
-query none; K4 f32 over the 2M f32 rows), and prints one JSON line:
-the card, the checkout, nvcc's register/spill report and the median of
-20 CUDA-event timings per case. Run two checkouts in turns (A, B, B, A)
+query none; K4 f32 over the 2M f32 rows), times K7 (``w8a8_matmul``)
+and K8 (``w8a8_matmul_fused_quant``) at the encoder's six shapes (M =
+8,192 and 65,536 rows by (K, N) = (768, 768), (768, 3072), (3072, 768);
+bf16 x, bias and output), and prints one JSON line: the card, the
+checkout, nvcc's register/spill report and the median of 20 CUDA-event
+timings per case (around the wrapper call, host work included); for K7
+and K8 also ``*_device``: the device time of the call's kernels
+(``torch.profiler``, mean of 5), which host noise does not reach. Run two checkouts in turns (A, B, B, A)
 in one call. Needs a card; uses only the wrappers both checkouts have.
 """
 
@@ -40,25 +47,28 @@ def _median_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--repo", required=True, help="root of the checkout to time")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("ab_scans: needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(args.repo).resolve()))
+def device_ms(fn, kernel: str = "", runs: int = 5) -> float:
+    """The device time of the kernels one call of ``fn`` launches whose
+    names hold ``kernel`` (all of them by default; ``torch.profiler``,
+    mean of ``runs`` calls): what host time around the call cannot move.
+    ``tc_variants.py`` and ``w8a8_variants.py`` time with it too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if kernel in e.key) / runs / 1e3
+
+
+def _scans(gen, out) -> None:
+    """The flat scans, into ``out``."""
     from arxiv_rag_tpu_torch.index.store import build_index
-    from arxiv_rag_tpu_torch.ops import _build
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    report = [line.strip() for line in _build.build("fused_topk").splitlines()
-              if "registers" in line or "spill" in line or "Compiling entry" in line]
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     emb = torch.randn(2_000_000, 768, generator=gen, device="cuda")
     bf16 = build_index(emb, dtype="bfloat16").to_device()
     int8 = build_index(emb, dtype="int8").to_device()
@@ -69,7 +79,6 @@ def main() -> int:
     row_masks = torch.bitwise_left_shift(
         torch.ones(rows, dtype=torch.int32, device="cuda"),
         torch.randint(0, 8, (rows,), generator=gen, device="cuda").to(torch.int32))
-    out = {}
     for nq in (32, 64, 512):
         q = torch.randn(nq, 768, generator=gen, device="cuda")
         q = q / q.norm(dim=1, keepdim=True)
@@ -95,6 +104,53 @@ def main() -> int:
         out[f"K3_row_q{nq}"] = _median_ms(
             lambda: ft.fused_topk_int8(int8._device_values, int8._device_scales, q, 10,
                                        n_valid=n, variant="row"))
+
+
+def _w8a8(gen, out) -> None:
+    """K7 and K8 at the encoder's shapes, into ``out``."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    for m in (8192, 65536):
+        for k, n in ((768, 768), (768, 3072), (3072, 768)):
+            x = (torch.randn(m, k, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
+            w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+            bias = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+            x_q, a_scale = w8a8.quantize_activations(x)
+            kw = {"out_dtype": torch.bfloat16}
+            calls = {"K7": lambda: w8a8.w8a8_matmul(x_q, a_scale, w_q, w_scale, bias, **kw),
+                     "K8": lambda: w8a8.w8a8_matmul_fused_quant(x, w_q, w_scale, bias, **kw)}
+            for key, fn in calls.items():
+                out[f"{key}_m{m}_{k}x{n}"] = _median_ms(fn)
+                out[f"{key}_m{m}_{k}x{n}_device"] = device_ms(fn)
+            del x, x_q
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", required=True, help="root of the checkout to time")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--what", choices=("all", "scans", "w8a8"), default="all")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_scans: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    from arxiv_rag_tpu_torch.ops import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    out, report = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for name, wanted in (("fused_topk", "scans"), ("w8a8", "w8a8")):
+        if args.what in ("all", wanted):
+            report += [f"{name}: {line.strip()}" for line in _build.build(name).splitlines()
+                       if "registers" in line or "spill" in line or "Compiling entry" in line]
+    if args.what in ("all", "scans"):
+        _scans(gen, out)
+    if args.what in ("all", "w8a8"):
+        _w8a8(gen, out)
     print(json.dumps({"card": card, "repo": args.repo, "ms": out, "ptxas": report}))
     return 0
 

@@ -4,8 +4,9 @@ The port of ``arxiv_rag_tpu/ops/pallas_matmul.py``: ``w8a8_matmul`` :245
 (K7, int8 activations with their row scales) and
 ``w8a8_matmul_fused_quant`` :204 (K8, bf16/f32 activations quantized per
 row inside the kernel), with ``w8a8_dense`` :295 for any leading shape.
-The kernels are in ``csrc/w8a8.cu``; their design and bound are noted
-there. The reference's two lowerings of the encoder's int8 dense layer
+Both run on one kernel, ``csrc/w8a8.cu::w8a8_kernel`` (int8 wgmma fed
+by TMA); its design and bound are noted there, and :func:`plan` picks its
+form from the shape alone. The reference's two lowerings of the encoder's int8 dense layer
 (XLA, and the Pallas kernel behind ``ARAG_W8A8_PALLAS``) compute the same
 bits; the port has one, K8.
 
@@ -35,7 +36,10 @@ the plain version for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
 import math
 import threading
 
@@ -43,7 +47,6 @@ import torch
 
 _MAX_FULL_K = 4096  # the reference's guard (pallas_matmul.py:57)
 _VEC = 16  # bytes per vector load in the kernel: K must be a multiple
-_BM = 128  # rows per K7 block (csrc/w8a8.cu, kBM)
 _X_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 _BIAS_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT = (torch.float32, torch.bfloat16)
@@ -144,10 +147,11 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("w8a8")
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.arag_w8a8.argtypes = [i32, i32, p, p, p, p, i32, p, i32, p, i32, i32, i32, p]
+        lib.arag_w8a8.argtypes = [i32, i32, i32, i32, p, p, p, p, i32, p, i32, p, i32, i32, i32,
+                                  p]
         lib.arag_w8a8.restype = i32
-        lib.arag_w8a8_resident_smem.argtypes = [i32, i32]
-        lib.arag_w8a8_resident_smem.restype = ctypes.c_size_t
+        lib.arag_w8a8_smem.argtypes = [i32, i32, i32]
+        lib.arag_w8a8_smem.restype = ctypes.c_size_t
         lib.arag_w8a8_error_string.argtypes = [i32]
         lib.arag_w8a8_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -164,27 +168,88 @@ def _vector(t: torch.Tensor | None, name: str, n: int, dev, dtypes) -> torch.Ten
     return t.contiguous()
 
 
-def _smem_limit(dev: torch.device) -> int:
-    props = torch.cuda.get_device_properties(dev)
-    return getattr(props, "shared_memory_per_block_optin", 232448)
+# -- the launch plan (csrc/w8a8.cu: w8a8_kernel and smem_bytes) ----------------
+
+_ROWS = 128  # rows per block: two consumer warpgroups of 64
+_BN = 256  # columns per N tile
+_SPAN = 128  # K bytes per slice
+_MAX_STAGES = 4
+STREAMED, RESIDENT = 0, 1
+H100_SMEM = 232448  # opt-in shared memory per block on an H100
+H100_SMS = 132
 
 
-def _resident_rows(lib: ctypes.CDLL, k: int, dev: torch.device) -> int:
-    """K8's rows per block: 64 where their int8 copy fits in a block's
-    shared memory (K ≤ 3072 on an H100), else 32 (K ≤ 6272)."""
-    limit = _smem_limit(dev)
-    for rows in (64, 32):
-        if lib.arag_w8a8_resident_smem(k, rows) <= limit:
-            return rows
-    raise ValueError(f"the fused-quant kernel keeps 32 quantized rows of K in shared memory: "
-                     f"K={k} needs {lib.arag_w8a8_resident_smem(k, 32)} B, the card has {limit}")
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one W8A8 launch covers [M, N]: the form (``RESIDENT``: the
+    block's rows quantized once into shared memory, its N tiles walked
+    over them; ``STREAMED``: the rows' K slices through the ring beside
+    W's), the ring's stages, the N tiles of 256 columns each block walks,
+    the grid (N groups × row blocks) and the shared memory of a block."""
+
+    form: int
+    stages: int
+    tiles_per_block: int
+    grid: tuple[int, int]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def smem_bytes(form: int, stages: int, k: int) -> int:
+    """A block's shared memory (``csrc/w8a8.cu::smem_bytes``): alignment
+    slack, the resident A slices (128 rows × K, in 128-byte slices), the
+    ring (a 32 KB W slice a stage, and a 16 KB A slot when streamed), the
+    epilogue's four 8 KB output boxes and a tile's column constants (4 KB),
+    the row scales and the barriers."""
+    a_res = -(-k // _SPAN) * _ROWS * _SPAN if form == RESIDENT else 0
+    stage = _BN * _SPAN + (0 if form == RESIDENT else _ROWS * _SPAN)
+    return 1024 + a_res + stages * stage + 4 * 64 * _SPAN + 2 * _BN * 8 + _ROWS * 4 + 16 * stages
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, n: int, k: int, quantize: bool, *, smem_limit: int = H100_SMEM,
+         sms: int = H100_SMS) -> Plan:
+    """The launch for x [m, k] (fp32/bf16 when ``quantize``: K8; else int8:
+    K7) by w [n, k], from the shape alone. K8 keeps its rows resident where
+    they fit beside two stages (K ≤ 896 on an H100), else streams them, as
+    K7 always does; the ring takes as many stages (up to 4) as fit. A K8
+    block walks its rows' N tiles (one row-scale pass for all of them);
+    where the row blocks are fewer than the SMs, the N tiles are split
+    among blocks too (each quantizes its rows again). A K7 block takes one
+    N tile."""
+    form = RESIDENT if quantize and smem_bytes(RESIDENT, 2, k) <= smem_limit else STREAMED
+    stages = max(s for s in range(2, _MAX_STAGES + 1)
+                 if s == 2 or smem_bytes(form, s, k) <= smem_limit)
+    row_blocks = -(-m // _ROWS)
+    n_tiles = -(-n // _BN)
+    tiles = 1
+    if quantize:
+        groups = 1 if row_blocks >= sms else min(n_tiles, -(-sms // row_blocks))
+        tiles = -(-n_tiles // groups)
+    return Plan(form, stages, tiles, (-(-n_tiles // tiles), row_blocks),
+                smem_bytes(form, stages, k))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple[int, int]:
+    """A card's opt-in shared memory per block and its SM count."""
+    props = torch.cuda.get_device_properties(index)
+    return getattr(props, "shared_memory_per_block_optin", H100_SMEM), props.multi_processor_count
+
+
+def _device_plan(m: int, n: int, k: int, quantize: bool, dev: torch.device) -> Plan:
+    smem, sms = _card(torch.cuda.current_device() if dev.index is None else dev.index)
+    return plan(m, n, k, quantize, smem_limit=smem, sms=sms)
 
 
 def _launch(x: torch.Tensor, a_scale, w_q: torch.Tensor, w_scale, bias,
             out_dtype: torch.dtype) -> torch.Tensor:
     """One launch: K7 for an int8 ``x`` (with ``a_scale``), K8 for an
-    fp32 or bf16 ``x``. No rule on K and N beyond the kernels' own: K a
-    multiple of 16 (and for K8 ≤ 6272 on an H100), M below 2^23."""
+    fp32 or bf16 ``x``. No rule on K and N beyond the kernel's own: K a
+    multiple of 16, M below 2^23."""
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w_q {tuple(w_q.shape)} must be [M, K] "
                          "and [N, K]")
@@ -198,8 +263,8 @@ def _launch(x: torch.Tensor, a_scale, w_q: torch.Tensor, w_scale, bias,
         raise ValueError(f"w_q on {w_q.device}, x on {dev}")
     if k % _VEC or k == 0:
         raise ValueError(f"the CUDA W8A8 kernel needs K % {_VEC} == 0 (got K={k})")
-    if -(-m // _BM) > 65535:
-        raise ValueError(f"the CUDA W8A8 kernel takes at most {65535 * _BM} rows (got {m})")
+    if -(-m // _ROWS) > 65535:
+        raise ValueError(f"the CUDA W8A8 kernel takes at most {65535 * _ROWS} rows (got {m})")
     x, w_q = x.contiguous(), w_q.contiguous()
     if x.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("x and w_q must be 16-byte aligned")
@@ -210,15 +275,16 @@ def _launch(x: torch.Tensor, a_scale, w_q: torch.Tensor, w_scale, bias,
     if m == 0 or n == 0:
         return out
     lib = _lib()
-    rows = 0 if x.dtype == torch.int8 else _resident_rows(lib, k, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _device_plan(m, n, k, x.dtype != torch.int8, dev)
+    # the kernel launches on the thread's current card: make it x's
+    with (contextlib.nullcontext() if dev.index in (None, torch.cuda.current_device())
+          else torch.cuda.device(dev)):
         err = lib.arag_w8a8(
-            _X_KIND[x.dtype], rows, x.data_ptr(),
+            _X_KIND[x.dtype], p.form, p.stages, p.tiles_per_block, x.data_ptr(),
             None if a_scale is None else a_scale.data_ptr(),
             w_q.data_ptr(), w_scale.data_ptr(), _BIAS_KIND[None if bias is None else bias.dtype],
             None if bias is None else bias.data_ptr(), int(out_dtype == torch.bfloat16),
-            out.data_ptr(), m, n, k, stream,
+            out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"W8A8 kernel launch failed: CUDA error {err} "

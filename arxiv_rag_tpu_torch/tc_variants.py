@@ -1,9 +1,9 @@
 """Time variants of the tensor-core scan, to see what bounds it:
 
-    python3 arxiv_rag_tpu_torch/tc_variants.py [--seed 0]
+    python3 arxiv_rag_tpu_torch/tc_variants.py [--seed 0] [--only NAME,...]
 
 builds ``csrc/fused_topk.cu`` as it is and in variants made by editing
-its text (one ``nvcc`` each, all at once, into ``build/variants/``):
+its text (``kernel_variants.py``: one ``nvcc`` each, all at once):
 
 - ``no_epilogue``: the top-k marking and merging skipped (wrong results);
 - ``no_mma``: the wgmma products skipped (wrong results);
@@ -26,7 +26,7 @@ Each variant runs the kinds it concerns on 2,000,000 x 768 indexes made
 on the card from ``--seed`` (bf16 ``fused_topk``, f32 ``fused_topk``,
 s8s8 and row ``fused_topk_int8``) at Q = 64 and 512 and k = 10 and 128. The
 script prints one JSON line per variant and case: the scan kernel's
-time alone (``torch.profiler``, mean of 5 calls) and whether the result
+time alone (``ab_scans.device_ms``, mean of 5 calls) and whether the result
 matches the plain version (s8s8 bitwise, the float kinds within 1e-4).
 Needs a card.
 """
@@ -34,9 +34,7 @@ Needs a card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -66,10 +64,11 @@ KINDS = {"as_is": ALL, "no_epilogue": ALL, "no_mma": ALL, "no_mma_no_epilogue": 
 
 
 def variants(src: str) -> dict[str, str]:
-    for anchor in (EPILOGUE, MMA, LISTS, STAGES, S8_STAGES, F32_STAGES, SPLIT, TF32_PRODUCTS,
-                   WIDEN, STREAMS, TC_STAGES):
-        if anchor not in src:
-            raise SystemExit(f"tc_variants: csrc/fused_topk.cu no longer has {anchor!r}")
+    from arxiv_rag_tpu_torch import kernel_variants
+
+    kernel_variants.require(src, "fused_topk", (EPILOGUE, MMA, LISTS, STAGES, S8_STAGES,
+                                                F32_STAGES, SPLIT, TF32_PRODUCTS, WIDEN,
+                                                STREAMS, TC_STAGES))
     no_epi = src.replace(EPILOGUE, "    continue;\n" + EPILOGUE)
     two_stages = src.replace(STAGES, STAGES.replace("3", "2"))
     return {
@@ -90,44 +89,24 @@ def variants(src: str) -> dict[str, str]:
     }
 
 
-def scan_ms(fn) -> float:
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if "tc_scan_kernel" in e.key) / 5 / 1e3
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tc_variants: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from arxiv_rag_tpu_torch import kernel_variants
+    from arxiv_rag_tpu_torch.ab_scans import device_ms
     from arxiv_rag_tpu_torch.index.store import build_index
     from arxiv_rag_tpu_torch.ops import _build
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
 
-    out_dir = _build.BUILD_DIR.parent / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    builds = {}
-    for name, text in variants((_build.CSRC / "fused_topk.cu").read_text()).items():
-        (out_dir / f"{name}.cu").write_text(text)
-        builds[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
-             str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    for name, proc in builds.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
+    texts = variants((_build.CSRC / "fused_topk.cu").read_text())
+    libs = kernel_variants.build(
+        "fused_topk", {n: texts[n] for n in kernel_variants.pick(texts, args.only)})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     emb = torch.randn(2_000_000, 768, generator=gen, device="cuda")
@@ -148,23 +127,21 @@ def main() -> int:
     }
     queries = {nq: torch.nn.functional.normalize(
         torch.randn(nq, 768, generator=gen, device="cuda"), dim=1) for nq in (64, 512)}
-    for name in builds:
-        ft._LIB.clear()  # the wrapper binds whichever library _build hands it
-        _build._LIBS["fused_topk"] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        for kind in KINDS[name]:
-            run, plain = scans[kind]
-            for nq, q in queries.items():
-                for k in (10, 128):
-                    v, i = run(q, k)
-                    pv, pi = plain(q, k)
-                    same = (torch.equal(v, pv) and torch.equal(i, pi) if kind == "s8s8"
-                            else bool((v - pv).abs().max().item() <= 1e-4))
-                    print(json.dumps({
-                        "variant": name, "kind": kind, "q": nq, "k": k,
-                        "kernel_ms": scan_ms(lambda: run(q, k)), "matches_plain": same,
-                    }), flush=True)
-    ft._LIB.clear()
-    _build._LIBS.pop("fused_topk", None)
+    for name, lib in libs.items():
+        with kernel_variants.bound(ft, "fused_topk", lib):
+            for kind in KINDS[name]:
+                run, plain = scans[kind]
+                for nq, q in queries.items():
+                    for k in (10, 128):
+                        v, i = run(q, k)
+                        pv, pi = plain(q, k)
+                        same = (torch.equal(v, pv) and torch.equal(i, pi) if kind == "s8s8"
+                                else bool((v - pv).abs().max().item() <= 1e-4))
+                        print(json.dumps({
+                            "variant": name, "kind": kind, "q": nq, "k": k,
+                            "kernel_ms": device_ms(lambda: run(q, k), "tc_scan_kernel"),
+                            "matches_plain": same,
+                        }), flush=True)
     return 0
 
 

@@ -25,7 +25,10 @@ its first failure:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
    flat scan of the same IVF-ordered values; then the W8A8 matmul K7 and
-   its fused-quantization form K8 at the encoder's shapes, bitwise; the
+   its fused-quantization form K8 (one wgmma kernel, the ptxas report of
+   each instantiation) at edge shapes and at the encoder's shapes,
+   bitwise, with TOP/s, the share of the bound, K8 − K7 (the cost of the
+   fused quantization) and the bf16 dense layer's time at each shape; the
    index's and the activations' int8 quantizations on the card bitwise
    the CPU's;
 3. the slice: text queries through Embedder → SearchEngine over the
@@ -84,6 +87,16 @@ FILTER = CATS[:3]  # query mask 0b111: 3 of 8 categories, ~37% of rows
 W8A8_M = (8192, 65536)  # encoder rows (batch x 128 tokens) at 64 and 512 queries
 W8A8_KN = ((768, 768), (768, 3072), (3072, 768))  # q/k/v/o, FFN in, FFN out
 W8A8_MAIN = (65536, 768, 3072)
+# edge shapes of the W8A8 kernel (m, k, n, x, bias, out): K = 16 mod 32, N off
+# the 256-column tile (201: rows not 16-byte aligned), M of 1, 17 and 1,000,
+# both forms (resident to K = 896), K up to the old K8 limit of 6,272
+W8A8_EDGE = ((1, 752, 200, "bfloat16", None, "bfloat16"),
+             (17, 752, 201, "float32", "float32", "float32"),
+             (17, 784, 768, "bfloat16", "bfloat16", "float32"),
+             (1000, 768, 200, "float32", None, "bfloat16"),
+             (1000, 1296, 520, "bfloat16", "float32", "bfloat16"),
+             (1000, 6272, 384, "bfloat16", "bfloat16", "bfloat16"))
+W8A8_FORMS = {0: "streamed", 1: "resident"}  # ops/w8a8.py STREAMED, RESIDENT
 N_CLUSTERS = 4096  # IVF_r04.json / bench.py:715: 4096 clusters, 1024-row blocks
 IVF_BLOCK = 1024
 NPROBE = 8
@@ -642,14 +655,85 @@ def w8a8_library(x_q, a_scale, w_q, w_scale, bias):
         torch.bfloat16)
 
 
+def w8a8_edge_cases(gen) -> None:
+    """K7 and K8 at the edge shapes, bitwise their plain versions and K8
+    against quantize → K7: an all-zero row, a row of exact .5 quotients
+    (its max 127 makes the scale 1: round half to even), every bias and
+    output kind. K8 through ``w8a8_dense``, the encoder's entry (no rule
+    on K and N); K7 through the wrappers' launch (the public K7 keeps the
+    reference's K ≤ 4096 and multiple-of-128 guards)."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    for m, k, n, xd, bd, od in W8A8_EDGE:
+        xd, od = getattr(torch, xd), getattr(torch, od)
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        x[m // 2] = 0
+        if m > 1:
+            x[1] = torch.randint(-127, 127, (k,), generator=gen, device="cuda") + 0.5
+            x[1, 0] = 127.0
+        x = x.to(xd)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
+        w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-2 + 1e-4
+        bias = None if bd is None else (torch.randn(n, generator=gen, device="cuda") * 0.5).to(
+            getattr(torch, bd))
+        x_q, a_scale = w8a8.quantize_activations(x)
+        k8 = w8a8.w8a8_dense(x, w_q, w_scale, bias, out_dtype=od)
+        k7 = w8a8._launch(x_q, a_scale, w_q, w_scale, bias, od)
+        shape = f"edge M={m} K={k} N={n} x {xd} bias {bd} out {od}"
+        check_equal(k8, w8a8.w8a8_matmul_fused_quant_plain(x, w_q, w_scale, bias, out_dtype=od),
+                    f"K8 {shape} vs plain")
+        check_equal(k7, w8a8.w8a8_matmul_plain(x_q, a_scale, w_q, w_scale, bias, out_dtype=od),
+                    f"K7 {shape} vs plain")
+        check_equal(k8, k7, f"K8 {shape} vs quantize → K7")
+        form = W8A8_FORMS[w8a8._device_plan(m, n, k, True, x.device).form]
+        print(f"  {shape}: K7 and K8 bitwise (K8 {form})", flush=True)
+
+
+def bf16_dense_ms(x, n, gen) -> float:
+    """The bf16 encoder's dense layer at the same shape, as
+    ``models/mpnet.py::_dense`` computes it (bf16 GEMM, fp32 out, + bias,
+    one rounding): what the W8A8 layer replaces."""
+    from arxiv_rag_tpu_torch.models import mpnet
+
+    lin = torch.nn.Linear(x.shape[1], n, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(n, x.shape[1], generator=gen, device="cuda") * 0.02)
+        return median_ms(lambda: mpnet._dense(x, lin))
+
+
+def w8a8_ptxas(log: str) -> list[str]:
+    """The W8A8 kernel's ptxas report, one line per instantiation (x kind,
+    form), with the dynamic shared memory its block takes at the encoder's
+    K (the ptxas line counts only the static part)."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    kinds = {0: "int8 x (K7)", 1: "fp32 x (K8)", 2: "bf16 x (K8)"}  # csrc/w8a8.cu XKind
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"w8a8_kernelILi(\d+)ELi(\d+)E", line)
+            name = m and (int(m.group(1)), int(m.group(2)))
+        elif name and ("stack frame" in line or "registers" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    lines = []
+    for (xk, form), facts in sorted(out.items()):
+        k = 768 if form == w8a8.RESIDENT else 3072
+        p = w8a8.plan(65536, 768, k, xk != 0)
+        lines.append(f"ptxas w8a8_kernel<{kinds[xk]}, {W8A8_FORMS[form]}>: {'; '.join(facts)}; "
+                     f"dynamic shared memory {p.smem} B at K={k} ({p.stages} stages)")
+    return lines or ["ptxas w8a8_kernel: no report (the library was built before this run)"]
+
+
 def phase_w8a8_kernels(gen, results) -> None:
     """K7 and K8 at the encoder's shapes (bf16 activations, bf16 bias and
     output, as a bf16 model's dense layers), against their plain versions
     bit for bit, K8 also against quantize → K7."""
     from arxiv_rag_tpu_torch.ops import w8a8
 
-    print("== phase 2 (W8A8): K7 and K8 at the encoder's shapes", flush=True)
+    print("== phase 2 (W8A8): K7 and K8 at the edge shapes and the encoder's shapes", flush=True)
+    w8a8_edge_cases(gen)
     cases = {"K7": [], "K8": []}
+    dense = results.setdefault("w8a8_bf16_dense_ms", {})
     for m in W8A8_M:
         for k, n in W8A8_KN:
             x = (torch.randn(m, k, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
@@ -688,12 +772,21 @@ def phase_w8a8_kernels(gen, results) -> None:
                                                                                     **out)),
                       library_ms=median_ms(library8))
             c8["bound_ms"], c8["bound_by"] = w8a8_bound(m, k, n, fused=True)
+            plan = w8a8._device_plan(m, n, k, True, x.device)
+            c8["form"] = W8A8_FORMS[plan.form]
             for key, c in (("K7", c7), ("K8", c8)):
+                c["top_s"] = 2.0 * m * k * n / c["ms"] / 1e9
+                c["share_of_bound"] = c["bound_ms"] / c["ms"]
                 print(f"  {key} {shape}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
                       f"library {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                      f"({c['bound_by']}), {2.0 * m * k * n / c['ms'] / 1e9:.1f} TOP/s",
-                      flush=True)
+                      f"({c['bound_by']}), {c['top_s']:.1f} TOP/s, "
+                      f"{100 * c['share_of_bound']:.1f}% of the bound", flush=True)
                 cases[key].append(c)
+            dense[f"{m}x{k}x{n}"] = bf16_dense_ms(x, n, gen)
+            print(f"  K8 − K7 {shape} (the fused quantization, {c8['form']} form, "
+                  f"{plan.blocks} blocks): {c8['ms'] - c7['ms']:.4f} ms; the bf16 dense layer "
+                  f"(models/mpnet.py::_dense) at this shape: {dense[f'{m}x{k}x{n}']:.4f} ms",
+                  flush=True)
             del x, x_q, k7, k8, p7, p8
     per_layer = {key: {mm: sum(c["ms"] * (4 if (c["k"], c["n"]) == (768, 768) else 1)
                                for c in cs if c["m"] == mm) for mm in W8A8_M}
@@ -701,8 +794,11 @@ def phase_w8a8_kernels(gen, results) -> None:
     for mm in W8A8_M:
         b = sum(w8a8_bound(mm, kk, nn, True)[0] * (4 if (kk, nn) == (768, 768) else 1)
                 for kk, nn in W8A8_KN)
+        d = sum(dense[f"{mm}x{kk}x{nn}"] * (4 if (kk, nn) == (768, 768) else 1)
+                for kk, nn in W8A8_KN)
         print(f"  K8 over one 12-layer forward at M={mm} (72 launches): "
-              f"{12 * per_layer['K8'][mm]:.3f} ms, bound {12 * b:.3f} ms", flush=True)
+              f"{12 * per_layer['K8'][mm]:.3f} ms, bound {12 * b:.3f} ms; the bf16 dense "
+              f"layers at the same shapes: {12 * d:.3f} ms", flush=True)
     results["w8a8_cases"] = cases
     torch.cuda.empty_cache()
 
@@ -1042,9 +1138,10 @@ KERNELS = (
 W8A8_KERNELS = (
     # key, counter, what, TPU kernel, the kernel it runs on
     ("K7", "w8a8_matmul", "w8a8_matmul (not on the encoder's path)",
-     "arxiv_rag_tpu/ops/pallas_matmul.py:74", "tile_kernel"),
+     "arxiv_rag_tpu/ops/pallas_matmul.py:74", "w8a8_kernel<int8 x, streamed> (wgmma + TMA)"),
     ("K8", "w8a8_matmul_fused_quant", "w8a8_matmul_fused_quant / w8a8_dense",
-     "arxiv_rag_tpu/ops/pallas_matmul.py:88", "resident_kernel"),
+     "arxiv_rag_tpu/ops/pallas_matmul.py:88",
+     "w8a8_kernel<bf16 x, resident at K = 768 / streamed at K = 3072> (wgmma + TMA)"),
 )
 
 
@@ -1143,7 +1240,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}", flush=True)
-    for line in tc_ptxas(logs["fused_topk"]):
+    for line in tc_ptxas(logs["fused_topk"]) + w8a8_ptxas(logs["w8a8"]):
         print(f"  {line}", flush=True)
 
     results: dict = {}

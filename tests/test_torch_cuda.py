@@ -469,19 +469,114 @@ def test_k8_bitwise_plain_and_quantize_then_k7(gen, k, n, x_dtype):
     assert w8a8.LAUNCHES == {"w8a8_matmul": 1, "w8a8_matmul_fused_quant": 1}
 
 
-@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("k", [3584, 4096])
-def test_k8_32_row_blocks_above_the_64_row_limit(gen, k, x_dtype):
-    """Where 64 quantized rows of K do not fit in shared memory, K8 takes
-    blocks of 32 rows: the same bits."""
+def _k8_and_k7_bitwise(x, w_q, w_scale, bias, out_dtype):
+    """K8 against its plain version and against quantize → K7 (the kernel
+    at any K % 16 == 0 through the internal launch; the public K7 keeps
+    the reference's K ≤ 4096 and multiple-of-128 guards)."""
     from arxiv_rag_tpu_torch.ops import w8a8
 
-    lib, dev = w8a8._lib(), torch.device("cuda")
-    assert lib.arag_w8a8_resident_smem(k, 64) > w8a8._smem_limit(dev)
-    assert w8a8._resident_rows(lib, k, dev) == 32
+    got = w8a8._launch(x, None, w_q, w_scale, bias, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, w8a8.w8a8_matmul_fused_quant_plain(x, w_q, w_scale, bias,
+                                                               out_dtype=out_dtype))
+    x_q, a_scale = w8a8.quantize_activations(x)
+    k7 = w8a8._launch(x_q, a_scale, w_q, w_scale, bias, out_dtype)
+    assert torch.equal(k7, w8a8.w8a8_matmul_plain(x_q, a_scale, w_q, w_scale, bias,
+                                                  out_dtype=out_dtype))
+    assert torch.equal(got, k7)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [3584, 4096, 6272])
+def test_k8_streamed_form_past_the_resident_limit(gen, k, x_dtype):
+    """Past the K where a block's 128 rows fit in shared memory (896 on an
+    H100), K8 streams the rows' K slices through the ring: the same bits,
+    up to the wrapper's old limit K = 6272."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    assert w8a8._device_plan(1000, 384, k, True, torch.device("cuda")).form == w8a8.STREAMED
     x, w_q, w_scale, bias = _w8a8_operands(1000, k, 384, gen, x_dtype)
-    got = w8a8.w8a8_matmul_fused_quant(x, w_q, w_scale, bias)
-    assert torch.equal(got, w8a8.w8a8_matmul_fused_quant_plain(x, w_q, w_scale, bias))
+    _k8_and_k7_bitwise(x, w_q, w_scale, bias, torch.float32)
+
+
+def test_w8a8_smem_matches_the_kernel(gen):
+    """The wrapper's plan counts a block's shared memory as the kernel
+    does, for both forms and every stage count."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    lib = w8a8._lib()
+    for k in range(16, 6273, 16):
+        for form in (w8a8.STREAMED, w8a8.RESIDENT):
+            for stages in (2, 3, 4):
+                assert lib.arag_w8a8_smem(form, stages, k) == w8a8.smem_bytes(form, stages, k)
+
+
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 752, 200), (17, 752, 201), (17, 784, 768),
+                                   (1000, 768, 200), (17, 2064, 200), (1000, 1296, 520)])
+def test_w8a8_edge_shapes_bitwise(gen, m, k, n, x_dtype, out_dtype, bias_dtype):
+    """K ≡ 16 (mod 32) (752, 784, 2064, 1296: the last k-step half zeros),
+    N not a multiple of the 256-column tile (201: rows not 16-byte aligned,
+    copied out without TMA), M of 1, 17 and 1,000 (ragged row blocks),
+    every bias and output kind, an all-zero row, both forms."""
+    x, w_q, w_scale, bias = _w8a8_operands(m, k, n, gen, x_dtype)
+    x[m // 2] = 0  # an all-zero row: the 1e-8 floor, all zeros
+    bias = None if bias_dtype is None else bias.to(bias_dtype)
+    _k8_and_k7_bitwise(x, w_q, w_scale, bias, out_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_round_half_to_even_at_exact_quotients(gen, x_dtype):
+    """Rows whose max|x| is 127 (scale exactly f32(127 · f32(1/127))) and
+    whose values sit on exact .5 quotients: rintf rounds half to even,
+    as torch.round and the reference do."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    m, k, n = 300, 768, 256
+    halves = torch.arange(-127, 127, device="cuda", dtype=torch.float32) + 0.5
+    x = halves[torch.randint(0, halves.numel(), (m, k), generator=gen, device="cuda")]
+    x[:, 0] = 127.0
+    x = x.to(x_dtype)
+    _, w_q, w_scale, bias = _w8a8_operands(m, k, n, gen, x_dtype)
+    x_q, _ = w8a8.quantize_activations(x)
+    frac = (x.to(torch.float32) - x.to(torch.float32).floor()) == 0.5
+    assert frac.any() and (x_q.to(torch.int32)[frac] % 2 == 0).all()
+    _k8_and_k7_bitwise(x, w_q, w_scale, bias, torch.float32)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [768, 3072])
+def test_w8a8_sums_up_to_127_squared_k(gen, k, out_dtype):
+    """Rows of one value quantize to all 127; against weights of ±127 the
+    sums reach ±127^2 · K (past 2^24 at K = 3072, where float(acc) rounds),
+    beside rows of small sums: bitwise."""
+    m, n = 300, 512
+    x = torch.full((m, k), 0.75, device="cuda")
+    x[::2] *= -1
+    x[100:] = torch.randn(m - 100, k, generator=gen, device="cuda")
+    w_q = torch.full((n, k), 127, dtype=torch.int8, device="cuda")
+    w_q[1::2] = -127
+    w_q[256:] = torch.randint(-1, 2, (n - 256, k), generator=gen, device="cuda").to(torch.int8)
+    w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-6 + 1e-7
+    _k8_and_k7_bitwise(x.to(torch.bfloat16), w_q, w_scale, None, out_dtype)
+
+
+@pytest.mark.parametrize("k,form", [(768, "RESIDENT"), (896, "RESIDENT"), (912, "STREAMED"),
+                                    (3072, "STREAMED")])
+def test_each_form_forced_by_its_shape(gen, k, form):
+    """The plan picks the form from K alone (resident while 128 rows of K
+    fit beside two stages): each form runs bitwise, at M = 8,192 with N
+    split among blocks to fill the card."""
+    from arxiv_rag_tpu_torch.ops import w8a8
+
+    dev = torch.device("cuda")
+    p = w8a8._device_plan(8192, 768, k, True, dev)
+    assert p.form == getattr(w8a8, form)
+    assert p.blocks >= torch.cuda.get_device_properties(dev).multi_processor_count
+    x, w_q, w_scale, bias = _w8a8_operands(8192, k, 768, gen, torch.bfloat16)
+    _k8_and_k7_bitwise(x, w_q, w_scale, bias.to(torch.bfloat16), torch.bfloat16)
 
 
 def test_k7_dequant_rounds_once_at_a_float64_tie(gen):
