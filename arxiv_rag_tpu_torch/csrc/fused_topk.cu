@@ -2,8 +2,9 @@
 // against a device-resident index and keep a per-query top-k, without
 // ever writing the [Q, N] score matrix to device memory.
 //
-// Replaces the TPU kernel arxiv_rag_tpu/ops/pallas_topk.py::_topk_kernel
-// in all the forms the serving paths run:
+// Replaces the TPU kernels arxiv_rag_tpu/ops/pallas_topk.py::_topk_kernel
+// and arxiv_rag_tpu/ops/pallas_ivf.py::_ivf_kernel in all the forms the
+// serving paths run:
 //   K1  plain scan (fused_topk): f32 or bf16 index, queries rounded to the
 //       index dtype, fp32 accumulation (f32: fp32-accurate 3xTF32 products
 //       on the tensor cores, never a single TF32 pass, as the reference's
@@ -20,17 +21,18 @@
 //       fused_topk_int8_masked): a row counts for a query only where
 //       (row_mask & query_mask) != 0; the others never become candidates
 //       (they score -inf in the reference, :217-222).
-//   K5  the block-table scan of arxiv_rag_tpu/ops/pallas_ivf.py::_ivf_kernel:
-//       each tile of 8 queries scans only the blocks listed in its row of
-//       a [tiles, width] table (IVF, cluster-pruned); ids are global ids
-//       of the IVF-ordered index. Queries arrive f32 and are rounded to
-//       bf16 here for a bf16 or int8 index (pallas_topk.py:119-122).
+//   K5  the block-table scan (pallas_ivf.py::_ivf_kernel): each tile of 8
+//       or 16 queries scans only the blocks listed in its row of a
+//       [tiles, width] table (IVF, cluster-pruned); ids are global ids of
+//       the IVF-ordered index. f32, bf16 or int8 (scored as K3) indexes,
+//       masked or not; queries arrive f32 and are rounded to bf16 for a
+//       bf16 or int8 index (pallas_topk.py:119-122).
 //   K6  the same scan under a table planned on the device
-//       (pallas_ivf.py::ivf_topk_device); its dead visits are skipped.
+//       (pallas_ivf.py::ivf_topk_device); its dead visits load nothing.
 // All keep the reference's total order: score descending, then row id
 // ascending (lax.top_k's lowest-index-wins; a block table is sorted
 // ascending, so its earlier-visit-wins order is the same). Rows with
-// id >= n_valid are never read. Empty result slots hold (-inf, -1).
+// id >= n_valid are never counted. Empty result slots hold (-inf, -1).
 //
 // Design. The TPU kernel carries one running top-k in scratch across a
 // grid that runs in order. Hopper blocks run in parallel and share
@@ -41,15 +43,19 @@
 //          (a k-way merge in the same total order, so it is lossless) and
 //          applies the s8s8 query scale.
 // The kernels allocate nothing and launch on the caller's stream. There
-// are two scans; the wrapper chooses by shape alone, flat or block table
-// (ops/fused_topk.py::scan_route):
+// are two scans, both on the tensor cores (wgmma fed by TMA through an
+// mbarrier ring, one producer warp); the wrapper chooses by shape alone,
+// flat or block table (ops/fused_topk.py::scan_route). Their entries are
+// 64-bit keys whose unsigned order is (score desc, id asc) (tc_key), so
+// the lists do not depend on the order in which rows arrive, and ties
+// keep the reference's lowest-id rule.
 //
 //   tc_scan_kernel<KIND, KCAP, NC>: every flat scan, masked or not, of
-//     an f32, bf16 or int8 index (K1 f32, K1 bf16, K2, K3, K4), on the
-//     tensor cores. The four kinds share one geometry: the products read
-//     one 128-byte swizzle span of each row per ring slice (64 bf16, 32
-//     f32 or 128 int8 columns), a row tile 16 KB, a query tile 8 KB, and
-//     each wgmma k-step takes 32 bytes of the span:
+//     an f32, bf16 or int8 index (K1 f32, K1 bf16, K2, K3, K4). The four
+//     kinds share one geometry: the products read one 128-byte swizzle
+//     span of each row per ring slice (64 bf16, 32 f32 or 128 int8
+//     columns), a row tile 16 KB, a query tile 8 KB, and each wgmma
+//     k-step takes 32 bytes of the span:
 //       bf16  wgmma.m64n128k16 bf16 x bf16 -> fp32;
 //       f32   3xTF32 (the note at tf32_head): each operand split into a
 //             TF32 head and a TF32 tail, and per k-step three
@@ -95,35 +101,54 @@
 //     skipped whole);
 //     then each lane offers its largest marked entry and the quad merges
 //     the four offers into the query's sorted list in shared memory by
-//     rank, until no lane's largest beats the k-th. Entries are 64-bit
-//     keys whose unsigned order is (score desc, id asc), so the lists do
-//     not depend on the order in which rows arrive, and ties keep the
-//     reference's lowest-id rule. Template KCAP (16 or 128) is the list
-//     capacity: k <= 16 runs two consumer warpgroups, k <= 128 one (its
-//     lists fill the shared memory the second would take). Each
-//     (split, warpgroup) writes one list per query.
+//     rank, until no lane's largest beats the k-th. Template KCAP (16 or
+//     128) is the list capacity: k <= 16 runs two consumer warpgroups,
+//     k <= 128 one (its lists fill the shared memory the second would
+//     take). Each (split, warpgroup) writes one list per query.
 //     Grid (query tiles, splits): one block per SM (its shared memory
 //     holds one), the query tiles of a split launched side by side, so
 //     at Q <= 64 the index is read from HBM once and at Q = 512 its eight
 //     query tiles read each row tile within a short window, the later
 //     ones from L2.
-//   scan_kernel: every block table (K5, K6; an f32, bf16 or int8 index,
-//     int8 scored with the row kind), on the CUDA cores. Grid (query
-//     tiles of QT, splits). QT is 8 or 16 (the reference's ivf_q_block,
-//     8 by default), a template parameter. A split walks every
-//     splits-th entry of its tile's table row, so the dead visits that a
-//     device plan sorts to the end of a row spread over all splits. A
-//     visit's rows are clipped at n_valid before anything is loaded: a
-//     dead visit (all of its rows past n_valid, by the table contract)
-//     costs one loop step. A block stages its queries in shared memory,
-//     streams rows in tiles of 512 (each 64-byte slice of the tile loaded
-//     coalesced into padded shared rows), and each thread accumulates 2
-//     rows x QT queries in registers (fp32 FMA). Rows beating a
-//     query's current k-th score are appended to a per-query candidate
-//     list; one warp per query then merges the candidates into its sorted
-//     running top-k by computing each element's rank in the union (the
-//     order is total and ids are unique, so ranks are a permutation: a
-//     table must not list a block twice).
+//
+//   tc_table_kernel<KIND, QB, KCAP>: every block table (K5, K6; f32 as
+//     3xTF32, bf16, or int8 as the row kind, masked or not). A tile has
+//     QB = 8 or 16 queries (the reference's ivf_q_block), too few for
+//     wgmma's M of 64, so the roles turn round: the rows are A (M), two
+//     m64 halves of a 128-row slice, and the tile's queries are B (N =
+//     QB): wgmma.m64n{8,16}k16 bf16 or three m64n{8,16}k8 tf32 products
+//     per k-step (f32, the split as above), with the kinds' slices,
+//     swizzle and k-steps. The row kind takes A from registers: each
+//     lane reads 16 contiguous int8 bytes of each of its 4 fragment rows
+//     straight from the TMA slice and widens them (widen4) into its A
+//     fragments, the queries' columns permuted on the host to match
+//     (tb_widen_a), so no widened copy is written, fenced or waited for.
+//     A thread's accumulators are 4 or 8 fp32 per half. The work of a tile is its
+//     list of items, (real visit, 128-row slice of its block), in table
+//     order; the real visits come first in a row (the planners sort the
+//     dead block, the largest id, to the end), so the kernel counts them
+//     and divides the items evenly over its splits (tb_item_row, walked
+//     by the producer and the consumers alike): a visit spreads over
+//     many SMs, and a dead visit never reaches the ring. The tensor map
+//     ends at n_valid (a ragged last block arrives zero-filled, dropped
+//     by id); a slice that overhangs its block's end (block_rows not a
+//     multiple of 128) reads the next block's rows, dropped by position.
+//     One consumer warpgroup and one producer warp a block, two blocks
+//     an SM (row at QB = 8: three; at 16 its shared memory fits two, and
+//     a cap of three blocks' registers would spill); the tile's query slice (1-2 KB; f32 heads and
+//     tails 2-4 KB) rides each ring stage beside the row slice, so any D
+//     fits in the same shared memory (at D = 768 as fast as queries held
+//     in shared memory: tb_variants.py, PERF.md). Epilogue: the fragment spreads one query's 128 scores
+//     over 8 lanes of each of the 4 warps, so the warpgroup stages them
+//     in shared memory as [query][row] (4-8 KB), then warp w takes
+//     queries w, w + 4, ...: a lane holds 4 of the 128 rows, offers the
+//     ones that count (in the block, below n_valid, mask) and beat the
+//     query's k-th key, and the warp merges the offers, packed, into the
+//     query's sorted list by rank (warp_merge). Each (tile, split) writes
+//     one list per query. plan_table (ops/fused_topk.py) gives a tile
+//     enough splits to fill the card, and about 64 items each beyond
+//     that: fewer splits repeat less of the per-split start (an empty
+//     list takes every offer), more spread unequal tiles over the SMs.
 //
 // Bound at the serving shapes (N = 2,000,000, D = 768; H100 SXM data
 // sheet: 3.35 TB/s, 989 TFLOP/s bf16, 1979 TOP/s int8, 495 TFLOP/s
@@ -136,19 +161,26 @@
 //   K2 and K3 read 1.54 GB: 0.46 ms; K2's products at Q = 512 need
 //   0.79 ms of int8 tensor-core time, K3's (bf16) 1.59 ms. K4 adds 8 MB
 //   of row masks.
-//   K5/K6 read only the probed blocks: at nprobe 8 of 4096 clusters a
-//   tile of 8 queries touches a few dozen 1024-row blocks, tens of MB.
+//   K5/K6 are bound by bytes: the rows of their visits. An m64n8k16
+//   product does 8,192 multiply-adds on 2 KB of rows, 8 operations a
+//   byte, where the card needs ~295 a byte before its bf16 tensor cores
+//   and not its memory are the limit. At nprobe 8 of 4096 clusters
+//   with 1024-row blocks, a tile of 8 queries visits ~93 blocks (140 MB
+//   of bf16 rows); each distinct block read once would be less, where
+//   tiles share blocks, but a tile-major scan reads every visit.
 // What the designs do about it: tc_scan_kernel streams the index once
 // per query tile at the tensor cores' rate and keeps its scores in
 // registers; what is left between it and its bound is its epilogue (the
 // marking and merging run between one tile's products and the next)
 // and, for f32 and row, the split or widening of each row slice in
 // shared memory (every query tile does it again; the index stays one
-// copy in its own type).
-// scan_kernel runs on the CUDA cores, so at large Q it is bound by
-// CUDA-core arithmetic and by re-reading the index once per 16 queries;
-// masked rows are still scored (as on the TPU). Measured times are in
-// PERF.md.
+// copy in its own type). tc_table_kernel keeps bytes in flight (a 4-6
+// stage ring in each of two or three blocks an SM), spreads each tile's
+// items over every SM, and keeps its consumer's path per slice short:
+// no barrier for bf16, none and no shared-memory widening for row, and
+// one merge per query and slice, of its packed offers. What is left
+// between it and the visit floor is that path (row: loads, widening,
+// products and selection in turn on one warpgroup). Measured times are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -159,11 +191,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 2 * kThreads;  // 2 rows per thread
 constexpr int kKMax = 128;
-constexpr int kStageBytes = 64;                // row bytes per stage
-constexpr int kRowStride = kStageBytes + 16;   // conflict-free 16-B reads
 constexpr int kMergeThreads = 128;
 
 enum Kind { kF32 = 0, kBF16 = 1, kS8 = 2, kS8Row = 3 };
@@ -180,234 +208,6 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   if (ai < 0) return false;
   if (bi < 0) return true;
   return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ void unpack(const uint4& w, float (&out)[4],
-                                       std::integral_constant<int, kF32>) {
-  out[0] = __uint_as_float(w.x);
-  out[1] = __uint_as_float(w.y);
-  out[2] = __uint_as_float(w.z);
-  out[3] = __uint_as_float(w.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& w, float (&out)[8],
-                                       std::integral_constant<int, kBF16>) {
-  const unsigned int words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-
-// int8 values are exact in fp32 (and in bf16, as the TPU's MXU feed).
-__device__ __forceinline__ void unpack(const uint4& w, float (&out)[16],
-                                       std::integral_constant<int, kS8Row>) {
-  const unsigned int words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      out[4 * i + b] = static_cast<float>(static_cast<signed char>(words[i] >> (8 * b)));
-}
-
-// Merge c candidates into one query's sorted running top-k (one warp).
-__device__ void merge_warp(float* rv, int* ri, const float* cv, const int* ci,
-                           int c, int k, float* nv, int* ni, int lane) {
-  for (int i = lane; i < k; i += 32) {
-    const float v = rv[i];
-    const int id = ri[i];
-    int rank = i;
-    for (int j = 0; j < c; ++j) rank += beats(cv[j], ci[j], v, id);
-    if (rank < k) {
-      nv[rank] = v;
-      ni[rank] = id;
-    }
-  }
-  for (int j = lane; j < c; j += 32) {
-    const float v = cv[j];
-    const int id = ci[j];
-    // the running entries that beat it are a prefix of the sorted list
-    int lo = 0, hi = k;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (beats(rv[mid], ri[mid], v, id)) lo = mid + 1; else hi = mid;
-    }
-    int rank = lo;
-    for (int t = 0; t < c; ++t) rank += beats(cv[t], ci[t], v, id);
-    if (rank < k) {
-      nv[rank] = v;
-      ni[rank] = id;
-    }
-  }
-  __syncwarp();
-  for (int i = lane; i < k; i += 32) {
-    rv[i] = nv[i];
-    ri[i] = ni[i];
-  }
-  __syncwarp();
-}
-
-struct ScanArgs {
-  const unsigned char* x;   // [rows, d] index values
-  const float* scales;      // [rows] row scales (int8 row kind)
-  const int* row_masks;     // [rows] category bits, or null (no filter)
-  const int* qmask;         // [nq] query bits (with row_masks)
-  const float* q;           // [nq, d] f32 queries
-  long long n_valid;        // rows at or past this id are never read
-  int d, nq, k;
-  const int* blkids;        // [tiles, width] block ids
-  int width, block_rows;
-  float* cand_vals;         // [splits, nq, k]
-  int* cand_ids;
-};
-
-// One block of 16 queries fills an SM's shared memory (188 KB at D=768),
-// so its registers may use the whole SM: saying so (min blocks 1) let
-// nvcc give the scan up to 128 registers instead of 80 (PERF.md).
-// An 8-query block (112 KB) fits twice per SM, and keeps that room.
-template <int KIND, int QT>
-__global__ void __launch_bounds__(kThreads, 16 / QT) scan_kernel(const ScanArgs a) {
-  constexpr int kElem = elem_bytes(KIND);
-  constexpr int kVec = 16 / kElem;  // index elements per 16-byte load
-  const int d = a.d, nq = a.nq, k = a.k;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qsm = reinterpret_cast<float*>(smem);
-  unsigned char* tile = smem + QT * d * sizeof(float);
-  float* cand_v = reinterpret_cast<float*>(tile + kTileRows * kRowStride);
-  int* cand_i = reinterpret_cast<int*>(cand_v + QT * kTileRows);
-  float* run_v = reinterpret_cast<float*>(cand_i + QT * kTileRows);
-  int* run_i = reinterpret_cast<int*>(run_v + QT * kKMax);
-  float* new_v = reinterpret_cast<float*>(run_i + QT * kKMax);
-  int* new_i = reinterpret_cast<int*>(new_v + QT * kKMax);
-  int* cnt = new_i + QT * kKMax;
-  int* qm = cnt + QT;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * QT;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const long long row_bytes = static_cast<long long>(d) * kElem;
-  const bool masked = a.row_masks != nullptr;
-
-  // queries in fp32, rounded to bf16 first for a bf16 or int8-row index
-  for (int i = tid; i < QT * d; i += kThreads) {
-    const int qi = i / d;
-    const long long src = static_cast<long long>(q0 + qi) * d + (i - qi * d);
-    float v = q0 + qi < nq ? a.q[src] : 0.f;
-    if constexpr (KIND == kBF16 || KIND == kS8Row) v = __bfloat162float(__float2bfloat16_rn(v));
-    qsm[i] = v;
-  }
-  for (int i = tid; i < QT * kKMax; i += kThreads) {
-    run_v[i] = neg_inf();
-    run_i[i] = -1;
-  }
-  if (tid < QT) {
-    cnt[tid] = 0;
-    qm[tid] = masked && q0 + tid < nq ? a.qmask[q0 + tid] : 0;
-  }
-
-  for (int visit = split; visit < a.width; visit += splits) {
-    const int blk = a.blkids[static_cast<long long>(blockIdx.x) * a.width + visit];
-    if (blk < 0) continue;
-    const long long seg_begin = static_cast<long long>(blk) * a.block_rows;
-    const long long seg_end = min(seg_begin + a.block_rows, a.n_valid);
-    for (long long t0 = seg_begin; t0 < seg_end; t0 += kTileRows) {
-      float acc[2][QT];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int qi = 0; qi < QT; ++qi) acc[r][qi] = 0;
-
-      for (long long b0 = 0; b0 < row_bytes; b0 += kStageBytes) {
-        __syncthreads();  // the previous stage (and merge) are done
-        for (int v = tid; v < kTileRows * (kStageBytes / 16); v += kThreads) {
-          const int r = v / (kStageBytes / 16);
-          const int part = v % (kStageBytes / 16);
-          const long long row = t0 + r;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (row < seg_end)
-            val = __ldg(reinterpret_cast<const uint4*>(a.x + row * row_bytes + b0 + part * 16));
-          *reinterpret_cast<uint4*>(tile + r * kRowStride + part * 16) = val;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int part = 0; part < kStageBytes / 16; ++part) {
-          const uint4 xa4 = *reinterpret_cast<const uint4*>(tile + tid * kRowStride + part * 16);
-          const uint4 xb4 =
-              *reinterpret_cast<const uint4*>(tile + (tid + kThreads) * kRowStride + part * 16);
-          const int e0 = static_cast<int>((b0 + part * 16) / kElem);  // element offset
-          float xa[kVec], xb[kVec];
-          unpack(xa4, xa, std::integral_constant<int, KIND>());
-          unpack(xb4, xb, std::integral_constant<int, KIND>());
-#pragma unroll
-          for (int qi = 0; qi < QT; ++qi) {
-            const float4* qp = reinterpret_cast<const float4*>(qsm + qi * d + e0);
-#pragma unroll
-            for (int j = 0; j < kVec / 4; ++j) {
-              const float4 w = qp[j];
-              acc[0][qi] = fmaf(xa[4 * j], w.x, acc[0][qi]);
-              acc[0][qi] = fmaf(xa[4 * j + 1], w.y, acc[0][qi]);
-              acc[0][qi] = fmaf(xa[4 * j + 2], w.z, acc[0][qi]);
-              acc[0][qi] = fmaf(xa[4 * j + 3], w.w, acc[0][qi]);
-              acc[1][qi] = fmaf(xb[4 * j], w.x, acc[1][qi]);
-              acc[1][qi] = fmaf(xb[4 * j + 1], w.y, acc[1][qi]);
-              acc[1][qi] = fmaf(xb[4 * j + 2], w.z, acc[1][qi]);
-              acc[1][qi] = fmaf(xb[4 * j + 3], w.w, acc[1][qi]);
-            }
-          }
-        }
-      }
-
-      // rows beating a query's current k-th entry become its candidates;
-      // filtered-out rows never do (the reference scores them -inf)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const long long row = t0 + tid + r * kThreads;
-        if (row < seg_end) {
-          float scale = 1.f;
-          if constexpr (KIND == kS8Row) scale = a.scales[row];
-          const int rm = masked ? a.row_masks[row] : 0;
-#pragma unroll
-          for (int qi = 0; qi < QT; ++qi) {
-            if (q0 + qi < nq && (!masked || (rm & qm[qi]) != 0)) {
-              float s = acc[r][qi];
-              if constexpr (KIND == kS8Row) s *= scale;  // one rounded product, no add after it
-              if (s > run_v[qi * kKMax + k - 1]) {
-                const int slot = atomicAdd(&cnt[qi], 1);
-                cand_v[qi * kTileRows + slot] = s;
-                cand_i[qi * kTileRows + slot] = static_cast<int>(row);
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();
-      for (int qi = warp; qi < QT; qi += kThreads / 32) {
-        const int c = cnt[qi];
-        if (c > 0)
-          merge_warp(run_v + qi * kKMax, run_i + qi * kKMax, cand_v + qi * kTileRows,
-                     cand_i + qi * kTileRows, c, k, new_v + qi * kKMax, new_i + qi * kKMax,
-                     lane);
-      }
-      __syncthreads();
-      if (tid < QT) cnt[tid] = 0;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < QT * k; i += kThreads) {
-    const int qi = i / k;
-    const int j = i - qi * k;
-    if (q0 + qi < nq) {
-      const long long o = (static_cast<long long>(split) * nq + q0 + qi) * k + j;
-      a.cand_vals[o] = run_v[qi * kKMax + j];
-      a.cand_ids[o] = run_i[qi * kKMax + j];
-    }
-  }
 }
 
 // k-way merge of each query's per-split lists (one block per query).
@@ -1100,6 +900,495 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   }
 }
 
+// -- the block-table scan on the tensor cores (K5, K6) -------------------------
+//
+// (tc_table_kernel in the note at the head of this file.)
+
+constexpr int kTbRows = 128;                 // rows per work item: two m64 products
+constexpr int kTbStride = kTbRows + 4;       // a staged query's scores, padded (tb_stage)
+
+// Ring depth: a bf16 stage holds a 16 KB row slice, a row stage 8 KB
+// (its int8 slice, widened in registers; at QB = 8 three blocks share
+// an SM), an f32 stage 32 KB (heads and tails), each with the tile's
+// query slice: 128-144 KB of row loads in flight an SM (f32: 128 KB
+// held, fewer in flight). Four row blocks an SM (registers capped at
+// 96: spills) timed no faster (PERF.md).
+__host__ __device__ constexpr int tb_stages(int kind) {
+  return kind == kF32 ? 2 : kind == kS8Row ? 6 : 4;
+}
+
+// One query slice: QB rows of 128 bytes; f32 the heads, then the tails.
+__host__ __device__ constexpr int tb_qtile(int kind, int qb) {
+  return (kind == kF32 ? 2 : 1) * qb * kTcSpan;
+}
+
+// Where a stage's query slice starts: after the row slice (f32: and its
+// tails; row: the int8 slice).
+__host__ __device__ constexpr int tb_stage_q(int kind) {
+  return kind == kF32 ? 2 * kTcXTileBytes : kind == kS8Row ? kTcXTileBytes / 2 : kTcXTileBytes;
+}
+
+__host__ __device__ constexpr int tb_stage_bytes(int kind, int qb) {
+  return tb_stage_q(kind) + tb_qtile(kind, qb);
+}
+
+// What TMA brings into a stage: the row slice (the row kind's int8 half
+// span) and the query slice.
+__host__ __device__ constexpr int tb_stage_tx(int kind, int qb) {
+  return (kind == kS8Row ? kTcXTileBytes / 2 : kTcXTileBytes) + tb_qtile(kind, qb);
+}
+
+// Shared memory a block takes, whatever D.
+__host__ __device__ constexpr size_t tb_smem_bytes(int kind, int qb, int kcap) {
+  return 1024 /* alignment slack */ +
+         static_cast<size_t>(tb_stages(kind)) * tb_stage_bytes(kind, qb) +
+         sizeof(float) * qb * kTbStride +           // staged scores
+         sizeof(uint64_t) * qb * (kcap + 1) +       // lists
+         sizeof(uint64_t) * 4 * 128 +               // each warp's merge candidates
+         sizeof(uint64_t) * 2 * tb_stages(kind) +   // barriers
+         16;                                        // the tile's span
+}
+
+struct TbArgs {
+  const float* scales;   // [rows] row scales (row), or null
+  const int* row_masks;  // [rows] category bits, or null (no filter)
+  const int* qmask;      // [nq] query bits (with row_masks)
+  const int* table;      // [tiles, width] block ids
+  long long n_valid;     // rows at or past this id never count
+  int d, nq, k, width, block_rows;
+  float* cand_vals;      // [splits, nq, k]
+  int* cand_ids;
+};
+
+// The work of a tile: item i is row slice i % per_visit (128 rows from
+// the block's start) of the tile's table entry i / per_visit. Returns the
+// slice's first row, or -1 where the item loads nothing: a dead visit (a
+// block that starts at or past n_valid, or a negative id) or a slice
+// wholly past n_valid. The producer and the consumers walk the items
+// through this one function, so they agree on every stage.
+__device__ __forceinline__ long long tb_item_row(const TbArgs& a, const int* trow, int item,
+                                                 int per_visit) {
+  const int v = item / per_visit;
+  const int blk = __ldg(trow + v);
+  const long long r0 = static_cast<long long>(blk) * a.block_rows +
+                       static_cast<long long>(item - v * per_visit) * kTbRows;
+  return blk >= 0 && r0 < a.n_valid ? r0 : -1;
+}
+
+// m64nNk16 bf16 and m64nNk8 tf32 products for N = QB = 8 or 16 queries:
+// N / 2 fp32 accumulators a thread.
+template <int QB>
+__device__ __forceinline__ void tb_wgmma_bf16(float (&d)[QB / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (QB == 8) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3},"
+                 " %4, %5, p, 1, 1, 0, 0;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+                 " {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+template <int QB>
+__device__ __forceinline__ void tb_wgmma_tf32(float (&d)[QB / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (QB == 8) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3},"
+                 " %4, %5, p, 1, 1;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32"
+                 " {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+
+template <int QB>
+__device__ __forceinline__ void tb_fence(float (&d)[2][QB / 2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < QB / 2; ++i) asm volatile("" : "+f"(d[h][i])::"memory");
+}
+
+// One k-step (32 bytes of the slice) of an item's products: A the rows,
+// the two 64-row halves of the 128-row slice xt (8 KB apart), B the QB
+// queries of qt; f32: the rows' tails one tile on, the query tails one
+// query tile on, the cross terms before the heads' product.
+template <int KIND, int QB>
+__device__ __forceinline__ void tb_mma(float (&acc)[2][QB / 2], const unsigned char* xt,
+                                       const unsigned char* qt, int kk, int accumulate) {
+  const unsigned char* q = qt + kk * 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned char* x = xt + h * (kTcXTileBytes / 2) + kk * 32;
+    if constexpr (KIND == kF32) {
+      tb_wgmma_tf32<QB>(acc[h], sw128_desc(x), sw128_desc(q + QB * kTcSpan), accumulate);
+      tb_wgmma_tf32<QB>(acc[h], sw128_desc(x + kTcXTileBytes), sw128_desc(q), 1);
+      tb_wgmma_tf32<QB>(acc[h], sw128_desc(x), sw128_desc(q), 1);
+    } else {
+      tb_wgmma_bf16<QB>(acc[h], sw128_desc(x), sw128_desc(q), accumulate);
+    }
+  }
+}
+
+// The row kind's A operand from registers: wgmma's m64nNk16 fragment
+// gives lane (g, t4) of warp wi, per k-step kk, rows 16wi + g and + 8 at
+// logical columns 16kk + 2t4 + {0, 1} and + {8, 9}. The lane reads 16
+// contiguous int8 bytes of each of its rows, at 16 t4: byte 4kk + j is
+// physical column 16t4 + 4kk + j, taken as logical column 16kk + 2t4 +
+// (j & 1) + 8 (j >> 1). The queries' columns are permuted the same way
+// (ops/fused_topk.py::table_queries), so the products pair as before;
+// each widen4 gives the (j = 0, 1) and (j = 2, 3) bf16 pairs.
+__device__ __forceinline__ void tb_widen_a(const uint4 (&raw)[2][2], uint32_t (&af)[2][4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t r0[4] = {raw[h][0].x, raw[h][0].y, raw[h][0].z, raw[h][0].w};
+    const uint32_t r8[4] = {raw[h][1].x, raw[h][1].y, raw[h][1].z, raw[h][1].w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint2 a = widen4(r0[kk]), b = widen4(r8[kk]);
+      af[h][kk][0] = a.x;  // row g, logical columns 2t4, 2t4 + 1
+      af[h][kk][1] = b.x;  // row g + 8
+      af[h][kk][2] = a.y;  // row g, logical columns 2t4 + 8, 2t4 + 9
+      af[h][kk][3] = b.y;  // row g + 8
+    }
+  }
+}
+
+// m64nNk16 bf16 with A from registers (the row kind).
+template <int QB>
+__device__ __forceinline__ void tb_wgmma_bf16_ra(float (&d)[QB / 2], const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  if constexpr (QB == 8) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3},"
+                 " {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+                 " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+// Merge the warp's candidate keys (up to 4 a lane, one for each of its
+// rows; 0: none; all distinct and distinct from the list's) into one
+// query's sorted list of k keys, in one pass: the candidates are packed
+// into buf (the warp's 128 keys of room) first, so that the counts below
+// run over them alone (after the first slices of a split, mostly one or
+// two); a candidate lands at the count of list keys (binary search) and
+// candidates above it, a list key moves down by the count of candidates
+// above it; all is read before anything is written, and keys that land
+// at k or past it drop out.
+__device__ __forceinline__ void warp_merge(uint64_t* list, int k, const uint64_t (&cand)[4],
+                                           uint64_t* buf, int lane) {
+  int n = 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const uint32_t offers = __ballot_sync(0xffffffffu, cand[m] != 0);
+    if (cand[m] != 0) buf[n + __popc(offers & ((1u << lane) - 1))] = cand[m];
+    n += __popc(offers);
+  }
+  __syncwarp();
+  int rank[4];
+  uint64_t moved[kKMax / 32];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    int lo = 0, hi = cand[m] != 0 ? k : 0;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (list[mid] > cand[m]) lo = mid + 1; else hi = mid;
+    }
+    rank[m] = lo;
+    const int e = lane + 32 * m;
+    moved[m] = e < k ? list[e] : 0;
+  }
+  int shift[kKMax / 32] = {0, 0, 0, 0};
+  for (int l = 0; l < n; ++l) {
+    const uint64_t b = buf[l];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      rank[m] += b > cand[m];
+      shift[m] += b > moved[m];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kKMax / 32; ++m) {
+    // an empty slot needs no move: its place stays empty or is taken
+    const int to = lane + 32 * m + shift[m];
+    if (moved[m] != 0 && to < k) list[to] = moved[m];
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    if (cand[m] != 0 && rank[m] < k) list[rank[m]] = cand[m];
+  __syncwarp();
+}
+
+// KIND: kBF16, kF32 (3xTF32) or kS8Row; QB: queries per tile (8 or 16,
+// the wgmma N); KCAP: list capacity (k <= KCAP). One consumer warpgroup
+// and one producer warp.
+template <int KIND, int QB, int KCAP>
+__global__ void __launch_bounds__(160, KIND == kS8Row && QB == 8 ? 3 : 2)
+    tc_table_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap qlo_map, const TbArgs a) {
+  constexpr int kStages = tb_stages(KIND);
+  constexpr int kCols = tc_cols(KIND);
+  constexpr int kRow = KCAP + 1;
+  constexpr int kStageBytes = tb_stage_bytes(KIND, QB);
+  constexpr int kMine = QB / 4;  // queries per consumer warp: wi, wi + 4, ...
+  extern __shared__ unsigned char tb_smem_raw[];
+  unsigned char* base = tb_smem_raw + ((1024 - (smem_u32(tb_smem_raw) & 1023)) & 1023);
+  const int n_slices = tc_slices(KIND, a.d);
+  unsigned char* xs = base;                                                   // [kStages]
+  float* scores = reinterpret_cast<float*>(xs + kStages * kStageBytes);       // [QB][kTbStride]
+  uint64_t* lists = reinterpret_cast<uint64_t*>(scores + QB * kTbStride);     // [QB][kRow]
+  uint64_t* cbuf = lists + QB * kRow;                                         // [4][128]
+  uint64_t* full = cbuf + 4 * 128;
+  uint64_t* empty = full + kStages;
+  int* span = reinterpret_cast<int*>(empty + kStages);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * QB;
+  const int split = blockIdx.y;
+  const int* trow = a.table + static_cast<long long>(blockIdx.x) * a.width;
+  const int per_visit = (a.block_rows + kTbRows - 1) / kTbRows;
+
+  if (tid == 0) {
+    *span = 0;
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the tile's entries up to its last real visit (the planners put the
+  // real visits first; dead ones inside the span cost one step each)
+  int last = 0;
+  for (int v = tid; v < a.width; v += 160) {
+    const int blk = __ldg(trow + v);
+    if (blk >= 0 && static_cast<long long>(blk) * a.block_rows < a.n_valid) last = v + 1;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  if (lane == 0 && last > 0) atomicMax(span, last);
+  __syncthreads();
+  // this split's share of the items, split evenly
+  const long long items = static_cast<long long>(*span) * per_visit;
+  const long long per_split = (items + gridDim.y - 1) / gridDim.y;
+  const int lo = static_cast<int>(min(items, split * per_split));
+  const int hi = static_cast<int>(min(items, lo + per_split));
+
+  if (warp == 4) {
+    // producer: each item's row slices, the tile's query slices beside them
+    if (lane == 0) {
+      constexpr int tx = tb_stage_tx(KIND, QB);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = lo; it < hi; ++it) {
+        const long long r0 = tb_item_row(a, trow, it, per_visit);
+        if (r0 < 0) continue;
+        for (int s = 0; s < n_slices; ++s) {
+          unsigned char* st = xs + stage * kStageBytes;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], tx);
+          tma_load_2d(st, &xmap, s * kCols, static_cast<int>(r0), &full[stage]);
+          tma_load_2d(st + tb_stage_q(KIND), &qmap, s * kCols, q0, &full[stage]);
+          if (KIND == kF32)
+            tma_load_2d(st + tb_stage_q(KIND) + QB * kTcSpan, &qlo_map, s * kCols, q0,
+                        &full[stage]);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp wi holds, of each 64-row half h of the slice, rows
+  // 64h + 16wi + g and + 8, queries 8i + 2t4 + {0, 1}; it selects and
+  // merges for queries wi, wi + 4, ...
+  const int wi = warp;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const bool masked = a.row_masks != nullptr;
+  const int k = a.k;
+  uint64_t kth[kMine];  // each of the warp's queries' k-th key (0: its list is not full)
+  int qm[kMine];
+  bool live[kMine];
+#pragma unroll
+  for (int j = 0; j < kMine; ++j) {
+    const int q = q0 + wi + 4 * j;
+    for (int e = lane; e < kRow; e += 32) lists[(wi + 4 * j) * kRow + e] = 0;
+    qm[j] = masked && q < a.nq ? a.qmask[q] : 0;
+    live[j] = q < a.nq && (!masked || qm[j] != 0);  // a mask-0 query matches nothing
+    kth[j] = 0;
+  }
+  __syncwarp();
+
+  float acc[2][QB / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < QB / 2; ++i) acc[h][i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = lo; it < hi; ++it) {
+    const long long r0 = tb_item_row(a, trow, it, per_visit);
+    if (r0 < 0) continue;
+    // this lane's rows of the selection, r0 + lane + 32m: whether each
+    // counts (inside its block: a slice that overhangs the block's end
+    // reads the next block's rows, which this visit did not list; below
+    // n_valid), its scale and its mask, loaded before the products
+    const int pos0 = (it % per_visit) * kTbRows;
+    bool ok[4];
+    float rs[4];
+    int rm[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int p = lane + 32 * m;
+      ok[m] = pos0 + p < a.block_rows && r0 + p < a.n_valid;
+      rs[m] = KIND == kS8Row && ok[m] ? __ldg(a.scales + r0 + p) : 1.f;
+      rm[m] = masked && ok[m] ? __ldg(a.row_masks + r0 + p) : 0;
+    }
+    // one slice's products stay in flight while the next slice's wait
+    int prev = -1;
+    for (int s = 0; s < n_slices; ++s) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* xt = xs + stage * kStageBytes;
+      const unsigned char* qt = xt + tb_stage_q(KIND);
+      if constexpr (KIND == kS8Row) {
+        // the A fragments straight from the int8 slice: this lane's 16
+        // bytes of each of its four rows, the previous slice's products
+        // done meanwhile (their A registers are then free, and their
+        // stage, whose query slice they read, is released), then widened
+        // in registers and multiplied
+        uint4 raw[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            raw[h][j] = *reinterpret_cast<const uint4*>(
+                xt + (64 * h + 16 * wi + g + 8 * j) * (kTcSpan / 2) + 16 * t4);
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        tb_fence<QB>(acc);
+        __syncwarp();
+        if (lane == 0 && prev >= 0) mbar_arrive(&empty[prev]);
+        uint32_t af[2][4][4];
+        tb_widen_a(raw, af);
+        tb_fence<QB>(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tb_wgmma_bf16_ra<QB>(acc[h], af[h][kk], sw128_desc(qt + kk * 32), s | kk);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        tb_fence<QB>(acc);
+      } else {
+        if constexpr (KIND == kF32) {
+          // the rows' heads in place, tails beside them; fenced for the
+          // async proxy, then met
+          tf32_split_slice(xt, xt + kTcXTileBytes, tid);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          asm volatile("bar.sync 1, 128;" ::: "memory");
+        }
+        tb_fence<QB>(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) tb_mma<KIND, QB>(acc, xt, qt, kk, s | kk);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        tb_fence<QB>(acc);
+        if (prev >= 0) {
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+      }
+      prev = stage;
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    tb_fence<QB>(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // epilogue: stage the slice's scores by query (once the previous
+    // item's selection has read them), so that one warp holds all 128 of
+    // a query's; bank = 4q + row (mod 32) keeps the stores conflict-free
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < QB / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            scores[(8 * i + 2 * t4 + c) * kTbStride + 64 * h + 16 * wi + g + 8 * j] =
+                acc[h][4 * i + 2 * j + c];
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+    // each lane offers its rows that count and beat the query's k-th key
+    // (row: score = acc * row_scale, one rounded product), merged at once
+#pragma unroll
+    for (int j = 0; j < kMine; ++j) {
+      if (!live[j]) continue;  // warp-uniform
+      const int q = wi + 4 * j;
+      uint64_t key[4];
+      bool any = false;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        key[m] = 0;
+        if (ok[m] && (!masked || (rm[m] & qm[j]) != 0)) {
+          float sc = scores[q * kTbStride + lane + 32 * m];
+          if constexpr (KIND == kS8Row) sc = __fmul_rn(sc, rs[m]);
+          const uint64_t mine = tc_key(sc, static_cast<int>(r0 + lane + 32 * m));
+          if (mine > kth[j]) key[m] = mine, any = true;
+        }
+      }
+      if (__any_sync(0xffffffffu, any)) {
+        uint64_t* list = lists + q * kRow;
+        warp_merge(list, k, key, cbuf + 128 * wi, lane);
+        kth[j] = list[k - 1];
+      }
+    }
+  }
+
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kMine; ++j) {
+    const int q = wi + 4 * j;
+    if (q0 + q < a.nq) {
+      for (int e = lane; e < k; e += 32) {
+        const long long o = (static_cast<long long>(split) * a.nq + q0 + q) * k + e;
+        const uint64_t key = lists[q * kRow + e];
+        a.cand_vals[o] = tc_key_score(key);
+        a.cand_ids[o] = tc_key_id(key);
+      }
+    }
+  }
+}
+
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1182,29 +1471,47 @@ cudaError_t launch_tc_k(const CUtensorMap& xm, const CUtensorMap& qm, const CUte
                    : launch_tc<KIND, kKMax, tc_lists(kKMax)>(xm, qm, qlm, a, n_splits, s);
 }
 
-size_t scan_smem_bytes(int qt, int d) {
-  return qt * d * sizeof(float) + static_cast<size_t>(kTileRows) * kRowStride +
-         2 * sizeof(float) * qt * kTileRows + 4 * sizeof(float) * qt * kKMax +
-         2 * sizeof(int) * qt;
-}
+struct TbCall {
+  const CUtensorMap* xm;
+  const CUtensorMap* qm;
+  const CUtensorMap* qlm;
+  TbArgs a;
+  int n_splits;  // 0: write the blocks an SM holds to *blocks, launch nothing
+  int* blocks;
+  cudaStream_t stream;
+};
 
-template <int KIND, int QT>
-cudaError_t launch_scan(const ScanArgs& a, int n_splits, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(QT, a.d);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<KIND, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int KIND, int QB, int KCAP>
+cudaError_t tb_run(TbCall& c) {
+  constexpr size_t smem = tb_smem_bytes(KIND, QB, KCAP);
+  cudaError_t err = cudaFuncSetAttribute(tc_table_kernel<KIND, QB, KCAP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.nq + QT - 1) / QT, n_splits);
-  scan_kernel<KIND, QT><<<grid, kThreads, smem, stream>>>(a);
+  if (c.n_splits == 0)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(c.blocks, tc_table_kernel<KIND, QB, KCAP>,
+                                                         160, smem);
+  const dim3 grid((c.a.nq + QB - 1) / QB, c.n_splits);
+  tc_table_kernel<KIND, QB, KCAP><<<grid, 160, smem, c.stream>>>(*c.xm, *c.qm, *c.qlm, c.a);
   return cudaGetLastError();
 }
 
-template <int QT>
-cudaError_t launch_kind(int kind, const ScanArgs& a, int n_splits, cudaStream_t s) {
+template <int KIND, int QB>
+cudaError_t tb_run_k(TbCall& c) {
+  return c.a.k <= 16 ? tb_run<KIND, QB, 16>(c) : tb_run<KIND, QB, kKMax>(c);
+}
+
+template <int KIND>
+cudaError_t tb_run_qb(int qb, TbCall& c) {
+  return qb == 8 ? tb_run_k<KIND, 8>(c) : tb_run_k<KIND, 16>(c);
+}
+
+cudaError_t tb_dispatch(int kind, int qb, TbCall& c) {
+  if (qb != 8 && qb != 16) return cudaErrorInvalidValue;
   switch (kind) {
-    case kF32: return launch_scan<kF32, QT>(a, n_splits, s);
-    case kBF16: return launch_scan<kBF16, QT>(a, n_splits, s);
-    case kS8Row: return launch_scan<kS8Row, QT>(a, n_splits, s);
+    case kF32: return tb_run_qb<kF32>(qb, c);
+    case kBF16: return tb_run_qb<kBF16>(qb, c);
+    case kS8Row: return tb_run_qb<kS8Row>(qb, c);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1212,30 +1519,6 @@ cudaError_t launch_kind(int kind, const ScanArgs& a, int n_splits, cudaStream_t 
 }  // namespace
 
 extern "C" {
-
-// Shared memory one block-table scan block needs for query-tile height
-// qt and dimension d (the wrapper checks it against the card's limit).
-size_t arag_topk_scan_smem(int qt, int d) { return scan_smem_bytes(qt, d); }
-
-// The block-table scan: kind 0 f32, 1 bf16 or 3 int8 row variant; qt: 16
-// or 8 queries per block; q f32 [nq, d]; row_masks/qmask null for an
-// unfiltered scan; blkids [ceil(nq/qt), width] block ids (ascending, each
-// real block once), each covering block_rows rows, read by n_splits
-// splits. Writes [n_splits, nq, k] candidates. Returns the launch's
-// cudaError_t.
-int arag_topk_scan(int kind, int qt, const void* x, const float* scales, const int* row_masks,
-                   const int* qmask, const float* q, long long n_valid, int d, int nq, int k,
-                   const int* blkids, int width, int block_rows, int n_splits,
-                   float* cand_vals, int* cand_ids, void* stream) {
-  const ScanArgs a{static_cast<const unsigned char*>(x), scales, row_masks, qmask, q, n_valid,
-                   d, nq, k, blkids, width, block_rows, cand_vals, cand_ids};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qt) {
-    case 16: return static_cast<int>(launch_kind<16>(kind, a, n_splits, s));
-    case 8: return static_cast<int>(launch_kind<8>(kind, a, n_splits, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // The tensor-core scan of kind (0 f32, 1 bf16, 2 s8s8, 3 row): shared memory per
 // block on the current card (queries resident where they fit, else
@@ -1278,6 +1561,52 @@ int arag_topk_tc_scan(int kind, const void* x, const float* scales, const int* r
     case kS8: return static_cast<int>(launch_tc_k<kS8>(xm, qm, qlm, a, n_splits, s));
     default: return static_cast<int>(launch_tc_k<kS8Row>(xm, qm, qlm, a, n_splits, s));
   }
+}
+
+// The block-table scan of kind (0 f32, 1 bf16, 3 row) and query tile qb
+// (8 or 16): shared memory per block (any D), and the blocks one SM of
+// the current card holds (the occupancy calculator; a negative
+// cudaError_t on failure).
+size_t arag_topk_table_smem(int kind, int qb, int k) {
+  return tb_smem_bytes(kind, qb, k <= 16 ? 16 : kKMax);
+}
+
+int arag_topk_table_blocks(int kind, int qb, int k) {
+  int blocks = 0;
+  TbCall c{};
+  c.a.k = k;
+  c.blocks = &blocks;
+  const cudaError_t err = tb_dispatch(kind, qb, c);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Block-table scan on the tensor cores of an index x [>= n_valid, d] of
+// kind 0 (f32: 3xTF32; q the query heads, q_lo their tails), 1 (bf16;
+// bf16 queries q) or 3 (row: int8 x, bf16 queries q, fp32 row scales) —
+// d % 64 == 0, every operand 16-byte aligned. Tile t of qb queries scans
+// the blocks listed in table[t] ([ceil(nq / qb), width] int32, real
+// blocks first, each of block_rows rows), its (block, 128-row slice)
+// items divided evenly over n_splits; row_masks/qmask null for an
+// unfiltered scan. Writes [n_splits, nq, k] candidates for
+// arag_topk_merge. Returns the launch's cudaError_t.
+int arag_topk_table_scan(int kind, int qb, const void* x, const float* scales,
+                         const int* row_masks, const int* qmask, const void* q, const void* q_lo,
+                         long long n_valid, int d, int nq, int k, const int* table, int width,
+                         int block_rows, int n_splits, float* cand_vals, int* cand_ids,
+                         void* stream) {
+  if (n_splits < 1 || block_rows < 1 || (kind != kF32 && kind != kBF16 && kind != kS8Row))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, qm, qlm;
+  const int qkind = kind == kS8Row ? kBF16 : kind;  // the row kind's queries are bf16
+  cudaError_t err = tile_map(&xm, kind, x, n_valid > 0 ? n_valid : 1, d, kTbRows);
+  if (err == cudaSuccess) err = tile_map(&qm, qkind, q, nq, d, qb);
+  if (err == cudaSuccess) err = tile_map(&qlm, qkind, kind == kF32 ? q_lo : q, nq, d, qb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TbCall c{&xm, &qm, &qlm,
+           TbArgs{scales, row_masks, qmask, table, n_valid, d, nq, k, width, block_rows,
+                  cand_vals, cand_ids},
+           n_splits, nullptr, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(tb_dispatch(kind, qb, c));
 }
 
 // qscale may be null (no per-query scale). Returns the launch's cudaError_t.

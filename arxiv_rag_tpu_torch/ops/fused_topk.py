@@ -1,24 +1,29 @@
-"""Fused flat-scan top-k: the CUDA kernels K1–K4 and their plain versions.
+"""Fused top-k scans: the CUDA kernels K1–K6's scans and their plain versions.
 
 The port of ``arxiv_rag_tpu/ops/pallas_topk.py``: ``fused_topk`` :810
 (K1), ``fused_topk_int8`` :928 with its s8s8 default (K2) and its "row"
 variant (K3), and the masked forms ``fused_topk_masked`` :864 and
-``fused_topk_int8_masked`` :1011 (K4). The kernels are in
-``csrc/fused_topk.cu``; their design and bound are noted there.
-``scan_route`` chooses the kernel by kind, shape and mask alone, with
-no fallback:
+``fused_topk_int8_masked`` :1011 (K4); and the block-table scan of
+``arxiv_rag_tpu/ops/pallas_ivf.py`` (K5, K6), launched by ``ops/ivf.py``
+through ``scan_table``. The kernels are in ``csrc/fused_topk.cu``; their
+design and bound are noted there. ``scan_route`` chooses the kernel by
+kind, shape and mask alone, with no fallback; both run on the tensor
+cores (wgmma fed by TMA):
 
-- ``tc_scan_kernel`` (the tensor cores, wgmma fed by TMA): every flat
-  scan, masked (K4) or not, of an f32 (K1 f32, as 3×TF32: three TF32
-  products per term, fp32-accurate, never a single TF32 pass), bf16
-  (K1 bf16) or int8 index, s8s8 (K2, int8 wgmma) or "row" (K3: the
-  int8 rows widened to bf16 in shared memory, then bf16 wgmma). At the
-  serving shapes K1 bf16, K1 f32 and K3 are bound by their products at
-  large Q and by reading the index at small Q; K2 by reading the index.
-- ``scan_kernel`` (the CUDA cores): every block table, which the IVF
-  route (K5, K6) launches through ``scan_table`` (see ``ops/ivf.py``).
+- ``tc_scan_kernel``: every flat scan, masked (K4) or not, of an f32
+  (K1 f32, as 3×TF32: three TF32 products per term, fp32-accurate,
+  never a single TF32 pass), bf16 (K1 bf16) or int8 index, s8s8 (K2,
+  int8 wgmma) or "row" (K3: the int8 rows widened to bf16 in shared
+  memory, then bf16 wgmma). At the serving shapes K1 bf16, K1 f32 and
+  K3 are bound by their products at large Q and by reading the index at
+  small Q; K2 by reading the index.
+- ``tc_table_kernel``: every block table (K5, K6), f32, bf16 or row,
+  masked or not: the rows on wgmma's M, the tile's 8 or 16 queries on
+  its N. Bound by the bytes of its visits' rows; ``plan_table`` spreads
+  each tile's (visit, 128-row slice) items over enough splits to fill
+  the card.
 
-Contract, shared with the TPU kernel: values [Q,k] fp32 and ids [Q,k]
+Contract, shared with the TPU kernels: values [Q,k] fp32 and ids [Q,k]
 int32, k ≤ 128; scores ordered descending with the lowest row id first
 among equal scores; rows with id ≥ ``n_valid`` never appear; slots that
 no row fills hold (-inf, -1).
@@ -52,9 +57,11 @@ import torch
 from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 K_MAX = 128
-_QT = 16  # the larger query tile of the block-table scan (csrc/fused_topk.cu, template QT)
 TC_QUERIES = 64  # queries per tensor-core scan block (kTcQ, the wgmma M)
 TC_ROWS = 128  # rows per tensor-core scan tile (kTcRows, the wgmma N)
+TABLE_ROWS = 128  # rows per block-table work item (kTbRows: two m64 products)
+Q_BLOCKS = (8, 16)  # the block-table scan's query tiles (template QB, the wgmma N)
+TABLE_SPLIT_ITEMS = 64  # items a block-table split aims at, past one wave (plan_table)
 _KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
 _PLAIN_SCORE_ELEMS = 1 << 26  # plain versions score this many [q, row] pairs at a time
 
@@ -62,6 +69,8 @@ LAUNCHES = {"fused_topk": 0, "fused_topk_int8": 0, "fused_topk_int8_row": 0,
             "fused_topk_masked": 0, "ivf_topk": 0, "ivf_topk_device": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB: list[ctypes.CDLL] = []
+# (library handle, kind, q_block, list capacity, device) -> (SMs, blocks an SM)
+_TABLE_FIT: dict[tuple, tuple[int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -247,13 +256,15 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("fused_topk")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.arag_topk_scan.argtypes = [i32, i32, p, p, p, p, p, i64, i32, i32, i32,
-                                       p, i32, i32, i32, p, p, p]
-        lib.arag_topk_scan.restype = i32
         lib.arag_topk_merge.argtypes = [p, p, i32, i32, i32, p, p, p, p]
         lib.arag_topk_merge.restype = i32
-        lib.arag_topk_scan_smem.argtypes = [i32, i32]
-        lib.arag_topk_scan_smem.restype = ctypes.c_size_t
+        lib.arag_topk_table_scan.argtypes = [i32, i32, p, p, p, p, p, p, i64, i32, i32, i32,
+                                             p, i32, i32, i32, p, p, p]
+        lib.arag_topk_table_scan.restype = i32
+        lib.arag_topk_table_smem.argtypes = [i32, i32, i32]
+        lib.arag_topk_table_smem.restype = ctypes.c_size_t
+        lib.arag_topk_table_blocks.argtypes = [i32, i32, i32]
+        lib.arag_topk_table_blocks.restype = i32
         lib.arag_topk_tc_scan.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, i32, i32, i32,
                                           p, p, p]
         lib.arag_topk_tc_scan.restype = i32
@@ -286,10 +297,10 @@ def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
 
 
 def scan_route(kind: str, table: bool, masked: bool) -> str:
-    """The kernel a scan launches: ``"tc"`` (the tensor-core kernel) for
-    every flat scan, of any kind (f32, bf16, s8s8, row), masked or not;
-    ``"cuda_core"`` (``scan_kernel``) for every block table."""
-    return "cuda_core" if table else "tc"
+    """The kernel a scan launches: ``"tc"`` (``tc_scan_kernel``) for every
+    flat scan, of any kind (f32, bf16, s8s8, row), masked or not;
+    ``"tc_table"`` (``tc_table_kernel``) for every block table."""
+    return "tc_table" if table else "tc"
 
 
 def tc_queries(queries: torch.Tensor) -> torch.Tensor:
@@ -297,6 +308,19 @@ def tc_queries(queries: torch.Tensor) -> torch.Tensor:
     row index: fp32, then rounded to the nearest bf16 (ties to even), as
     ``round_queries`` rounds them."""
     return queries.to(torch.float32).to(torch.bfloat16).contiguous()
+
+
+def table_row_queries(q: torch.Tensor) -> torch.Tensor:
+    """The bf16 queries of a row-kind block-table scan, each 64-column
+    group's columns reordered as the kernel takes its rows' int8 bytes
+    (``csrc/fused_topk.cu::tb_widen_a``): logical column 16kk + 8hi +
+    2t4 + lo holds physical column 16t4 + 4kk + 2hi + lo, so each lane
+    reads 16 contiguous bytes of a row for its four k-steps. A reshape,
+    no index tensor: a permutation of the terms of every dot product."""
+    n, d = q.shape
+    if d % 64:
+        return q  # refused by the wrapper's checks
+    return q.reshape(n, d // 64, 4, 4, 2, 2).permute(0, 1, 3, 4, 2, 5).reshape(n, d).contiguous()
 
 
 def _tf32_head(v: torch.Tensor) -> torch.Tensor:
@@ -317,10 +341,17 @@ def tf32_split(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return head, _tf32_head(q - head).contiguous()
 
 
-def plan_splits(width: int, q_tiles: int, sm_count: int) -> int:
-    """Splits of a block table's rows: about four scan blocks per SM, at
-    most one per table entry."""
-    return max(1, min(width, -(-4 * sm_count // max(1, q_tiles))))
+def plan_table(width: int, tiles: int, per_visit: int, sm_count: int,
+               blocks_per_sm: int) -> int:
+    """Splits of each tile's block-table work, from shapes alone (the
+    table's contents stay on the device): at least one wave of blocks
+    over the card, more where a table row's ``width × per_visit`` items
+    (its width bounds its real visits) would give a split more than
+    ``TABLE_SPLIT_ITEMS``, so that the block scheduler evens out tiles
+    of unequal work; never more splits than items."""
+    items = max(1, width * per_visit)
+    fill = -(-max(1, sm_count * blocks_per_sm) // max(1, tiles))
+    return max(1, min(items, 65535, max(fill, -(-items // TABLE_SPLIT_ITEMS))))
 
 
 def _check_cuda(x: torch.Tensor, q: torch.Tensor) -> None:
@@ -349,50 +380,15 @@ def _check_qmask(query_mask: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError("query_mask must be int32 [Q] on the queries' device")
 
 
-def _launch(kind, qt, x, scales, row_masks, qmask, q, qscale, k, n_valid,
-            table=None, block_rows=0):
-    """The block-table scan on the CUDA cores (tile t of ``qt`` queries
-    scans the blocks listed in ``table[t]``, int32 [tiles, width]), then
-    the merge. A flat scan (no table) runs on the tensor cores and is
-    refused here."""
-    if scan_route(kind, table is not None, row_masks is not None) != "cuda_core":
-        raise ValueError(f"a flat {kind} scan runs on the tensor-core kernel")
-    _check_operands(x, q, scales, row_masks, qmask)
-    lib = _lib()
-    dev = x.device
-    d = x.shape[1]
-    nq = q.shape[0]
-    props = _check_smem(lib.arag_topk_scan_smem(qt, d), dev, d)
-    q_tiles = -(-nq // qt)
-    if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != q_tiles
-            or table.device != dev or not table.is_contiguous()):
-        raise ValueError(f"block table must be contiguous int32 [{q_tiles}, width] "
-                         f"on {dev}, got {table.dtype} {tuple(table.shape)}")
-    width = table.shape[1]
-    n_splits = plan_splits(width, q_tiles, props.multi_processor_count)
-    cand_v, cand_i = _scratch(n_splits, nq, k, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.arag_topk_scan(
-            _KIND[kind], qt, x.data_ptr(), _ptr(scales), _ptr(row_masks),
-            _ptr(qmask if row_masks is not None else None), q.data_ptr(), n_valid, d, nq, k,
-            _ptr(table), width, block_rows, n_splits,
-            cand_v.data_ptr(), cand_i.data_ptr(), stream,
-        )
-        _raise_on(lib, err, "fused top-k scan")
-        return _merge(lib, cand_v, cand_i, qscale, stream)
-
-
 # kind -> (index dtype, query dtype) of the tensor-core scan
 _TC_DTYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
               "s8s8": (torch.int8, torch.int8), "row": (torch.int8, torch.bfloat16)}
 
 
-def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
-    """A flat scan on the tensor cores, masked or not, then the merge of
-    its [splits × lists, Q, k] candidates (× the s8s8 query scale).
-    Queries ``q`` as the kind reads them: bf16 (bf16 and row); int8
-    (s8s8); the TF32 heads for f32, with ``q_lo`` their tails."""
+def _check_tc_operands(kind, x, scales, row_masks, qmask, q, q_lo) -> None:
+    """The operands a tensor-core scan of ``kind`` takes: its index and
+    query dtypes (``_TC_DTYPES``), row scales with an int8 index only,
+    query tails for f32 only."""
     _check_operands(x, q, scales, row_masks, qmask)
     x_dtype, q_dtype = _TC_DTYPES[kind]
     if x.dtype != x_dtype or q.dtype != q_dtype:
@@ -404,6 +400,14 @@ def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
             q_lo.shape != q.shape or q_lo.dtype != q.dtype or q_lo.device != q.device
             or not q_lo.is_contiguous()):
         raise ValueError("an f32 scan takes query tails shaped as the heads; no other does")
+
+
+def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
+    """A flat scan on the tensor cores, masked or not, then the merge of
+    its [splits × lists, Q, k] candidates (× the s8s8 query scale).
+    Queries ``q`` as the kind reads them: bf16 (bf16 and row); int8
+    (s8s8); the TF32 heads for f32, with ``q_lo`` their tails."""
+    _check_tc_operands(kind, x, scales, row_masks, qmask, q, q_lo)
     lib = _lib()
     dev = x.device
     d = x.shape[1]
@@ -424,6 +428,62 @@ def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
         return _merge(lib, cand_v, cand_i, qscale, stream)
 
 
+def _launch_table(kind, qb, x, scales, row_masks, qmask, q, q_lo, table, k, n_valid,
+                  block_rows):
+    """A block-table scan on the tensor cores (tile t of ``qb`` queries
+    scans the blocks listed in ``table[t]``, int32 [tiles, width]), then
+    the merge of its [splits, Q, k] candidates. Queries ``q`` as the kind
+    reads them: bf16 (bf16 and row); the TF32 heads for f32, with
+    ``q_lo`` their tails."""
+    if qb not in Q_BLOCKS:
+        raise ValueError(f"the block-table scan takes q_block 8 or 16, not {qb}")
+    if kind == "s8s8":
+        raise ValueError("the block-table scan scores an int8 index with the row kind, "
+                         "never s8s8 (as the reference's IVF scan)")
+    _check_tc_operands(kind, x, scales, row_masks, qmask, q, q_lo)
+    dev = x.device
+    nq = q.shape[0]
+    tiles = -(-nq // qb)
+    if (table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != tiles
+            or table.shape[1] < 1 or table.device != dev or not table.is_contiguous()):
+        raise ValueError(f"block table must be contiguous int32 [{tiles}, width >= 1] on "
+                         f"{dev}, got {table.dtype} {tuple(table.shape)} on {table.device}")
+    if not 1 <= block_rows < 2**31:
+        raise ValueError(f"block_rows must be positive, not {block_rows}")
+    lib = _lib()
+    d = x.shape[1]
+    with torch.cuda.device(dev):
+        sm_count, blocks = _table_fit(lib, _KIND[kind], qb, k, dev)
+        width = table.shape[1]
+        n_splits = plan_table(width, tiles, -(-block_rows // TABLE_ROWS), sm_count, blocks)
+        cand_v, cand_i = _scratch(n_splits, nq, k, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.arag_topk_table_scan(
+            _KIND[kind], qb, x.data_ptr(), _ptr(scales), _ptr(row_masks),
+            _ptr(qmask if row_masks is not None else None), q.data_ptr(), _ptr(q_lo),
+            n_valid, d, nq, k, table.data_ptr(), width, block_rows, n_splits,
+            cand_v.data_ptr(), cand_i.data_ptr(), stream,
+        )
+        _raise_on(lib, err, "block-table scan")
+        return _merge(lib, cand_v, cand_i, None, stream)
+
+
+def _table_fit(lib, kind: int, qb: int, k: int, dev) -> tuple[int, int]:
+    """(SMs, table-scan blocks an SM holds) on ``dev`` (the current
+    device) for the instantiation that runs ``k``: asked of the card once
+    per library, instantiation and device (the shared memory checked
+    against its limit, the occupancy calculator), then kept."""
+    key = (lib._handle, kind, qb, 16 if k <= 16 else K_MAX, dev)
+    if key not in _TABLE_FIT:
+        props = _check_smem(lib.arag_topk_table_smem(kind, qb, k), dev, None)
+        blocks = lib.arag_topk_table_blocks(kind, qb, k)
+        if blocks < 1:
+            _raise_on(lib, -blocks, "block-table scan (occupancy)")
+            raise ValueError("a block-table scan block fits no SM")
+        _TABLE_FIT[key] = (props.multi_processor_count, blocks)
+    return _TABLE_FIT[key]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -436,13 +496,15 @@ def _check_operands(x, q, scales, row_masks, qmask) -> None:
         _check_qmask(qmask, q)
 
 
-def _check_smem(smem: int, dev, d: int):
+def _check_smem(smem: int, dev, d: int | None):
     """The card's properties, after checking that a block of ``smem``
-    bytes of shared memory fits."""
+    bytes of shared memory fits (``d``: the D it was sized for, if it
+    depends on D)."""
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
     if smem > limit:
-        raise ValueError(f"D={d} needs {smem} bytes of shared memory per block; "
+        at = "" if d is None else f"D={d} "
+        raise ValueError(f"{at}needs {smem} bytes of shared memory per block; "
                          f"the card allows {limit}")
     return props
 
@@ -565,13 +627,23 @@ def scan_table(values: torch.Tensor, table: torch.Tensor, queries: torch.Tensor,
                query_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the block-table scan (the kernel of K5 and K6) on CUDA
     tensors: tile t of ``q_block`` queries scans the blocks listed in
-    ``table[t]``. Queries are fp32; the kernel rounds them to bf16 for a
-    bf16 or int8 index. An int8 index scores with the row variant."""
-    if q_block not in (8, _QT):
-        raise ValueError(f"the CUDA block-table scan takes q_block 8 or {_QT}, not {q_block}")
+    ``table[t]``. Queries are fp32, rounded to bf16 for a bf16 or int8
+    index, split for 3×TF32 for an f32 one. An int8 index scores with
+    the row variant."""
+    if q_block not in Q_BLOCKS:
+        raise ValueError(f"the block-table scan takes q_block 8 or 16, not {q_block}")
     kind = "row" if values.dtype == torch.int8 else _float_kind(values.dtype)
     if kind == "row":
         _check_int8(values, scales)
-    q = queries.to(torch.float32).contiguous()
-    return _launch(kind, q_block, values, scales, row_masks, query_mask, q, None, k,
-                   n_valid, table=table, block_rows=block_rows)
+    q_lo = None
+    if kind == "f32":
+        q, q_lo = tf32_split(queries)
+    else:
+        q = tc_queries(queries)
+        if kind == "row":
+            q = table_row_queries(q)
+    if q.shape[0] == 0:
+        _check_cuda(values, q)
+        return _empty(k, values.device)
+    return _launch_table(kind, q_block, values, scales, row_masks, query_mask, q, q_lo, table,
+                         k, n_valid, block_rows)

@@ -1,16 +1,19 @@
 """IVF (cluster-pruned) top-k: scan only the probed blocks (K5, K6).
 
-The port of ``arxiv_rag_tpu/ops/pallas_ivf.py``. The scan is the block-
-table kind of the CUDA kernel in ``csrc/fused_topk.cu`` (launched through
-``ops.fused_topk.scan_table``): each tile of ``q_block`` queries scans
-only the block ids in its row of a [tiles, width] table.
+The port of ``arxiv_rag_tpu/ops/pallas_ivf.py``. The scan is
+``tc_table_kernel`` in ``csrc/fused_topk.cu`` (tensor cores; launched
+through ``ops.fused_topk.scan_table``): each tile of ``q_block`` (8 or
+16) queries scans only the block ids in its row of a [tiles, width]
+table, its (visit, 128-row slice) items spread over the card.
 
 Table contract (the planners keep it): each row lists the tile's probed
 block ids ascending, each real block once, padded with the dead block
 id, whose rows all lie at ids ≥ ``n_valid`` (``pad_index_for_ivf``).
 Ascending ids make the reference's earlier-visit-wins tie order equal to
 the kernels' lowest-id-wins order, and unique ids are what the kernel's
-merge assumes; the plain version checks both.
+merge assumes; the plain version checks both. With the dead block the
+largest id, a row's real visits come first: the kernel divides the
+items up to the last real one among its splits.
 
 - ``ivf_topk`` / ``ivf_topk_int8`` / ``ivf_topk_masked`` /
   ``ivf_topk_int8_masked``: K5 on a host-planned table (:220, :266, :365,
@@ -104,6 +107,8 @@ def ivf_topk_plain(values, blkids, queries, k, *, n_valid, block_rows, q_block=8
                              "ascending")
         rows = (real[:, None] * block_rows + offs[None, :]).reshape(-1)
         rows = rows[rows < n_valid]
+        if rows.numel() == 0:  # only dead visits: the tile's slots stay (-inf, -1)
+            continue
         sl = slice(t * q_block, min((t + 1) * q_block, nq))
         v, i = ft.score_plain(
             values[rows].to(torch.float32), q[sl], k,

@@ -24,7 +24,11 @@ its first failure:
    index (k-means on the card, 4096 clusters) over a clustered corpus:
    K5 on host-planned tables, K6 on the device plan (no host sync)
    against its plain version and against K5, full probe against the
-   flat scan of the same IVF-ordered values; then the W8A8 matmul K7 and
+   flat scan of the same IVF-ordered values (both on the tensor-core
+   table kernel, the ptxas report of each instantiation; beside the
+   distinct-block bound the visit floor, every real visit's rows read
+   once, and the scan kernel's device time beside the event time); then
+   the W8A8 matmul K7 and
    its fused-quantization form K8 (one wgmma kernel, the ptxas report of
    each instantiation) at edge shapes and at the encoder's shapes,
    bitwise, with TOP/s, the share of the bound, K8 − K7 (the cost of the
@@ -474,9 +478,22 @@ def real_visits(table: torch.Tensor, dead: int) -> int:
     return int((table != dead).sum())
 
 
+def visit_floor_ms(table: torch.Tensor, dead: int, n_valid: int, dtype) -> float:
+    """Least time to read every real visit's rows once per visit (rows
+    below n_valid; int8 with its 4-byte scale) at the memory rate: the
+    floor of a scan that walks each tile's visits, as the table kernel
+    does, where ``ivf_bound`` reads each distinct block once."""
+    blocks = table[table != dead].to(torch.int64)
+    rows = int((torch.clamp(n_valid - blocks * IVF_BLOCK, max=IVF_BLOCK)).sum())
+    item = torch.empty((), dtype=dtype).element_size()
+    row_bytes = DIM * item + (4 if dtype == torch.int8 else 0)
+    return rows * row_bytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_ivf(gen, results) -> dict:
     """K5 and K6 on an IVF index built on the card over a clustered 2M
     corpus, in bf16 and int8 (the row variant, K3's scoring)."""
+    from arxiv_rag_tpu_torch.ab_scans import device_ms
     from arxiv_rag_tpu_torch.index.ivf import IVFIndex
     from arxiv_rag_tpu_torch.index.store import build_index
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
@@ -565,23 +582,32 @@ def phase_ivf(gen, results) -> dict:
             b6 = ivf_bound(union, visits, nq, ivf.values.dtype,
                            ivf._device_centroids.numel() * 4 + ivf._device_cb.numel() * 4,
                            2.0 * nq * N_CLUSTERS * DIM)
+            floor = visit_floor_ms(table, ivf.dead_block, ivf.n_valid, ivf.values.dtype)
             c5 = dict(base, max_abs_err=err, table_width=int(table.shape[1]),
                       bound_ms=b5[0], bound_by=b5[1],
+                      device_ms=device_ms(lambda: ivf._search_table(q, table, 10, q_block=8),
+                                          "tc_table_kernel"),
                       ms=median_ms(lambda: ivf._search_table(q, table, 10, q_block=8)),
                       plain_ms=median_ms(lambda: oivf.ivf_topk_plain(
                           ivf.values, table, q, 10, n_valid=ivf.n_valid,
                           block_rows=IVF_BLOCK, **kw), PLAIN_RUNS))
             c6 = dict(base, max_abs_err=err6, table_width=width, bound_ms=b6[0],
                       bound_by=b6[1], plan_ms=median_ms(plan),
+                      device_ms=device_ms(lambda: ivf._search_device(q, 10, nprobe=NPROBE,
+                                                                     q_block=8),
+                                          "tc_table_kernel"),
                       ms=median_ms(lambda: ivf._search_device(q, 10, nprobe=NPROBE,
                                                               q_block=8)),
                       plain_ms=median_ms(lambda: k6_plain(ivf, q, width, kw), PLAIN_RUNS))
             print(f"  K6 {name} Q={nq}: probe + device plan alone {c6['plan_ms']:.3f} ms; "
                   f"{union} distinct blocks over all tiles", flush=True)
             for key, c in (("K5", c5), ("K6", c6)):
-                print(f"  {key} {name} Q={nq}: kernel {c['ms']:.3f} ms (flat scan at this "
-                      f"Q {flat_ms:.3f} ms), plain {c['plain_ms']:.3f} ms, library none, "
-                      f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+                print(f"  {key} {name} Q={nq} on tc_table_kernel: kernel {c['ms']:.3f} ms "
+                      f"(the scan kernel's device time {c['device_ms']:.4f} ms; flat scan at "
+                      f"this Q {flat_ms:.3f} ms), plain {c['plain_ms']:.3f} ms, library none, "
+                      f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}; each distinct block "
+                      f"once), visit floor {floor:.4f} ms (every real visit's "
+                      "rows)", flush=True)
                 cases[key].append(c)
     for name, ivf in ivfs.items():
         # full probe: every block of the IVF order, so the flat scan of the
@@ -1123,15 +1149,16 @@ KERNELS = (
      ("int8", 512, N_RAGGED), "tc_scan_kernel", "main"),
     ("K3", "fused_topk_int8_row", "fused_topk_int8 row variant",
      "arxiv_rag_tpu/ops/pallas_topk.py:184", ("int8 row", 512, N_RAGGED),
-     "tc_scan_kernel (row); the counted launches are the int8 IVF block tables (K5, K6), "
-     "which score with the row kind", "main"),
+     "tc_scan_kernel (row); the counted launches are the int8 IVF block tables (K5, K6 on "
+     "tc_table_kernel), which score with the row kind", "main"),
     ("K4", "fused_topk_masked", "fused_topk_masked / fused_topk_int8_masked",
      "arxiv_rag_tpu/ops/pallas_topk.py:217", ("bf16", 512, N_RAGGED),
      "tc_scan_kernel (bf16, f32 as 3xTF32, s8s8, row)", "main"),
     ("K5", "ivf_topk", "ivf_topk block-table scan", "arxiv_rag_tpu/ops/pallas_ivf.py:61",
-     ("int8", 32, None), "scan_kernel", "main"),
+     ("int8", 32, None), "tc_table_kernel (row: rows on wgmma's M, 8 queries on N)", "main"),
     ("K6", "ivf_topk_device", "ivf_topk_device (device plan + K5)",
-     "arxiv_rag_tpu/ops/pallas_ivf.py:482", ("int8", 32, None), "scan_kernel", "main"),
+     "arxiv_rag_tpu/ops/pallas_ivf.py:482", ("int8", 32, None),
+     "tc_table_kernel (row: rows on wgmma's M, 8 queries on N)", "main"),
 )
 
 
@@ -1214,6 +1241,31 @@ def tc_ptxas(log: str) -> list[str]:
     return lines or ["ptxas tc_scan_kernel: no report (the library was built before this run)"]
 
 
+def tb_ptxas(log: str) -> list[str]:
+    """The block-table scan's ptxas report, one line per instantiation
+    (kind, query tile, list capacity): registers, stack and spills, and
+    the dynamic shared memory a block takes (the same at every D) with
+    the blocks an SM holds."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+
+    lib, out, name = ft._lib(), [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"tc_table_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            name = m and (int(m.group(1)), int(m.group(2)), int(m.group(3)))
+        elif name and ("stack frame" in line or "registers" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    lines = []
+    for kind, qb, kcap in sorted({n for n, _ in out}):
+        facts = "; ".join(f for n, f in out if n == (kind, qb, kcap))
+        smem = lib.arag_topk_table_smem(kind, qb, kcap)
+        blocks = lib.arag_topk_table_blocks(kind, qb, kcap)
+        lines.append(f"ptxas tc_table_kernel<{TC_KINDS.get(kind, kind)}, QB={qb}, KCAP={kcap}>: "
+                     f"{facts}; dynamic shared memory {smem} B (any D), {blocks} blocks "
+                     "per SM")
+    return lines or ["ptxas tc_table_kernel: no report (the library was built before this run)"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1240,7 +1292,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}", flush=True)
-    for line in tc_ptxas(logs["fused_topk"]) + w8a8_ptxas(logs["w8a8"]):
+    for line in tc_ptxas(logs["fused_topk"]) + tb_ptxas(logs["fused_topk"]) + w8a8_ptxas(
+            logs["w8a8"]):
         print(f"  {line}", flush=True)
 
     results: dict = {}

@@ -229,7 +229,7 @@ def test_tc_ties_ids_bitwise_plain(gen, k, kind, masked):
 @pytest.mark.parametrize("kind", _KINDS)
 def test_flat_scans_launch_the_tensor_core_kernel(gen, kind, masked):
     """Every flat scan, of every kind, masked or not, runs tc_scan_kernel
-    (and the merge), never the CUDA-core scan_kernel."""
+    (and the merge), never the block-table kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     x, s = _tc_index(kind, _unit(20_000, 768, gen), 20_000)
@@ -241,7 +241,7 @@ def test_flat_scans_launch_the_tensor_core_kernel(gen, kind, masked):
         _tc_scan(kind, x, s, q, 10, masks=masks)[0][0].cpu()
     names = [e.key for e in prof.key_averages()]
     assert any("tc_scan_kernel" in n for n in names), names
-    assert not any("scan_kernel" in n and "tc_scan_kernel" not in n for n in names), names
+    assert not any("tc_table_kernel" in n for n in names), names
 
 
 def test_tc_s8s8_zero_query_and_scales_from_1e8_to_1(gen):
@@ -356,10 +356,10 @@ def test_k3_row_matches_plain(gen, nq, k, masked):
     assert recall_at_k(i, pi, pv, tie_tol=1e-4, candidate_scores=v) == 1.0
 
 
-def _ivf_layout(gen, dtype, block_rows, n=20_000):
+def _ivf_layout(gen, dtype, block_rows, n=20_000, d=768):
     from arxiv_rag_tpu_torch.ops.ivf import pad_index_for_ivf
 
-    x = _unit(n, 768, gen)
+    x = _unit(n, d, gen)
     scales = None
     if dtype == torch.int8:
         x, scales = quantize_int8(x)
@@ -369,56 +369,124 @@ def _ivf_layout(gen, dtype, block_rows, n=20_000):
     return pad_index_for_ivf(x, block_rows, scales=scales, row_masks=rm), n
 
 
-@pytest.mark.parametrize("q_block", [8, 16])
-@pytest.mark.parametrize("block_rows", [1024, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_k5_matches_plain(gen, dtype, block_rows, q_block):
-    """Both tile heights the block tables take (``ivf_q_block``)."""
-    from arxiv_rag_tpu_torch.ops import ivf as oivf
-
-    (x, s, rm, dead), n = _ivf_layout(gen, dtype, block_rows)
-    q = _unit(21, 768, gen)  # a ragged last tile
-    tiles = -(-21 // q_block)
+def _k5_table(tiles, dead, block_rows, n):
+    """Sorted random real blocks for the first tiles, dead padding; the
+    next-to-last tile lists three adjacent blocks (the last one holds
+    the ragged end of the rows below n_valid), the last tile only the
+    dead block."""
     table = torch.full((tiles, 12), dead, dtype=torch.int32)
-    for t in range(tiles):
+    for t in range(tiles - 2):
         real = torch.randperm(dead, generator=torch.Generator().manual_seed(t))[: 4 + 3 * t]
         table[t, : len(real)] = torch.sort(real).values
-    qm = torch.full((21,), 0b111, dtype=torch.int32, device="cuda")
+    last_real = (n - 1) // block_rows
+    table[tiles - 2, :3] = torch.arange(last_real - 2, last_real + 1)
+    return table
+
+
+def _check_k5(gen, dtype, block_rows, q_block, k=10, d=768):
+    """K5 against its plain version, unmasked and masked: within 1e-4,
+    tie-tolerant recall 1.0, each row once in a query's list, the queries
+    of the tile that lists only the dead block all (-inf, -1)."""
+    from arxiv_rag_tpu_torch.ops import ivf as oivf
+
+    (x, s, rm, dead), n = _ivf_layout(gen, dtype, block_rows, d=d)
+    nq = 21 if q_block == 8 else 37  # a ragged last tile
+    q = _unit(nq, d, gen)
+    tiles = -(-nq // q_block)
+    table = _k5_table(tiles, dead, block_rows, n)
+    qm = torch.full((nq,), 0b111, dtype=torch.int32, device="cuda")
     for kw in ({}, {"row_masks": rm, "query_mask": qm}):
         if dtype == torch.int8:
             kw["scales"] = s
-        v, i = oivf._table_scan(x, table, q, 10, n_valid=n, block_rows=block_rows,
+        ft.reset_launches()
+        v, i = oivf._table_scan(x, table, q, k, n_valid=n, block_rows=block_rows,
                                 q_block=q_block, **kw)
-        pv, pi = oivf.ivf_topk_plain(x, table, q, 10, n_valid=n, block_rows=block_rows,
+        assert ft.LAUNCHES["ivf_topk"] == 1
+        pv, pi = oivf.ivf_topk_plain(x, table, q, k, n_valid=n, block_rows=block_rows,
                                      q_block=q_block, **kw)
-        v, i, pv, pi = (t.cpu().numpy() for t in (v, i, pv, pi))
-        real = pi >= 0
-        assert ((i >= 0) == real).all() and abs(v[real] - pv[real]).max() <= 1e-4
-        assert recall_at_k(i, pi, pv, tie_tol=1e-4, candidate_scores=v) == 1.0
+        assert v.shape == (nq, k) and v.dtype == torch.float32 and i.dtype == torch.int32
+        dead_q = slice((tiles - 1) * q_block, nq)
+        assert (i[dead_q] == -1).all() and torch.isinf(v[dead_q]).all()
+        for row in i.cpu().tolist():
+            real = [r for r in row if r >= 0]
+            assert len(set(real)) == len(real)
+        _check_like_plain(v, i, pv, pi, n)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_k6_bitwise_k5_without_host_sync(gen, dtype):
+@pytest.mark.parametrize("q_block", [8, 16])
+@pytest.mark.parametrize("block_rows", [1024, 128, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_k5_matches_plain(gen, dtype, block_rows, q_block):
+    """Both tile heights the block tables take (``ivf_q_block``); 192-row
+    blocks: every second 128-row slice overhangs its block's end."""
+    _check_k5(gen, dtype, block_rows, q_block)
+
+
+# (q_block, k, D): k = 1 and 128 (the lists' two capacities at their
+# ends); D = 128 and the largest D the CUDA-core table scan took (4416 at
+# q_block 8, 1408 at 16)
+@pytest.mark.parametrize("q_block,k,d", [(8, 1, 768), (16, 1, 768), (8, 128, 768),
+                                         (16, 128, 768), (8, 10, 128), (16, 10, 128),
+                                         (8, 10, 4416), (16, 10, 1408)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_k5_edges_match_plain(gen, dtype, q_block, k, d):
+    _check_k5(gen, dtype, 192 if k == 128 else 1024, q_block, k=k, d=d)
+
+
+@pytest.mark.parametrize("dtype,masked", [(torch.bfloat16, False), (torch.int8, False),
+                                          (torch.float32, True)])
+def test_k6_bitwise_k5_without_host_sync(gen, dtype, masked):
     """The device plan covers the host plan's blocks: K6 equals K5 bit for
     bit, and its dispatch never waits for the device."""
     from arxiv_rag_tpu_torch.index.ivf import IVFIndex
     from arxiv_rag_tpu_torch.index.store import build_index
 
     x = _unit(30_000, 768, gen)
-    dense = build_index(x, dtype="int8" if dtype == torch.int8 else "bfloat16").to_device()
+    kw = {}
+    if masked:
+        codes = torch.randint(0, 8, (30_000,), generator=gen, device="cuda").cpu().numpy()
+        kw["categories"] = [f"c{c}" for c in codes]
+    name = {torch.int8: "int8", torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
+    dense = build_index(x, dtype=name, **kw).to_device()
     ivf = IVFIndex.build(dense, 64, block_rows=1024, iters=3)
     q = _unit(32, 768, gen)
-    hv, hl = ivf._search_table(q, ivf.plan_blocks(ivf.probe(q, 4), 8), 10, q_block=8)
+    qm = None
+    if masked:
+        qm = torch.full((32,), 0b101, dtype=torch.int32, device="cuda")
+        qm[3] = 0
+    hv, hl = ivf._search_table(q, ivf.plan_blocks(ivf.probe(q, 4), 8), 10, q_block=8,
+                               query_mask=qm)
     torch.cuda.synchronize()
     ft.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        dv, dl = ivf._search_device(q, 10, nprobe=4, q_block=8)
+        dv, dl = ivf._search_device(q, 10, nprobe=4, q_block=8, query_mask=qm)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert ft.LAUNCHES["ivf_topk_device"] == 1 and ft.LAUNCHES["ivf_topk"] == 0
     assert torch.equal(dv, hv) and torch.equal(dl, hl)
     assert ft.LAUNCHES["fused_topk_int8_row"] == (1 if dtype == torch.int8 else 0)
+    if masked:
+        assert (dl[3] == -1).all() and (dl[:3] >= 0).all()
+
+
+def test_table_scans_launch_the_table_kernel(gen):
+    """Every block-table scan runs tc_table_kernel (and the merge)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from arxiv_rag_tpu_torch.ops import ivf as oivf
+
+    (x, s, _, dead), n = _ivf_layout(gen, torch.int8, 1024)
+    q = _unit(16, 768, gen)
+    table = _k5_table(2, dead, 1024, n)
+    run = lambda: oivf.ivf_topk_int8(x, s, table, q, 10, n_valid=n, block_rows=1024)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()[0].cpu()
+    names = [e.key for e in prof.key_averages()]
+    assert any("tc_table_kernel" in n for n in names), names
+    assert not any("tc_scan_kernel" in n for n in names), names
 
 
 # -- slice 3: the W8A8 matmul (K7) and its fused-quantization form (K8) --------

@@ -153,28 +153,107 @@ def test_planners_match_jax_on_the_same_probes(blob_data, clustering):
         np.testing.assert_array_equal(real, host[t][host[t] != ivf.dead_block])
 
 
+def _table_work(table, n_valid: int, block_rows: int, n_splits: int) -> list[list[list]]:
+    """The block-table kernel's division of work, modelled on the host
+    line for line after ``csrc/fused_topk.cu::tb_item_row`` and the
+    kernel's split: ``[tile][split]`` lists of (block, first row) items,
+    128-row slices of the tile's entries up to its last real visit (a
+    block that starts below ``n_valid``), evenly over the splits, in
+    table order; a dead visit or a slice wholly past n_valid loads
+    nothing."""
+    per_visit = -(-block_rows // ft.TABLE_ROWS)
+    out = []
+    for row in [list(map(int, r)) for r in table]:
+        real = [v for v, b in enumerate(row) if b >= 0 and b * block_rows < n_valid]
+        items = (real[-1] + 1 if real else 0) * per_visit
+        per_split = -(-items // n_splits)
+        splits = []
+        for sp in range(n_splits):
+            lo = min(items, sp * per_split)
+            work = []
+            for it in range(lo, min(items, lo + per_split)):
+                blk = row[it // per_visit]
+                r0 = blk * block_rows + (it % per_visit) * ft.TABLE_ROWS
+                if blk >= 0 and r0 < n_valid:
+                    work.append((blk, r0))
+            splits.append(work)
+        out.append(splits)
+    return out
+
+
+@pytest.mark.parametrize("plan", ["host", "device"])
+@pytest.mark.parametrize("q_block", [8, 16])
+@pytest.mark.parametrize("block_rows", [128, 192, 1024])
+def test_table_work_gives_each_real_slice_to_one_split(blob_data, clustering, block_rows,
+                                                       q_block, plan):
+    """The block-table kernel's division of work (``_table_work``, its
+    host model) on the planners' tables, with
+    ``plan_table``'s split count at the serving card's 132 SMs, 1 and 2
+    blocks each, and on a row of dead visits only: every 128-row slice of
+    every real visit (below n_valid) goes to exactly one split of its
+    tile, no slice of a dead visit to any, and no split gets more than
+    its even share."""
+    index, queries, _ = blob_data
+    cents, assign = clustering
+    dense = build_index(index, dtype="float32", normalize=False)
+    ivf = IVFIndex.build(dense, C, block_rows=block_rows, centroids=cents,
+                         assignments=assign, device="cpu")
+    cids = ivf.probe(np.resize(queries, (2 * q_block, D)), 6)
+    if plan == "host":
+        table = ivf.plan_blocks(cids, q_block)
+    else:
+        cb = oivf.cluster_block_table(ivf.offsets, block_rows, ivf.dead_block)
+        width = oivf.device_table_width(ivf.n_blocks, cb.shape[1], 6, q_block)
+        table = oivf.device_plan(torch.from_numpy(cids).long(), torch.from_numpy(cb),
+                                 ivf.dead_block, q_block, width).numpy()
+    table = np.concatenate([table, np.full((1, table.shape[1]), ivf.dead_block, np.int32)])
+    per_visit = -(-block_rows // ft.TABLE_ROWS)
+    for blocks_per_sm in (1, 2):
+        n_splits = ft.plan_table(table.shape[1], table.shape[0], per_visit, 132, blocks_per_sm)
+        assert 1 <= n_splits <= table.shape[1] * per_visit
+        work = _table_work(table, ivf.n_valid, block_rows, n_splits)
+        assert len(work) == table.shape[0]
+        for row, splits in zip(table, work):
+            real = [int(b) for b in row if b != ivf.dead_block]
+            assert all(b * block_rows < ivf.n_valid for b in real)
+            want = sorted((b, b * block_rows + s * ft.TABLE_ROWS) for b in real
+                          for s in range(per_visit)
+                          if b * block_rows + s * ft.TABLE_ROWS < ivf.n_valid)
+            got = [item for split in splits for item in split]
+            assert sorted(got) == want  # each once, none dead
+            assert len(splits) == n_splits
+            share = -(-len(real) * per_visit // n_splits)
+            assert max(len(split) for split in splits) <= share
+        assert work[-1] == [[] for _ in range(n_splits)]  # the all-dead row
+
+
 def test_table_scan_plain_matches_jax_kernel(blob_data, clustering):
     """K5's plain version against the Pallas kernel on the same tables
-    (f32 and int8 row variant), dead padding included."""
+    (f32 and int8 row variant), dead padding included, and a last tile
+    whose row lists only the dead block: (-inf, -1) from both."""
     _, _, jivf, ivf = _pair(blob_data, clustering, "float32")
     _, _, jivf8, ivf8 = _pair(blob_data, clustering, "int8")
     _, queries, _ = blob_data
-    q = queries[:16]
+    q = np.concatenate([queries[:2 * QB], queries[:QB]])
     table = ivf.plan_blocks(ivf.probe(q, 4), QB)
+    table[-1] = ivf.dead_block
     tv, ti = oivf.ivf_topk(ivf.values, table, torch.from_numpy(q), K,
                            n_valid=ivf.n_valid, block_rows=BR)
     jv, ji = jax_ivf_topk(jnp.asarray(jivf.values), table, jnp.asarray(q), K,
                           n_valid=ivf.n_valid, block_rows=BR, interpret=True)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=TOL)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (tv[-QB:] == -np.inf).all() and (ti[-QB:] == -1).all()
     tv, ti = oivf.ivf_topk_int8(ivf8.values, ivf8.scales, table, torch.from_numpy(q), K,
                                 n_valid=ivf.n_valid, block_rows=BR)
     jv, ji = jax_ivf_topk_int8(jnp.asarray(jivf8.values), jnp.asarray(jivf8.scales), table,
                                jnp.asarray(q), K, n_valid=ivf.n_valid, block_rows=BR,
                                interpret=True)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=TOL)
-    assert recall_at_k(ti.numpy(), np.asarray(ji), np.asarray(jv), tie_tol=TOL,
-                       candidate_scores=tv.numpy()) == 1.0
+    np.testing.assert_array_equal(ti[-QB:].numpy(), np.asarray(ji)[-QB:])
+    assert (tv[-QB:] == -np.inf).all() and (ti[-QB:] == -1).all()
+    assert recall_at_k(ti[:-QB].numpy(), np.asarray(ji)[:-QB], np.asarray(jv)[:-QB],
+                       tie_tol=TOL, candidate_scores=tv[:-QB].numpy()) == 1.0
 
 
 def test_table_plain_refuses_duplicate_or_unsorted_blocks(blob_data, clustering):

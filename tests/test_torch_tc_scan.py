@@ -1,10 +1,14 @@
-"""The glue of the tensor-core scan on the CPU: its planner, its bf16
-query rounding against JAX's, the choice of kernel by kind, shape and
-mask, the operands each kind takes, the 3xTF32 arithmetic of its f32
-kind (the split rule, and a float64 model of the kernel against the JAX
-package's fp32 scan) and the int8 -> bf16 widening of its row kind.
+"""The glue of the tensor-core scans on the CPU: the flat scan's planner,
+its bf16 query rounding against JAX's, the choice of kernel by kind,
+shape and mask, the operands each kind takes (flat and block table), the
+3xTF32 arithmetic of the f32 kind (the split rule, and a float64 model
+of the kernel against the JAX package's fp32 scan), the int8 -> bf16
+widening of the row kind, and the block-table kernel's fragment-to-
+(row, query) staging.
 
-The kernel itself runs only on a card (tests/test_torch_cuda.py)."""
+The kernels themselves run only on a card (tests/test_torch_cuda.py);
+the block-table planner's division of work is held against the IVF
+planners' tables in tests/test_torch_ivf.py."""
 
 import numpy as np
 import pytest
@@ -50,51 +54,21 @@ def test_tc_queries_round_as_jax_bfloat16():
 @pytest.mark.parametrize("kind,table,masked,route", [
     ("bf16", False, False, "tc"),
     ("bf16", False, True, "tc"),
-    ("bf16", True, False, "cuda_core"),  # the IVF block tables at q_block 8
-    ("bf16", True, True, "cuda_core"),
+    ("bf16", True, False, "tc_table"),  # the IVF block tables
+    ("bf16", True, True, "tc_table"),
     ("f32", False, False, "tc"),  # 3xTF32
     ("f32", False, True, "tc"),
-    ("f32", True, False, "cuda_core"),
+    ("f32", True, False, "tc_table"),
     ("s8s8", False, False, "tc"),  # int8 wgmma
     ("s8s8", False, True, "tc"),
     ("row", False, False, "tc"),  # int8 rows widened to bf16, bf16 wgmma
     ("row", False, True, "tc"),
-    ("row", True, False, "cuda_core"),  # an int8 IVF block table
+    ("row", True, False, "tc_table"),  # an int8 IVF block table
 ])
 def test_scan_route_by_kind_and_shape(kind, table, masked, route):
-    """Every flat scan runs on the tensor cores, every block table on
-    the CUDA cores."""
+    """Every flat scan runs on ``tc_scan_kernel``, every block table on
+    ``tc_table_kernel``: both on the tensor cores."""
     assert ft.scan_route(kind, table, masked) == route
-
-
-def test_flat_bf16_scan_refuses_the_cuda_core_kernel():
-    x = torch.zeros((256, 64), dtype=torch.bfloat16)
-    q = torch.zeros((2, 64))
-    with pytest.raises(ValueError, match="tensor-core"):
-        ft._launch("bf16", 16, x, None, None, None, q, None, 5, 256)
-
-
-@pytest.mark.parametrize("kind", ["f32", "s8s8"])
-def test_flat_unmasked_f32_and_s8s8_refuse_the_cuda_core_kernel(kind):
-    x = torch.zeros((256, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
-    q = torch.zeros((2, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
-    scales = torch.ones(256) if kind == "s8s8" else None
-    with pytest.raises(ValueError, match="tensor-core"):
-        ft._launch(kind, 16, x, scales, None, None, q, None, 5, 256)
-
-
-@pytest.mark.parametrize("kind,masked", [("f32", True), ("s8s8", True), ("row", False),
-                                         ("row", True)])
-def test_masked_and_row_scans_refuse_the_cuda_core_kernel(kind, masked):
-    """The masked f32 and s8s8 scans and the row kind, masked or not, run
-    on the tensor-core kernel: ``scan_kernel`` takes only block tables."""
-    x = torch.zeros((256, 64), dtype=torch.float32 if kind == "f32" else torch.int8)
-    q = torch.zeros((2, 64), dtype=torch.int8 if kind == "s8s8" else torch.float32)
-    scales = None if kind == "f32" else torch.ones(256)
-    masks, qmask = ((torch.ones(256, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
-                    if masked else (None, None))
-    with pytest.raises(ValueError, match="tensor-core"):
-        ft._launch(kind, 16, x, scales, masks, qmask, q, None, 5, 256)
 
 
 class _Reached(Exception):
@@ -137,6 +111,112 @@ def test_launch_tc_takes_each_kinds_operands_and_refuses_other_mixes(
                     if masked else (None, None))
     with pytest.raises(_Reached if taken else ValueError):
         ft._launch_tc(kind, x, scales, masks, qmask, q, q_lo, None, 5, 256)
+
+
+_TABLE = torch.zeros((1, 4), dtype=torch.int32)  # one tile of 2 queries at q_block 8
+
+
+@pytest.mark.parametrize("kind,x_dtype,change,taken", [
+    ("bf16", _BF16, {}, True),
+    ("f32", _F32, {}, True),
+    ("row", _I8, {}, True),
+    ("bf16", _BF16, {"qb": 32}, False),  # only q_block 8 or 16
+    ("bf16", _BF16, {"qb": 4}, False),
+    ("s8s8", _I8, {}, False),  # an int8 table scores with the row kind
+    ("bf16", _BF16, {"table": _TABLE.to(torch.int64)}, False),  # dtype
+    ("bf16", _BF16, {"table": torch.zeros((2, 4), dtype=torch.int32)}, False),  # tiles
+    ("bf16", _BF16, {"table": torch.zeros(4, dtype=torch.int32)}, False),  # not 2-D
+    ("bf16", _BF16, {"table": torch.zeros((1, 0), dtype=torch.int32)}, False),  # no entries
+    ("bf16", _BF16, {"table": torch.zeros((1, 4), dtype=torch.int32, device="meta")},
+     False),  # another device
+    ("bf16", _BF16, {"d": 100}, False),  # D % 64 != 0
+    ("row", _I8, {"d": 96}, False),
+    ("bf16", _BF16, {"block_rows": 0}, False),
+])
+def test_launch_table_refuses_what_the_kernel_cannot_take(monkeypatch, kind, x_dtype, change,
+                                                          taken):
+    """``_launch_table`` takes each table kind's operands and refuses,
+    before it loads a kernel, a q_block other than 8 or 16, the s8s8
+    kind, a table of the wrong dtype, shape or device, a D the kernel
+    cannot take and an empty block."""
+    monkeypatch.setattr(ft, "_lib", _no_lib)
+    d = change.get("d", 64)
+    x = torch.zeros((256, d), dtype=x_dtype)
+    q = torch.zeros((2, d), dtype=_F32 if kind == "f32" else _I8 if kind == "s8s8" else _BF16)
+    q_lo = torch.zeros_like(q) if kind == "f32" else None
+    scales = torch.ones(256) if x_dtype == _I8 else None
+    with pytest.raises(_Reached if taken else ValueError):
+        ft._launch_table(kind, change.get("qb", 8), x, scales, None, None, q, q_lo,
+                         change.get("table", _TABLE), 5, 256, change.get("block_rows", 128))
+
+
+@pytest.mark.parametrize("qb", ft.Q_BLOCKS)
+def test_table_fragment_staging_reads_each_row_query_pair_once(qb):
+    """A numpy model of the block-table kernel's epilogue: the m64nN
+    accumulator fragment (lane (g, t4) of warp wi holds, of half h,
+    register 4i + 2j + c = row 64h + 16wi + g + 8j, query 8i + 2t4 + c)
+    staged at ``query * kTbStride + row``, then read by warp q % 4, lane
+    l taking rows l + 32m: every (row, query) pair of the 128-row slice
+    is written once and read once, by the warp that owns the query, and
+    each store instruction's 32 lanes hit 32 different banks."""
+    stride = ft.TABLE_ROWS + 4  # kTbStride
+    written = {}
+    for wi in range(4):
+        for h in range(2):
+            for i in range(qb // 8):
+                for j in range(2):
+                    for c in range(2):
+                        banks = set()
+                        for lane in range(32):
+                            g, t4 = lane >> 2, lane & 3
+                            row, q = 64 * h + 16 * wi + g + 8 * j, 8 * i + 2 * t4 + c
+                            addr = q * stride + row
+                            assert addr not in written
+                            written[addr] = (row, q)
+                            banks.add(addr % 32)
+                        assert len(banks) == 32  # one store, no bank conflict
+    assert sorted(written.values()) == [(r, q) for r in range(128) for q in range(qb)]
+    read = []
+    for wi in range(4):
+        for q in range(wi, qb, 4):  # the warp's queries
+            for lane in range(32):
+                for m in range(4):
+                    read.append(written[q * stride + lane + 32 * m])
+                    assert read[-1][1] == q
+    assert sorted(read) == sorted(written.values())  # each pair read once
+
+
+def test_row_table_a_fragments_pair_each_column_once():
+    """A numpy model of the row kind's A operand from registers
+    (``tb_widen_a``): lane (g, t4) reads 16 int8 bytes at 16·t4 of a row
+    and, per k-step kk, hands byte 4kk + j to wgmma as logical column
+    16kk + 2t4 + (j & 1) + 8(j >> 1) (the m64nNk16 A fragment's columns);
+    ``table_row_queries`` puts at each logical column the query value of
+    the physical column that lands there. Summed over the fragments, the
+    dot product of every row with every query is its plain one, each
+    physical column once; and the permutation is what JAX's bf16
+    rounding of the queries gives, reordered."""
+    rng = np.random.default_rng(21)
+    d = 192
+    rows = rng.integers(-127, 128, (2, d)).astype(np.int64)
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    qb = ft.tc_queries(torch.from_numpy(q))
+    qp = ft.table_row_queries(qb).to(torch.float32).numpy().astype(np.float64)
+    want = rows.astype(np.float64) @ qb.to(torch.float32).numpy().astype(np.float64).T
+    got = np.zeros_like(want)
+    for s in range(d // 64):
+        used = []
+        for t4 in range(4):
+            for kk in range(4):
+                for j in range(4):
+                    phys = 64 * s + 16 * t4 + 4 * kk + j
+                    logical = 64 * s + 16 * kk + 2 * t4 + (j & 1) + 8 * (j >> 1)
+                    got += rows[:, phys, None] * qp[None, :, logical]
+                    used.append(logical)
+        assert sorted(used) == list(range(64 * s, 64 * s + 64))
+    np.testing.assert_array_equal(got, want)  # exact: int8 x bf16 products in float64
+    jq = np.asarray(jnp.asarray(q).astype(jnp.bfloat16)).astype(np.float32)
+    np.testing.assert_array_equal(np.sort(qp, axis=1), np.sort(jq, axis=1).astype(np.float64))
 
 
 # -- the 3xTF32 split of the f32 scan ------------------------------------------
@@ -246,6 +326,19 @@ def test_tc_variants_still_apply_to_the_kernel_source():
 
     src = (_build.CSRC / "fused_topk.cu").read_text()
     made = tc_variants.variants(src)
+    assert made["as_is"] == src
+    assert len(set(made.values())) == len(made)  # every variant differs from the rest
+
+
+def test_tb_variants_still_apply_to_the_kernel_source():
+    """``tb_variants.py`` makes its variants of the block-table kernel by
+    editing the text of ``csrc/fused_topk.cu``: each edit finds its line
+    and changes it."""
+    from arxiv_rag_tpu_torch import tb_variants
+    from arxiv_rag_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "fused_topk.cu").read_text()
+    made = tb_variants.variants(src)
     assert made["as_is"] == src
     assert len(set(made.values())) == len(made)  # every variant differs from the rest
 
