@@ -1,15 +1,19 @@
 """`python -m arxiv_rag_tpu_torch.cli.main` — the port's CLI.
 
-Verbs of the dense serving path, following ``arxiv_rag_tpu/cli/main.py``:
+Verbs of the serving path, following ``arxiv_rag_tpu/cli/main.py``:
 
   index   build the dense index from an embed output directory, and
           with ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it
-  search  query an index with text (``--categories``, ``--nprobe``)
-  serve   HTTP query service over an index (``--nprobe``)
+  search  query an index with text (``--categories``, ``--nprobe``; with
+          ``--corpus``: hydrated text, ``--hybrid-alpha`` BM25 + dense,
+          ``--rerank-checkpoint`` / ``--rerank-random-init`` the
+          cross-encoder, ``--rerank-cascade`` its two-stage form)
+  serve   HTTP query service over an index (the same options)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
 CPU. Without ``--checkpoint`` the encoder is a seeded random bf16
-all-mpnet-base-v2 (smoke runs), as in the reference.
+all-mpnet-base-v2 (smoke runs), as in the reference. ``--corpus`` reads
+the Parquet corpus store, which needs pyarrow.
 """
 
 from __future__ import annotations
@@ -19,6 +23,20 @@ import json
 import signal
 import sys
 from pathlib import Path
+
+
+def _native_tokenizer_or_none(vocab_path):
+    """The C++ batch tokenizer when a real vocab exists and the native
+    library builds; None (announced) otherwise."""
+    if not (vocab_path and Path(vocab_path).exists()):
+        return None
+    from arxiv_rag_tpu_torch.tokenize.native import NativeWordPieceTokenizer
+
+    try:
+        return NativeWordPieceTokenizer(vocab_path)
+    except RuntimeError as exc:
+        print(f"note: native tokenizer unavailable ({exc}); using Python", file=sys.stderr)
+        return None
 
 
 def _tokenizer_or_toy(vocab_path):
@@ -89,9 +107,23 @@ def cmd_index(args) -> int:
 
 def _add_common(p) -> None:
     p.add_argument("--index", required=True)
+    p.add_argument("--corpus", default=None,
+                   help="corpus store dir: hydrates chunk metadata and text (needs pyarrow)")
     p.add_argument("--checkpoint", default=None, help="native checkpoint dir")
     p.add_argument("--vocab", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--hybrid-alpha", type=float, default=None,
+                   help="hybrid retrieval at this dense weight (the reference config "
+                        "uses 0.7); builds BM25 over --corpus, aligned to index rows")
+    p.add_argument("--rerank-checkpoint", default=None,
+                   help="cross-encoder checkpoint dir (config.json + state.npz + "
+                        "vocab.txt): rerank the top rerank_top_k candidates")
+    p.add_argument("--rerank-random-init", action="store_true",
+                   help="a small random cross-encoder (smoke runs)")
+    p.add_argument("--rerank-cascade", type=int, default=None,
+                   help="cascade depth: score all candidate pairs at a 64-token "
+                        "truncation, rescore the top N per query at full pair length "
+                        "(0/absent: single stage)")
 
 
 def _add_search(sub) -> None:
@@ -106,9 +138,12 @@ def _add_search(sub) -> None:
 
 
 def build_engine(args):
-    """Index (+ its IVF delta when probing) + query embedder + engine, as
-    the reference's ``_build_engine`` does for the single-device routes."""
+    """Index (+ its IVF delta when probing) + query embedder (+ corpus,
+    BM25, cross-encoder) + engine, as the reference's ``_build_engine``
+    does for the single-device routes."""
     import dataclasses
+
+    import torch
 
     from arxiv_rag_tpu_torch.config import load_config
     from arxiv_rag_tpu_torch.device import default_device
@@ -119,10 +154,20 @@ def build_engine(args):
     from arxiv_rag_tpu_torch.models.mpnet import random_model
     from arxiv_rag_tpu_torch.search.engine import SearchEngine
 
+    # callers may pass a namespace without the corpus, hybrid and rerank flags
+    corpus_dir = getattr(args, "corpus", None)
+    alpha = getattr(args, "hybrid_alpha", None)
+    cascade = getattr(args, "rerank_cascade", None)
+    rerank_ck = getattr(args, "rerank_checkpoint", None)
+    rerank_random = getattr(args, "rerank_random_init", False)
     dev = default_device(args.device)
     rcfg = load_config().retrieval
     if args.nprobe is not None:
         rcfg = dataclasses.replace(rcfg, nprobe=args.nprobe)
+    if alpha is not None:
+        rcfg = dataclasses.replace(rcfg, hybrid_alpha=alpha)
+    if cascade is not None:
+        rcfg = dataclasses.replace(rcfg, rerank_cascade_depth=cascade)
     idx = DenseIndex.load(args.index).to_device(dev)
     # the delta's layout is a second copy of the values on the device:
     # placed only when the engine will probe it
@@ -136,18 +181,65 @@ def build_engine(args):
         vocab_path = args.vocab
     tokenizer = _tokenizer_or_toy(vocab_path)
     # serving windows are small and varied: small padded heights beside the bulk one
-    embedder = Embedder(model, tokenizer, batch_sizes=(64, 512))
-    return SearchEngine(idx, embedder=embedder, cfg=rcfg, ivf=ivf, device=dev)
+    embedder = Embedder(model, tokenizer, batch_sizes=(64, 512),
+                        native_tokenizer=_native_tokenizer_or_none(vocab_path))
+
+    corpus = None
+    if corpus_dir:
+        from arxiv_rag_tpu_torch.store.corpus import CorpusReader
+
+        # the lazy-hydration row-group cache holds the whole corpus: 1.5x
+        # its Parquet bytes (decompression headroom), within [512 MB, 4 GB]
+        disk = sum(p.stat().st_size for p in Path(corpus_dir).glob("*.parquet"))
+        corpus = CorpusReader(corpus_dir,
+                              cache_bytes=max(512 << 20, min(4 << 30, int(disk * 1.5))))
+    bm25 = None
+    if alpha is not None:
+        if corpus is None:
+            print("--hybrid-alpha needs --corpus (BM25 is built over its texts)",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        from arxiv_rag_tpu_torch.search.engine import bm25_for_index
+
+        bm25 = bm25_for_index(idx, corpus)  # in index row order
+    reranker = None
+    if rerank_ck or rerank_random:
+        from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
+        from arxiv_rag_tpu_torch.models.convert import load_bert_checkpoint
+        from arxiv_rag_tpu_torch.search.rerank import CrossEncoderReranker
+        from arxiv_rag_tpu_torch.tokenize.wordpiece import WordPieceTokenizer
+
+        if rerank_ck:
+            ck = Path(rerank_ck)
+            bmodel, _ = load_bert_checkpoint(ck, device=dev)
+            btok = WordPieceTokenizer.from_vocab_file(ck / "vocab.txt")
+        else:  # the reference's toy shape: fp32 weights, bf16 compute
+            btok = tokenizer
+            bcfg = BertConfig(vocab_size=max(tokenizer.vocab.values()) + 1,
+                              hidden_size=64, num_hidden_layers=2,
+                              num_attention_heads=4, intermediate_size=128,
+                              pad_token_id=tokenizer.pad_id)
+            bmodel = random_bert(bcfg, seed=2, param_dtype=torch.float32, device=dev)
+        reranker = CrossEncoderReranker(bmodel, btok,
+                                        max_pair_len=rcfg.rerank_max_pair_len or None)
+    return SearchEngine(idx, embedder=embedder, corpus=corpus, cfg=rcfg, bm25=bm25,
+                        reranker=reranker, ivf=ivf, device=dev)
 
 
 def cmd_search(args) -> int:
     engine = build_engine(args)
     cats = args.categories.split(",") if args.categories else None
-    results = engine.search(args.query, k=args.k, categories=cats)
+    results = engine.search(args.query, k=args.k, categories=cats,
+                            hybrid_alpha=args.hybrid_alpha)
     for qi, hits in enumerate(results):
         print(f"query[{qi}]: {args.query[qi]}")
         for h in hits:
-            print(f"  {h.score:.4f} row={h.row}")
+            line = f"  {h.score:.4f} row={h.row}"
+            if h.chunk_id:
+                line += f" {h.chunk_id} [{h.category}] {h.section}"
+            if h.text:
+                line += f" :: {h.text[:100]}"
+            print(line)
     return 0
 
 
@@ -168,6 +260,11 @@ def cmd_serve(args) -> int:
     from arxiv_rag_tpu_torch.serve import serve
 
     engine = build_engine(args)
+    groups = engine.warm_hydration()
+    if groups:
+        print(f"hydration cache prewarmed ({groups} row groups)", file=sys.stderr)
+    if engine.reranker is not None:
+        print(f"rerank buckets warmed: {engine.reranker.warm()}", file=sys.stderr)
     httpd = serve(
         engine, args.host, args.port,
         index_stats={"rows": engine.index.num_rows, "dim": engine.index.dim,

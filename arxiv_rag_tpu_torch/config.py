@@ -44,9 +44,12 @@ class IndexConfig:
 
 @dataclass(frozen=True)
 class RetrievalConfig:
-    """Query-time settings. Hybrid, rerank and IVF fields are carried so
-    configurations stay interchangeable with the reference; the engine
-    refuses them until their slice is ported."""
+    """Query-time settings, the reference's: top_k, the hybrid dense
+    weight (used when the engine has a BM25 index), the cross-encoder's
+    candidate count, pair truncation, window pair cap and cascade depth
+    (used when it has a reranker), and the IVF probe settings. ``rerank``
+    and ``rerank_model`` are carried so configurations stay
+    interchangeable; the CLI's flags choose the reranker."""
 
     top_k: int = 10
     hybrid_alpha: float = 0.7

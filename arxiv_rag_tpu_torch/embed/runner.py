@@ -1,9 +1,11 @@
 """Embedding runner: length-bucketed batching over the MPNet module.
 
-The port of ``arxiv_rag_tpu/embed/runner.py``: tokenize on the host,
-group rows by length bucket, pad each batch to an allowed height (pad
-rows carry one CLS token so pooling never divides by zero), run the
-encoder on the device, and restore the original order by position.
+The port of ``arxiv_rag_tpu/embed/runner.py``: tokenize on the host (the
+Python WordPiece tokenizer, or the C++ core of ``tokenize/native.py``
+when one is given), group rows by length bucket, pad each batch to an
+allowed height (pad rows carry one CLS token so pooling never divides by
+zero), run the encoder on the device, and restore the original order by
+position.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ class Embedder:
         quant_int8: run the W8A8 encoder: the dense layers are quantized
             once here (``quantize_params_int8``, a new model; ``model`` is
             left as it is) and activations per row inside the forward.
+        native_tokenizer: a ``NativeWordPieceTokenizer`` over the same
+            vocab: one multithreaded C++ pass per call in place of the
+            Python loop, with the same padded (ids, mask).
     """
 
     def __init__(
@@ -52,12 +57,14 @@ class Embedder:
         batch_sizes: Sequence[int] | None = None,
         normalize: bool = True,
         quant_int8: bool = False,
+        native_tokenizer=None,
     ) -> None:
         if quant_int8:
             model = quantize_params_int8(model)
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer
+        self.native_tokenizer = native_tokenizer
         self.buckets = tuple(sorted(buckets))
         self.batch_sizes = tuple(sorted(batch_sizes)) if batch_sizes else (batch_size,)
         self.batch_size = max(self.batch_sizes)
@@ -81,6 +88,8 @@ class Embedder:
     ) -> dict[int, tuple[list[int], np.ndarray, np.ndarray]]:
         """{bucket: (original positions, ids [n, bucket], mask)}."""
         max_b = self.buckets[-1]
+        if self.native_tokenizer is not None:
+            return self._tokenize_bucketed_native(texts, max_b)
         per_bucket: dict[int, list[tuple[int, list[int]]]] = {b: [] for b in self.buckets}
         for pos, text in enumerate(texts):
             enc = self.tokenizer.encode(text, max_len=max_b)
@@ -98,6 +107,22 @@ class Embedder:
                 positions.append(pos)
                 self.stats.tokens += len(enc)
             out[bucket] = (positions, ids, mask)
+        return out
+
+    def _tokenize_bucketed_native(
+        self, texts: Sequence[str], max_b: int
+    ) -> dict[int, tuple[list[int], np.ndarray, np.ndarray]]:
+        """One C++ pass at the largest bucket, then each row regrouped
+        into its bucket by true length (a column slice, no re-encode)."""
+        ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
+        lengths = mask_full.sum(axis=1)
+        self.stats.tokens += int(lengths.sum())
+        row_bucket = np.asarray([self._bucket_for(int(n)) for n in lengths], np.int64)
+        out: dict[int, tuple[list[int], np.ndarray, np.ndarray]] = {}
+        for bucket in self.buckets:
+            rows = np.nonzero(row_bucket == bucket)[0]
+            if rows.size:
+                out[bucket] = (rows.tolist(), ids_full[rows, :bucket], mask_full[rows, :bucket])
         return out
 
     def _padded_height(self, n: int) -> int:
@@ -164,15 +189,23 @@ class Embedder:
         if n == 0 or n > self.batch_size:
             return None
         max_b = self.buckets[-1]
-        encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
-        lengths = np.asarray([len(e) for e in encs])
+        if self.native_tokenizer is not None:
+            ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
+            lengths = mask_full.sum(axis=1)
+        else:
+            encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
+            lengths = np.asarray([len(e) for e in encs])
         bucket = self._bucket_for(int(lengths.max()))
         height = self._padded_height(n)
         ids = np.full((height, bucket), self.tokenizer.pad_id, np.int32)
         mask = np.zeros((height, bucket), np.int32)
-        for r, enc in enumerate(encs):
-            ids[r, : len(enc)] = enc
-            mask[r, : len(enc)] = 1
+        if self.native_tokenizer is not None:
+            ids[:n] = ids_full[:, :bucket]
+            mask[:n] = mask_full[:, :bucket]
+        else:
+            for r, enc in enumerate(encs):
+                ids[r, : len(enc)] = enc
+                mask[r, : len(enc)] = 1
         ids[n:, 0] = self.tokenizer.cls_id  # pad rows: one real token
         mask[n:, 0] = 1
         self.stats.tokens += int(lengths.sum())

@@ -1,3 +1,4 @@
+from arxiv_rag_tpu_torch.models.bert import Bert, BertConfig, random_bert
 from arxiv_rag_tpu_torch.models.mpnet import (
     MPNet,
     ModelConfig,
@@ -7,5 +8,5 @@ from arxiv_rag_tpu_torch.models.mpnet import (
     random_model,
 )
 
-__all__ = ["MPNet", "ModelConfig", "QuantLinear", "mean_pool", "quantize_params_int8",
-           "random_model"]
+__all__ = ["Bert", "BertConfig", "MPNet", "ModelConfig", "QuantLinear", "mean_pool",
+           "quantize_params_int8", "random_bert", "random_model"]

@@ -1,6 +1,6 @@
-"""Weights into the port's MPNet: the JAX params pytree, HF state dicts,
-and the reference's native checkpoint (``params.msgpack`` +
-``model_config.json``).
+"""Weights into the port's MPNet and BERT: the JAX params pytree, HF
+state dicts, and the reference's native MPNet checkpoint
+(``params.msgpack`` + ``model_config.json``).
 
 The port of ``arxiv_rag_tpu/models/convert.py``. The reference stores
 dense kernels stacked over layers as ``[L, d_in, d_out]``; ``nn.Linear``
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from arxiv_rag_tpu_torch.device import default_device
+from arxiv_rag_tpu_torch.models.bert import Bert, BertConfig
 from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig, compute_dtype_of
 
 
@@ -117,6 +118,103 @@ def build_model(state: Mapping[str, torch.Tensor], cfg: ModelConfig, *,
     model = MPNet(cfg, compute_dtype, quant_int8=quant).to(param_dtype)
     model.load_state_dict(dict(state))
     return model.to(dev).eval()
+
+
+# --- BERT (the cross-encoder) ---------------------------------------------------
+
+_BERT_LAYER = {"attn.q": ("attn", "q"), "attn.k": ("attn", "k"), "attn.v": ("attn", "v"),
+               "attn.o": ("attn", "o"), "ffn.inp": ("ffn", "in"), "ffn.out": ("ffn", "out")}
+_BERT_NORMS = {"attn.ln": ("attn", "ln"), "ffn.ln": ("ffn", "ln")}
+
+
+def bert_from_jax_params(tree: Mapping[str, Any], cfg: BertConfig) -> dict[str, torch.Tensor]:
+    """The reference's BERT params pytree (``np.asarray`` leaves; layers
+    stacked ``[L, ...]``, kernels ``[d_in, d_out]``) → this package's
+    ``Bert`` state dict."""
+    emb, layers = tree["embeddings"], tree["layers"]
+    sd = {
+        "word.weight": to_tensor(emb["word"]),
+        "position.weight": to_tensor(emb["position"]),
+        "token_type.weight": to_tensor(emb["token_type"]),
+        "emb_ln.weight": to_tensor(emb["ln"]["scale"]),
+        "emb_ln.bias": to_tensor(emb["ln"]["bias"]),
+    }
+    for head in ("pooler", "classifier"):
+        sd[f"{head}.weight"] = to_tensor(tree[head]["kernel"]).T.contiguous()
+        sd[f"{head}.bias"] = to_tensor(tree[head]["bias"])
+    for i in range(cfg.num_hidden_layers):
+        for ours, (block, name) in _BERT_LAYER.items():
+            p = layers[block][name]
+            sd[f"layers.{i}.{ours}.weight"] = to_tensor(p["kernel"])[i].T.contiguous()
+            sd[f"layers.{i}.{ours}.bias"] = to_tensor(p["bias"])[i]
+        for ours, (block, name) in _BERT_NORMS.items():
+            p = layers[block][name]
+            sd[f"layers.{i}.{ours}.weight"] = to_tensor(p["scale"])[i]
+            sd[f"layers.{i}.{ours}.bias"] = to_tensor(p["bias"])[i]
+    return sd
+
+
+def bert_from_hf_state_dict(state: Mapping[str, Any], cfg: BertConfig) -> dict[str, torch.Tensor]:
+    """An HF ``BertForSequenceClassification`` (or ``BertModel``) state
+    dict → this package's ``Bert`` state dict. The ``bert.`` prefix is
+    stripped; a checkpoint without a pooler or classifier (a MiniLM
+    sentence encoder) gets zeros there, as the reference does."""
+    sd = {(k[5:] if k.startswith("bert.") else k): to_tensor(v) for k, v in state.items()}
+    out = {
+        "word.weight": sd["embeddings.word_embeddings.weight"],
+        "position.weight": sd["embeddings.position_embeddings.weight"],
+        "token_type.weight": sd["embeddings.token_type_embeddings.weight"],
+        "emb_ln.weight": sd["embeddings.LayerNorm.weight"],
+        "emb_ln.bias": sd["embeddings.LayerNorm.bias"],
+    }
+    dtype = out["word.weight"].dtype
+    h = cfg.hidden_size
+    for ours, theirs, d_out in (("pooler", "pooler.dense", h),
+                                ("classifier", "classifier", cfg.num_labels)):
+        if f"{theirs}.weight" in sd:
+            out[f"{ours}.weight"] = sd[f"{theirs}.weight"]
+            out[f"{ours}.bias"] = sd[f"{theirs}.bias"]
+        else:
+            out[f"{ours}.weight"] = torch.zeros((d_out, h), dtype=dtype)
+            out[f"{ours}.bias"] = torch.zeros((d_out,), dtype=dtype)
+    names = {
+        "attn.q": "attention.self.query", "attn.k": "attention.self.key",
+        "attn.v": "attention.self.value", "attn.o": "attention.output.dense",
+        "attn.ln": "attention.output.LayerNorm", "ffn.inp": "intermediate.dense",
+        "ffn.out": "output.dense", "ffn.ln": "output.LayerNorm",
+    }
+    for i in range(cfg.num_hidden_layers):
+        for ours, theirs in names.items():
+            for leaf in ("weight", "bias"):
+                out[f"layers.{i}.{ours}.{leaf}"] = sd[f"encoder.layer.{i}.{theirs}.{leaf}"]
+    return out
+
+
+def build_bert(state: Mapping[str, torch.Tensor], cfg: BertConfig, *,
+               compute_dtype: str | torch.dtype = torch.float32, device=None) -> Bert:
+    """``Bert`` holding ``state`` (parameters keep the state's dtype) on
+    ``device`` (the card by default)."""
+    dev = default_device(device)
+    param_dtype = next(iter(state.values())).dtype
+    model = Bert(cfg, compute_dtype).to(param_dtype)
+    model.load_state_dict(dict(state))
+    return model.to(dev).eval()
+
+
+def load_bert_checkpoint(directory: str | Path, *,
+                         compute_dtype: str | torch.dtype = torch.bfloat16,
+                         device=None) -> tuple[Bert, BertConfig]:
+    """A cross-encoder checkpoint directory as the reference's CLI reads
+    it: ``config.json`` (HF BertConfig fields) and ``state.npz`` (an HF
+    state dict); the vocabulary is ``vocab.txt`` beside them."""
+    directory = Path(directory)
+    raw = json.loads((directory / "config.json").read_text())
+    known = {f.name for f in dataclasses.fields(BertConfig)}
+    cfg = BertConfig(**{k: v for k, v in raw.items() if k in known})
+    with np.load(directory / "state.npz") as z:
+        state = {k: z[k] for k in z.files}
+    return build_bert(bert_from_hf_state_dict(state, cfg), cfg,
+                      compute_dtype=compute_dtype, device=device), cfg
 
 
 # --- the reference's native checkpoint ----------------------------------------

@@ -228,8 +228,10 @@ class Attention(nn.Module):
         q = split_heads(_dense(x, self.q))
         k = split_heads(_dense(x, self.k))
         v = split_heads(_dense(x, self.v))
-        scores = _matmul_f32(q, k.transpose(-1, -2))
-        scores = scores / math.sqrt(hd) + bias + mask_bias
+        scores = _matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        if bias is not None:  # MPNet's relative position bias (BERT has none)
+            scores = scores + bias
+        scores = scores + mask_bias
         probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         ctx = _matmul_f32(probs, v)
         ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, h)

@@ -1,7 +1,9 @@
-"""Query-time search engine: the dense, category-filtered and IVF routes.
+"""Query-time search engine: the dense, category-filtered, IVF and
+hybrid routes, corpus hydration and the cross-encoder rerank.
 
 The port of ``arxiv_rag_tpu/search/engine.py``'s single-device routes:
-encode → scan → hydrate. Routing follows the reference:
+encode → scan (→ hybrid merge) → hydrate (→ rerank). Routing follows
+the reference:
 
 - the query batch pads to the buckets 8/32/64/128, then multiples of
   128, by repeating the last row (``:311-328``, ``:433-441``);
@@ -15,11 +17,21 @@ encode → scan → hydrate. Routing follows the reference:
   masked forms K4 (``_single_chip`` :472-525); k > 128 goes to the plain
   scans, masked the same way;
 - ``categories=[]`` matches no row and returns empty lists;
-- results hydrate to ``SearchResult`` rows and scores (no corpus).
+- hybrid (a BM25 index attached and ``hybrid_alpha < 1``): the dense
+  candidates and the BM25 candidates of the whole window (one native
+  call), each min-max normalized per query, merged as
+  alpha·dense + (1-alpha)·bm25 (``_hybrid_merge`` :668-724);
+- with a corpus, results hydrate their chunk metadata and text: from
+  one in-memory table for corpora up to 200,000 rows, else lazily
+  through the corpus's row-group cache (``:726-856``);
+- with a reranker, the cross-encoder rescores each query's top
+  ``rerank_top_k`` hydrated candidates, the window's pairs capped at
+  ``rerank_max_window_pairs`` (``_rerank_window`` :615-666).
 
-Hybrid BM25, rerank, corpus hydration and live reload belong to later
-slices of the port: asking for any of them raises
-``NotImplementedError`` rather than answering without it.
+Every mode dispatches the dense scan before ``finish``; the host stages
+(BM25, merge, hydration, rerank) run inside ``finish``. Live reload
+belongs to a later slice of the port: ``prepare_reload`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from arxiv_rag_tpu_torch.ops.fused_topk import (
 )
 from arxiv_rag_tpu_torch.ops.quant import int8_search
 from arxiv_rag_tpu_torch.ops.topk import masked_flat_search
+from arxiv_rag_tpu_torch.search.bm25 import BM25Index
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -49,6 +62,37 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
         f"{what} is not ported to arxiv_rag_tpu_torch yet (later slice: {slice_name}); "
         "use arxiv_rag_tpu for it"
     )
+
+
+def bm25_for_index(index: DenseIndex, corpus) -> BM25Index:
+    """The BM25 side of hybrid retrieval, in INDEX row order.
+
+    The dense index may cover a filtered subset of the corpus, so BM25
+    built over ``corpus.texts()`` would score in another row space than
+    the dense scan. Corpus texts are joined through ``index.chunk_ids``
+    when present; otherwise the corpus must have one chunk per index
+    row."""
+    if index.chunk_ids is not None:
+        table = corpus.read_all(columns=["chunk_id", "text"])
+        by_id = dict(
+            zip(table.column("chunk_id").to_pylist(), table.column("text").to_pylist())
+        )
+        missing = [cid for cid in index.chunk_ids if cid not in by_id]
+        if missing:
+            raise ValueError(
+                f"{len(missing)} index chunk_ids missing from corpus "
+                f"(first: {missing[0]!r}) — wrong --corpus for this index?"
+            )
+        texts = [by_id[cid] for cid in index.chunk_ids]
+    else:
+        texts = corpus.texts()
+        if len(texts) != index.num_rows:
+            raise ValueError(
+                f"corpus has {len(texts)} chunks but index has {index.num_rows} "
+                "rows and no chunk_ids to join through — rebuild the index with "
+                "chunk_ids or use the matching corpus"
+            )
+    return BM25Index.build(texts)
 
 
 @dataclass
@@ -65,9 +109,13 @@ class SearchResult:
 
 
 class SearchEngine:
-    """Dense retrieval over a device-resident index. The index is placed
-    on ``device`` (the card by default) unless it already is; an IVF
-    index (``index/ivf.py``) is placed beside it."""
+    """Retrieval over a device-resident index. The index is placed on
+    ``device`` (the card by default) unless it already is; an IVF index
+    (``index/ivf.py``) is placed beside it. ``corpus`` (a
+    ``store.CorpusReader`` or an object with its ``read_all`` /
+    ``take_rows`` contract) hydrates results, ``bm25`` (built in index
+    row order: ``bm25_for_index``) enables hybrid retrieval and
+    ``reranker`` (``search/rerank.py``) the cross-encoder."""
 
     def __init__(
         self,
@@ -80,23 +128,33 @@ class SearchEngine:
         ivf=None,
         device=None,
     ) -> None:
-        if corpus is not None:
-            raise _later("corpus hydration", "prepare_reload/append_index/corpus hydration")
-        if bm25 is not None:
-            raise _later("hybrid BM25 retrieval", "hybrid BM25 + cross-encoder")
-        if reranker is not None:
-            raise _later("cross-encoder rerank", "hybrid BM25 + cross-encoder")
+        if bm25 is not None and bm25.num_docs != index.num_rows:
+            raise ValueError(
+                f"bm25 has {bm25.num_docs} docs but index has {index.num_rows} "
+                "rows; hybrid merge requires BM25 built in index row order "
+                "(use bm25_for_index)"
+            )
         self.index = index
         self.embedder = embedder
+        self.corpus = corpus
         self.cfg = cfg
+        self.bm25 = bm25
+        self.reranker = reranker
         if index._device_values is None:
             index.to_device(device)
         self.ivf = ivf
         if ivf is not None and ivf._device_cb is None:
             ivf.to_device(index._device_values.device)
+        # hydration: small corpora from one in-memory table, large ones
+        # lazily through the corpus's row-group cache; ``lazy_hydration``
+        # forces either mode
+        self.lazy_hydration: bool | None = None
+        self._meta_cache: dict | None = None
+        self._meta_by_id: dict | None = None
+        self._row_map = None  # index row -> corpus row (lazy mode)
 
     def prepare_reload(self, index_dir, **kwargs):
-        raise _later("live index reload", "prepare_reload/append_index/corpus hydration")
+        raise _later("live index reload", "prepare_reload/append_index")
 
     # -- dense ------------------------------------------------------------
 
@@ -248,39 +306,272 @@ class SearchEngine:
         hybrid_alpha: float | None = None,
         nprobe: int | None = None,
     ):
-        """Encode and launch the scan now; ``finish()`` fetches and hydrates."""
+        """Encode and launch the dense scan now; ``finish()`` fetches,
+        merges with BM25 (hybrid), hydrates and reranks. With a BM25
+        index, ``hybrid_alpha=None`` means ``cfg.hybrid_alpha``; 1.0 (or
+        no BM25 index) is pure dense."""
         if self.embedder is None:
             raise RuntimeError("SearchEngine needs an embedder for text queries")
-        if hybrid_alpha is not None and hybrid_alpha < 1.0:
-            raise _later("hybrid BM25 retrieval", "hybrid BM25 + cross-encoder")
         queries = list(queries)
         qn = len(queries)
+        k = k or self.cfg.top_k
+        if hybrid_alpha is None and self.bm25 is not None:
+            hybrid_alpha = self.cfg.hybrid_alpha
+        hybrid = (
+            hybrid_alpha is not None and self.bm25 is not None and hybrid_alpha < 1.0
+        )
+        rerank = self.reranker is not None
+        fetch_k = max(k, self.cfg.rerank_top_k) if rerank else k
         with METRICS.timer("search.encode"):
             # one padded batch per window, handed over on the device; the
             # host path serves windows above the largest batch height
-            handoff = self.embedder.encode_window_device(queries)
+            window = getattr(self.embedder, "encode_window_device", None)
+            handoff = window(queries) if window is not None else None
             if handoff is not None:
                 query_embs, n_real = handoff
             else:
                 query_embs, n_real = self.embedder.encode_texts(queries), qn
-        fin = self.search_embeddings_dispatch(query_embs, k, categories, n_real=n_real,
+        c = max(fetch_k, self.cfg.rerank_top_k) if hybrid else fetch_k
+        fin = self.search_embeddings_dispatch(query_embs, c, categories, n_real=n_real,
                                               nprobe=nprobe)
 
         def finish() -> list[list[SearchResult]]:
-            scores, rows = fin()
-            return self._hydrate_window(scores, rows, qn)
+            dvals, drows = fin()
+            if hybrid:
+                scores, rows = self._hybrid_merge(
+                    queries, dvals, drows, fetch_k, categories, hybrid_alpha
+                )
+            else:
+                scores, rows = dvals, drows
+            hydrated = self._hydrate_window(scores, rows, qn)
+            if rerank:
+                hydrated = self._rerank_window(queries, hydrated, k)
+            return hydrated
 
         return finish
 
+    def _rerank_window(
+        self, queries: Sequence[str], hydrated: list[list[SearchResult]], k: int
+    ) -> list[list[SearchResult]]:
+        """Cross-encoder pass over the whole window's candidate texts: all
+        pairs flow through the reranker's bucketed stream in one call."""
+        scored_lists = [[h for h in hits if h.text] for hits in hydrated]
+        # admission control: over the cap, rerank depth degrades per
+        # query to max(k, cap // queries) and results are flagged; every
+        # query still reranks at least k pairs
+        cap = self.cfg.rerank_max_window_pairs
+        total_pairs = sum(len(sl) for sl in scored_lists)
+        degraded = bool(cap) and total_pairs > cap
+        if degraded:
+            depth = max(k, cap // max(1, len(queries)))
+            scored_lists = [sl[:depth] for sl in scored_lists]
+        cascade_depth = self.cfg.rerank_cascade_depth or None
+        with METRICS.timer("search.rerank"):
+            window = self.reranker.rerank_window(
+                queries, [[h.text for h in sl] for sl in scored_lists], k,
+                cascade_depth=cascade_depth,
+            )
+        out_all = []
+        for hits, scored, (ce_scores, order) in zip(hydrated, scored_lists, window):
+            out = []
+            for s, idx in zip(ce_scores.tolist(), order.tolist()):
+                h = scored[idx]
+                h.extras["dense_score"] = h.score
+                h.score = float(s)
+                if degraded:
+                    h.extras["rerank_degraded"] = True
+                if cascade_depth and len(scored) > max(k, cascade_depth):
+                    # stage-1 pruning ran for this query
+                    h.extras["rerank_cascade"] = cascade_depth
+                out.append(h)
+            # text-less candidates cannot be cross-encoded: they follow
+            # the reranked set in dense order
+            for h in hits:
+                if len(out) >= k:
+                    break
+                if not h.text:
+                    out.append(h)
+            out_all.append(out)
+        return out_all
+
+    def _hybrid_merge(self, queries, dvals, drows, k, categories, alpha):
+        """Union of the fetched dense candidates and the BM25 candidates,
+        each min-max normalized per query, combined as
+        alpha·dense + (1-alpha)·bm25; (scores [Q,k], rows [Q,k]) with
+        (-inf, -1) in unfilled slots. BM25 fetches as many candidates as
+        the dense scan did, for the whole window in one native call; with
+        categories, BM25 candidates outside them are dropped."""
+        c = dvals.shape[1]
+        out_scores = np.full((len(queries), k), -np.inf, np.float32)
+        out_rows = np.full((len(queries), k), -1, np.int64)
+        cat_bits = (
+            self.index.category_mask(categories)
+            if categories is not None and self.index.row_masks is not None
+            else None
+        )
+
+        def norm(v):
+            if len(v) == 0:
+                return v
+            lo, hi = float(np.min(v)), float(np.max(v))
+            if hi > lo:
+                return (v - lo) / (hi - lo)
+            # all-equal scores: all-zero means "no signal" (e.g. a
+            # fully-OOV BM25 query) — give it no weight, not full
+            return np.zeros_like(v) if hi == 0.0 else np.ones_like(v)
+
+        with METRICS.timer("search.bm25"):
+            bm25_window = self.bm25.topk_batch(queries, c)
+
+        for qi in range(len(queries)):
+            bvals, brows = bm25_window[qi]
+            # padded and masked-out slots are -inf: dropped before the
+            # min-max normalization (an -inf minimum makes every score NaN)
+            dmask = (drows[qi] >= 0) & np.isfinite(dvals[qi])
+            dv, dr = dvals[qi][dmask], drows[qi][dmask].astype(np.int64)
+            if cat_bits is not None:
+                bkeep = (self.index.row_masks[brows] & cat_bits) != 0
+                bvals, brows = bvals[bkeep], brows[bkeep]
+            nd_, nb_ = norm(dv), norm(bvals)
+            uniq, inv = np.unique(
+                np.concatenate([dr, brows.astype(np.int64)]), return_inverse=True
+            )
+            dacc = np.zeros(len(uniq), np.float32)
+            bacc = np.zeros(len(uniq), np.float32)
+            dacc[inv[: len(dr)]] = nd_
+            bacc[inv[len(dr):]] = nb_
+            comb = alpha * dacc + (1.0 - alpha) * bacc
+            kk = min(k, len(uniq))
+            top = np.argpartition(-comb, kk - 1)[:kk] if kk else np.array([], np.int64)
+            top = top[np.argsort(-comb[top], kind="stable")]
+            out_scores[qi, :kk] = comb[top]
+            out_rows[qi, :kk] = uniq[top]
+        return out_scores, out_rows
+
     # -- hydration ----------------------------------------------------------
 
+    _META_COLS = ("chunk_id", "paper_id", "category", "section", "page", "text")
+    _EAGER_META_MAX_ROWS = 200_000
+
+    def _use_lazy_hydration(self) -> bool:
+        if self.corpus is None:
+            return False
+        if self.lazy_hydration is not None:
+            return self.lazy_hydration
+        n = getattr(self.corpus, "num_rows", None)
+        return (
+            getattr(self.corpus, "take_rows", None) is not None
+            and n is not None
+            and n > self._EAGER_META_MAX_ROWS
+        )
+
+    def warm_hydration(self) -> int:
+        """Prewarm lazy hydration: load every corpus row group into the
+        reader's bounded cache and build the index → corpus row map, so
+        serving windows never pay cold Parquet reads. No-op (returns 0)
+        in eager mode. Returns the cached group count."""
+        if not self._use_lazy_hydration():
+            return 0
+        self._index_to_corpus_rows()
+        warm = getattr(self.corpus, "warm_cache", None)
+        return warm(list(self._META_COLS)) if warm is not None else 0
+
+    def _index_to_corpus_rows(self):
+        """Index row → corpus row map for lazy hydration. ``None`` means
+        identity (index built over the whole corpus in row order);
+        otherwise an int64 array (-1: not in the corpus) built by one
+        streaming pass over the chunk_id column."""
+        if self._row_map is None:
+            if self.index.chunk_ids is None:
+                self._row_map = "identity"
+            else:
+                want = {cid: i for i, cid in enumerate(self.index.chunk_ids)}
+                arr = np.full(len(self.index.chunk_ids), -1, np.int64)
+                crow = 0
+                for batch in self.corpus.iter_batches(columns=["chunk_id"]):
+                    for cid in batch.column("chunk_id").to_pylist():
+                        j = want.get(cid)
+                        if j is not None and arr[j] < 0:
+                            arr[j] = crow
+                        crow += 1
+                self._row_map = arr
+        return None if isinstance(self._row_map, str) else self._row_map
+
     def _hydrate_window(self, scores, rows, qn) -> list[list[SearchResult]]:
-        return [self._hydrate(scores[i], rows[i]) for i in range(qn)]
+        """Hydrate a whole window. Empty slots and padding (-inf) are
+        dropped. Lazy mode fetches all the window's rows in one
+        ``take_rows`` call (only the row groups holding hits); eager mode
+        reads the in-memory table."""
+        if not self._use_lazy_hydration():
+            with METRICS.timer("search.hydrate"):
+                return [self._hydrate(scores[i], rows[i]) for i in range(qn)]
+        rmap = self._index_to_corpus_rows()
+        keep: list[list[tuple[int, float, int]]] = []  # (index_row, score, flat_pos|-1)
+        flat_corpus_rows: list[int] = []
+        for qi in range(qn):
+            entries = []
+            for s, r in zip(scores[qi].tolist(), rows[qi].tolist()):
+                if r < 0 or not np.isfinite(s):
+                    continue
+                cr = int(r) if rmap is None else int(rmap[r])
+                if cr >= 0:
+                    entries.append((int(r), float(s), len(flat_corpus_rows)))
+                    flat_corpus_rows.append(cr)
+                else:  # chunk_id not in this corpus: keep score + id only
+                    entries.append((int(r), float(s), -1))
+            keep.append(entries)
+        with METRICS.timer("search.hydrate"):
+            tbl = self.corpus.take_rows(flat_corpus_rows, columns=list(self._META_COLS))
+        cols = {name: tbl.column(name).to_pylist() for name in self._META_COLS}
+        out_all = []
+        for entries in keep:
+            out = []
+            for r, s, fp in entries:
+                res = SearchResult(row=r, score=s)
+                if self.index.chunk_ids is not None:
+                    res.chunk_id = self.index.chunk_ids[r]
+                if fp >= 0:
+                    res.chunk_id = cols["chunk_id"][fp]
+                    res.paper_id = cols["paper_id"][fp]
+                    res.category = cols["category"][fp]
+                    res.section = cols["section"][fp]
+                    res.page = int(cols["page"][fp])
+                    res.text = cols["text"][fp]
+                out.append(res)
+            out_all.append(out)
+        return out_all
+
+    def _load_meta(self):
+        if self._meta_cache is None and self.corpus is not None:
+            table = self.corpus.read_all(columns=list(self._META_COLS))
+            self._meta_cache = {
+                name: table.column(name).to_pylist() for name in table.schema.names
+            }
+            self._meta_by_id = {
+                cid: i for i, cid in enumerate(self._meta_cache["chunk_id"])
+            }
+        return self._meta_cache
 
     def _hydrate(self, scores, rows) -> list[SearchResult]:
-        """Rows and scores; empty slots and padding (-inf) are dropped."""
-        return [
-            SearchResult(row=int(r), score=float(s))
-            for s, r in zip(scores.tolist(), rows.tolist())
-            if r >= 0 and np.isfinite(s)
-        ]
+        meta = self._load_meta()
+        out = []
+        for s, r in zip(scores.tolist(), rows.tolist()):
+            if r < 0 or not np.isfinite(s):
+                continue
+            res = SearchResult(row=int(r), score=float(s))
+            if meta is not None:
+                # the index may cover a filtered subset of the corpus:
+                # index row -> chunk_id -> corpus row when ids exist
+                cr = r
+                if self.index.chunk_ids is not None:
+                    res.chunk_id = self.index.chunk_ids[r]
+                    cr = self._meta_by_id.get(res.chunk_id, -1)
+                if 0 <= cr < len(meta["chunk_id"]):
+                    res.chunk_id = meta["chunk_id"][cr]
+                    res.paper_id = meta["paper_id"][cr]
+                    res.category = meta["category"][cr]
+                    res.section = meta["section"][cr]
+                    res.page = int(meta["page"][cr])
+                    res.text = meta["text"][cr]
+            out.append(res)
+        return out

@@ -5,7 +5,8 @@ design: zero new dependencies, one process, the engine underneath.
 Endpoints:
 
 - ``POST /search``  body: {"queries": [str], "k": int?,
-  "categories": [str]?, "hybrid_alpha": float?} → {"results": [[hit]]}
+  "categories": [str]?, "hybrid_alpha": float?} → {"results": [[hit]]};
+  a reranked hit carries its pre-rerank score as ``dense_score``
 - ``POST /admin/reload`` → 501: live index reload (the reference's
   zero-downtime swap) comes with the port of ``prepare_reload``.
 - ``GET /healthz``  → {"status": "ok", "rows": N, "dim": D, ...}
@@ -242,8 +243,6 @@ def make_handler(engine, index_stats: dict, batcher: MicroBatcher):
                 )
             except (ValueError, KeyError, json.JSONDecodeError) as exc:
                 self._reply(400, {"error": str(exc)})
-            except NotImplementedError as exc:  # a route of a later slice
-                self._reply(501, {"error": str(exc)})
             except Exception as exc:  # noqa: BLE001 — serving must not die
                 log.error("search failed: %s", exc)
                 self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})

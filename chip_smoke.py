@@ -45,11 +45,19 @@ its first failure:
    plain scans, its speed beside the bf16 encoder's;
 4. serving: HTTP /search answers (with and without categories, a server
    probing the IVF, a server with the W8A8 encoder) equal engine.search;
-5. the kernels line, then the result line.
+5. the flagship route over phase 3's int8 index and encoder: a 2M-chunk
+   synthetic corpus (hydration), BM25 built by the native library
+   (g++), hybrid at alpha 0.7, the MiniLM-L6 cross-encoder (bf16, top
+   50, pairs of 256 tokens, 2,048 pairs a window, and its cascade):
+   the native tokenizer and BM25 against the Python ones, hybrid windows
+   (K2, K4 with categories) bitwise a plain recomputation, the fp32
+   cross-encoder on the card against the CPU, stage times, qps and the
+   rerank's TFLOP/s, an HTTP server equal to engine.search;
+6. the kernels line, then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
-slices 1–2 (phases 3–4), again before the f32 route and again before
-the W8A8 path, read just after each.
+slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
+path and before the flagship path's run, read just after each.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -64,8 +72,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1138,6 +1148,483 @@ def phase_serving(engines, texts, routes=(("bf16", None), ("int8", None), ("bf16
             thread.join(timeout=30)
 
 
+# phase 5: the reference's flagship retrieval (configs/default.yaml:78-85)
+FLAGSHIP_ALPHA = 0.7
+RERANK_TOP_K = 50
+PAIR_LEN = 256
+WINDOW_CAP = 2048
+CASCADE = 20
+RERANK_BATCH = 1024  # tools/serve_bench.py:276-289
+CORPUS_VOCAB = 50_000  # tools/serve_bench.py:231-253: words w0 .. w49999
+BM25_SUBSET = 20_000
+WINDOW_RUNS = 7  # timed windows of each route and Q
+BM25_RTOL = 1e-6  # the native BM25 scorer against Python's (the reference's tests/test_bm25.py)
+CE_TOL = 1e-4  # the fp32 cross-encoder on the card against the CPU
+
+
+class InMemoryCorpus:
+    """The corpus contract the engine reads (``read_all(columns)`` and
+    ``take_rows(rows, columns)``, each with ``.column(name).to_pylist()``
+    and ``.schema.names``, ``texts()``, ``num_rows``) over Python lists:
+    the card's machine has no pyarrow for the Parquet store. With
+    ``take_rows`` a corpus of more than 200,000 rows takes the engine's
+    lazy hydration, as a Parquet store of that size does."""
+
+    def __init__(self, columns: dict[str, list]) -> None:
+        self.columns = columns
+        self.num_rows = len(columns["text"])
+
+    @staticmethod
+    def _table(columns: dict[str, list]):
+        return types.SimpleNamespace(
+            schema=types.SimpleNamespace(names=list(columns)),
+            column=lambda name: types.SimpleNamespace(to_pylist=lambda: columns[name]))
+
+    def read_all(self, columns=None):
+        return self._table({c: self.columns[c] for c in (columns or self.columns)})
+
+    def take_rows(self, rows, columns=None):
+        """The rows' values in ``rows`` order, duplicates allowed."""
+        rows = [int(r) for r in rows]
+        if any(not 0 <= r < self.num_rows for r in rows):
+            raise IndexError(f"corpus row out of range [0, {self.num_rows})")
+        return self._table({c: [self.columns[c][r] for r in rows]
+                            for c in (columns or self.columns)})
+
+    def texts(self) -> list[str]:
+        return self.columns["text"]
+
+
+def synthetic_chunks(n: int, seed: int = 0) -> list[str]:
+    """serve_bench.py's synthetic corpus: 20-39 words a chunk, word ids
+    log-uniform over the 50,000-word vocabulary."""
+    vocab = [f"w{i}" for i in range(CORPUS_VOCAB)]
+    rng = np.random.default_rng(seed)
+    texts: list[str] = []
+    for s in range(0, n, 50_000):
+        m = min(50_000, n - s)
+        lens = rng.integers(20, 40, m)
+        u = rng.random(int(lens.sum()))
+        ids = np.minimum((np.exp(u * np.log(CORPUS_VOCAB)) - 1).astype(np.int64),
+                         CORPUS_VOCAB - 1)
+        words = [vocab[i] for i in ids.tolist()]
+        pos = 0
+        for ln in lens.tolist():
+            texts.append(" ".join(words[pos:pos + ln]))
+            pos += ln
+    return texts
+
+
+def corpus_queries(n: int, seed: int = 42) -> list[str]:
+    """Six words of the corpus vocabulary each (serve_bench.py:377-395)."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{rng.integers(0, CORPUS_VOCAB)}" for _ in range(6)) for _ in range(n)]
+
+
+def plain_hybrid(dv, dr, bm25_window, k, alpha, cat_bits=None, row_masks=None):
+    """The reference's merge (search/engine.py:668-724) written out again
+    in numpy: per query the finite dense candidates and the BM25
+    candidates (inside the categories), each min-max normalized (all equal:
+    zeros if all zero, else ones), alpha·dense + (1-alpha)·bm25 over their
+    union in row order, the top k by score as the reference selects them
+    (a partition, then a stable sort)."""
+    nq = dv.shape[0]
+    out_v = np.full((nq, k), -np.inf, np.float32)
+    out_r = np.full((nq, k), -1, np.int64)
+
+    def norm(v):
+        if len(v) == 0:
+            return v
+        lo, hi = float(v.min()), float(v.max())
+        if hi > lo:
+            return (v - lo) / (hi - lo)
+        return np.zeros_like(v) if hi == 0.0 else np.ones_like(v)
+
+    for i in range(nq):
+        keep = (dr[i] >= 0) & np.isfinite(dv[i])
+        d_v, d_r = dv[i][keep], dr[i][keep].astype(np.int64)
+        b_v, b_r = bm25_window[i]
+        if cat_bits is not None:
+            inside = (row_masks[b_r] & cat_bits) != 0
+            b_v, b_r = b_v[inside], b_r[inside]
+        rows, where = np.unique(np.concatenate([d_r, b_r.astype(np.int64)]),
+                                return_inverse=True)
+        dense = np.zeros(len(rows), np.float32)
+        sparse = np.zeros(len(rows), np.float32)
+        dense[where[:len(d_r)]] = norm(d_v)
+        sparse[where[len(d_r):]] = norm(b_v)
+        comb = alpha * dense + (1.0 - alpha) * sparse
+        kk = min(k, len(rows))
+        if kk:
+            top = np.argpartition(-comb, kk - 1)[:kk]
+            top = top[np.argsort(-comb[top], kind="stable")]
+            out_v[i, :kk] = comb[top]
+            out_r[i, :kk] = rows[top]
+    return out_v, out_r
+
+
+def python_bm25_window(bm25, queries, c):
+    """Each query's top ``c`` matched documents by Python's BM25 scores
+    (``BM25Index.scores``), ties to the lower row as the native scorer
+    orders them (the reference's Python ``topk`` leaves ties at the cut
+    in its partition's order)."""
+    out = []
+    for q in queries:
+        s = bm25.scores(q)
+        docs = np.flatnonzero(s)
+        top = docs[np.lexsort((docs, -s[docs]))[:c]]
+        out.append((s[top], top.astype(np.int64)))
+    return out
+
+
+def bm25_gap_limit(window, alpha, cat_bits=None, row_masks=None) -> np.ndarray:
+    """Per query, how far a merged score may move when every BM25 score of
+    the query's window (inside the categories) moves by at most BM25_RTOL
+    of itself: min-max normalization moves the score, the min and the max
+    by rtol·max each, so a normalized score by at most
+    4·rtol·max/(max − min) (all of 1 where max − min is within that),
+    times (1 − alpha); plus 8 float32 ulps of 1 for the merge's rounding."""
+    out = []
+    for b_v, b_r in window:
+        if cat_bits is not None:
+            b_v = b_v[(row_masks[b_r] & cat_bits) != 0]
+        move = 0.0
+        if len(b_v):
+            lo, hi = float(b_v.min()), float(b_v.max())
+            span = hi - lo
+            move = 1.0 if span <= 4 * BM25_RTOL * hi else min(1.0, 4 * BM25_RTOL * hi / span)
+        out.append((1.0 - alpha) * move + 8 * np.finfo(np.float32).eps)
+    return np.array(out)
+
+
+def check_hybrid(hits, want_v, want_r, corpus, what, limit=None):
+    """Rows equal exactly, every hit hydrated with its row's text and
+    category, the scores bitwise or, with ``limit``, within each query's
+    limit."""
+    got_r = [[h.row for h in row] for row in hits]
+    want = [[int(r) for r in row if r >= 0] for row in want_r]
+    errs = np.array([max((abs(h.score - float(v)) for h, v in zip(row, wv)), default=0.0)
+                     for row, wv in zip(hits, want_v)])
+    lim = np.zeros(len(errs)) if limit is None else limit
+    hydrated = all(h.text == corpus.columns["text"][h.row] and
+                   h.category == corpus.columns["category"][h.row] and h.chunk_id
+                   for row in hits for h in row)
+    bound = ("bitwise" if limit is None else
+             f"per-query limit {lim.min():.3e} .. {lim.max():.3e}, worst err / limit "
+             f"{float(np.max(errs / lim)):.3f}")
+    print(f"  {what}: rows equal: {got_r == want}, max |score err| {errs.max():.3e} "
+          f"({bound}), hydrated: {hydrated}", flush=True)
+    if got_r != want or bool(np.any(errs > lim)) or not hydrated:
+        fail(f"{what}: the engine disagrees with the plain recomputation")
+
+
+# the engine's METRICS timers behind each stage (the encoder's and the
+# scan's launches return at once: search.fetch waits for both on the card)
+STAGES = {"encode (host)": ("search.encode",),
+          "scan (launch + fetch)": ("search.dense", "search.fetch"),
+          "bm25": ("search.bm25",), "hydrate": ("search.hydrate",),
+          "rerank": ("search.rerank",)}
+
+
+def stage_ms(snapshot: dict) -> dict:
+    """The ms of each stage in a METRICS snapshot."""
+    t = snapshot["timers"]
+    return {stage: sum(t[n]["total_s"] for n in names if n in t) * 1e3
+            for stage, names in STAGES.items()}
+
+
+def phase_flagship(indexes, engines, texts, seed, results, card) -> dict:
+    """Hybrid BM25 + dense over phase 3's int8 index, hydration from a
+    2M-chunk corpus, the MiniLM-L6 cross-encoder: checks first, then the
+    path's counted run (timed windows of 32 and 512 queries, the plain
+    recomputations, one HTTP server). Returns the launches of that run."""
+    import dataclasses
+
+    from arxiv_rag_tpu_torch.config import RetrievalConfig
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.logging_utils import METRICS
+    from arxiv_rag_tpu_torch.models.bert import Bert, BertConfig, random_bert
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.search.bm25 import BM25Index
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+    from arxiv_rag_tpu_torch.search.rerank import CrossEncoderReranker, _bert_matmul_flops
+    from arxiv_rag_tpu_torch.serve import serve_in_thread
+    from arxiv_rag_tpu_torch.tokenize import native
+    from arxiv_rag_tpu_torch.tokenize.native import NativeWordPieceTokenizer
+
+    print("== phase 5: the flagship route (hybrid BM25 + dense, hydration, MiniLM-L6 "
+          f"cross-encoder rerank) on {card}", flush=True)
+    out = results.setdefault("flagship", {})
+    t0 = time.perf_counter()
+    native.build_native(require=True)  # g++: raises with its output
+    print(f"  native library (WordPiece + BM25, g++) ready in {time.perf_counter() - t0:.1f} s: "
+          f"{native.lib_path().name}", flush=True)
+    idx = indexes["int8"]
+    embedder = engines["bf16"].embedder
+    tok = embedder.tokenizer
+
+    # the native tokenizer against the Python one, on phase 3's 512-chunk window
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        inv = {i: t for t, i in tok.vocab.items()}
+        vocab.write_text("\n".join(inv[i] for i in range(len(inv))) + "\n", encoding="utf-8")
+        nat = NativeWordPieceTokenizer(vocab, specials=tok.specials)
+    max_b = embedder.buckets[-1]
+    same = all(np.array_equal(a, b) for a, b in zip(nat.encode_batch(texts, max_len=max_b),
+                                                     tok.encode_batch(texts, max_len=max_b)))
+    nemb = Embedder(embedder.model, tok, buckets=embedder.buckets,
+                    batch_sizes=embedder.batch_sizes, native_tokenizer=nat)
+    tok_ms = {}
+    for label, e in (("python", embedder), ("native", nemb)):
+        e.tokenize_bucketed(texts)
+        t0 = time.perf_counter()
+        got = e.tokenize_bucketed(texts)
+        tok_ms[label] = (time.perf_counter() - t0) * 1e3
+        if label == "python":
+            want = got
+    same = same and got.keys() == want.keys() and all(
+        got[b][0] == want[b][0] and np.array_equal(got[b][1], want[b][1]) and
+        np.array_equal(got[b][2], want[b][2]) for b in got)
+    out["tokenize_ms"] = tok_ms
+    print(f"  tokenization of the {len(texts)}-chunk window: native (ids, mask) equal the "
+          f"Python tokenizer's: {same}; Python {tok_ms['python']:.1f} ms, native "
+          f"{tok_ms['native']:.1f} ms ({tok_ms['python'] / tok_ms['native']:.1f}x)", flush=True)
+    if not same:
+        fail("the native tokenizer disagrees with the Python tokenizer")
+
+    # the corpus: one synthetic chunk per index row, categories as the index's
+    n = idx.num_rows
+    t0 = time.perf_counter()
+    chunks = synthetic_chunks(n, seed)
+    cats = [CATS[int(m).bit_length() - 1] for m in idx.row_masks.tolist()]
+    corpus = InMemoryCorpus({
+        "chunk_id": [f"p{i // 20}#{i % 20}" for i in range(n)],
+        "paper_id": [f"p{i // 20}" for i in range(n)], "category": cats,
+        "section": ["body"] * n, "page": [1] * n, "text": chunks})
+    print(f"  corpus: {n} synthetic chunks ({CORPUS_VOCAB}-word vocabulary, log-uniform, "
+          f"20-39 words) made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # BM25: the native index build and window scorer against Python on a subset
+    sub = chunks[:BM25_SUBSET]
+    py, nb = BM25Index.build(sub, native=False), BM25Index.build(sub, native=True)
+    same = py.vocab.keys() == nb.vocab.keys() and np.array_equal(py.doc_lens, nb.doc_lens) \
+        and all(np.array_equal(py.postings[i].doc_ids, nb.postings[nb.vocab[t]].doc_ids) and
+                np.array_equal(py.postings[i].tfs, nb.postings[nb.vocab[t]].tfs)
+                for t, i in py.vocab.items())
+    qs = corpus_queries(512, seed=7)
+    batch = nb.topk_batch(qs, RERANK_TOP_K)
+    loop = [py.topk(q, RERANK_TOP_K) for q in qs]
+    rows_ok = all(np.array_equal(br, lr) or np.allclose(np.sort(bv), np.sort(lv), rtol=1e-6)
+                  for (bv, br), (lv, lr) in zip(batch, loop))
+    err = max((float(np.max(np.abs(bv - lv) / np.maximum(np.abs(lv), 1e-30)))
+               for (bv, _), (lv, _) in zip(batch, loop) if len(lv)), default=0.0)
+    print(f"  BM25 over {BM25_SUBSET} chunks: native postings equal Python's: {same}; "
+          f"topk_batch of {len(qs)} queries vs the Python loop: rows equal {rows_ok}, "
+          f"max rel |score err| {err:.2e} (rtol 1e-6)", flush=True)
+    if not same or not rows_ok or not err <= 1e-6:
+        fail("the native BM25 disagrees with the Python BM25")
+    t0 = time.perf_counter()
+    bm25 = BM25Index.build(chunks, native=True)
+    out["bm25_build_s"] = time.perf_counter() - t0
+    print(f"  BM25Index.build(native=True) over {n} chunks: {out['bm25_build_s']:.1f} s, "
+          f"{len(bm25.vocab)} terms", flush=True)
+
+    # the cross-encoder: MiniLM-L6 widths, seeded random weights
+    bcfg = BertConfig(pad_token_id=tok.pad_id)
+    model = random_bert(bcfg, seed=seed + 5)  # bf16 weights and compute, on the card
+    rr = CrossEncoderReranker(model, tok, batch_size=RERANK_BATCH, max_pair_len=PAIR_LEN)
+    cfg = RetrievalConfig(hybrid_alpha=FLAGSHIP_ALPHA, rerank_top_k=RERANK_TOP_K,
+                          rerank_max_pair_len=PAIR_LEN, rerank_max_window_pairs=WINDOW_CAP)
+    hybrid = SearchEngine(idx, embedder=embedder, corpus=corpus, cfg=cfg, bm25=bm25)
+    flagship = {
+        "hybrid": hybrid,
+        "hybrid_rerank": SearchEngine(idx, embedder=embedder, corpus=corpus, cfg=cfg,
+                                      bm25=bm25, reranker=rr),
+        f"hybrid_rerank_cascade{CASCADE}": SearchEngine(
+            idx, embedder=embedder, corpus=corpus, bm25=bm25, reranker=rr,
+            cfg=dataclasses.replace(cfg, rerank_cascade_depth=CASCADE)),
+    }
+    if not all(e._use_lazy_hydration() for e in flagship.values()):
+        fail("a 2M-row corpus with take_rows must take the engine's lazy hydration")
+    t0 = time.perf_counter()
+    for e in flagship.values():
+        e.warm_hydration()
+    print(f"  lazy hydration (take_rows) warmed for 3 engines in "
+          f"{time.perf_counter() - t0:.1f} s; reranker buckets warmed: {rr.warm()}", flush=True)
+    fwd = {}
+    for bucket in (128, PAIR_LEN):  # one padded batch's forward on the card alone
+        ids = torch.full((RERANK_BATCH, bucket), tok.cls_id, dtype=torch.int32, device="cuda")
+        ones = torch.ones_like(ids)
+        fwd[bucket] = median_ms(lambda: model.classify(ids, ones, ones), runs=5)
+        flops = _bert_matmul_flops(bcfg, RERANK_BATCH * bucket, bucket)
+        print(f"  cross-encoder forward [{RERANK_BATCH}, {bucket}] bf16 on the card (CUDA "
+              f"events): {fwd[bucket]:.3f} ms, {flops / fwd[bucket] / 1e9:.1f} TFLOP/s of "
+              f"matmul FLOPs", flush=True)
+    out["ce_forward_ms"] = fwd
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the fp32 cross-encoder must run in full fp32 (device.py)")
+    q32 = corpus_queries(32)
+    cand = hybrid.search(q32[:2], k=32)
+    pairs = [(q, h.text) for q, hits in zip(q32, cand) for h in hits][:48]
+    fp32 = Bert(bcfg, torch.float32).cuda().eval()
+    fp32.load_state_dict({k: v.to(torch.float32) for k, v in model.state_dict().items()})
+    rr32 = CrossEncoderReranker(fp32, tok, batch_size=len(pairs), max_pair_len=PAIR_LEN)
+    s_card = rr32.score_pairs(pairs)
+    s_cpu = CrossEncoderReranker(copy.deepcopy(fp32).cpu(), tok, batch_size=len(pairs),
+                                 max_pair_len=PAIR_LEN).score_pairs(pairs)
+    err32 = float(np.max(np.abs(s_card - s_cpu)))
+    bf_card = CrossEncoderReranker(model, tok, batch_size=len(pairs),
+                                   max_pair_len=PAIR_LEN).score_pairs(pairs)
+    bf_cpu = CrossEncoderReranker(copy.deepcopy(model).cpu(), tok, batch_size=len(pairs),
+                                  max_pair_len=PAIR_LEN).score_pairs(pairs)
+    errbf = float(np.max(np.abs(bf_card - bf_cpu)))
+    cand = hybrid.search(q32, k=RERANK_TOP_K)
+    passages = [[h.text for h in hits] for hits in cand]
+    top32 = rr32.rerank_window(q32, passages, 10)
+    topbf = rr.rerank_window(q32, passages, 10)
+    overlap = float(np.mean([len(set(a[1].tolist()) & set(b[1].tolist())) / 10
+                             for a, b in zip(top32, topbf)]))
+    out.update(ce_fp32_err=err32, ce_bf16_err=errbf, ce_bf16_top10_overlap=overlap)
+    print(f"  cross-encoder ({bcfg.num_hidden_layers} x {bcfg.hidden_size}, FFN "
+          f"{bcfg.intermediate_size}), {len(pairs)} pairs of bucket <= {PAIR_LEN}: fp32 on "
+          f"the card vs the CPU fp32 forward max |logit err| {err32:.3e} (atol {CE_TOL}); "
+          f"bf16 on the card vs the CPU bf16 forward max |logit err| {errbf:.3e}; bf16 vs "
+          f"fp32 top-10 overlap over {len(q32)} queries x {RERANK_TOP_K} candidates: "
+          f"{overlap:.3f}", flush=True)
+    if not err32 <= CE_TOL:
+        fail("the fp32 cross-encoder on the card disagrees with the CPU forward")
+    del fp32, rr32
+    torch.cuda.empty_cache()
+
+    reset_all_launches()  # the flagship path's run starts here
+    qmask_bits = int(np.uint32(idx.category_mask(FILTER)).view(np.int32))
+    for nq in (32, 512):
+        qtexts = corpus_queries(nq)
+        emb, m = embedder.encode_window_device(qtexts)
+        emb = emb[:m]
+        # the engine's BM25 window (native) against Python's BM25: the same
+        # rows, scores within the reference's rtol (another summation order;
+        # min-max normalization scales that up by score / (max - min))
+        py_window = python_bm25_window(bm25, qtexts, RERANK_TOP_K)
+        nat_window = bm25.topk_batch(qtexts, RERANK_TOP_K)
+        rows_ok = all(np.array_equal(pr, nr) for (_, pr), (_, nr) in zip(py_window, nat_window))
+        err = max((float(np.max(np.abs(pv - nv) / np.abs(pv))) for (pv, _), (nv, _)
+                   in zip(py_window, nat_window) if len(pv)), default=0.0)
+        print(f"  BM25 window Q={nq} over {n} chunks, native vs Python: rows equal {rows_ok}, "
+              f"max rel |score err| {err:.2e} (rtol {BM25_RTOL})", flush=True)
+        if not rows_ok or not err <= BM25_RTOL:
+            fail(f"BM25 window Q={nq}: the native scorer disagrees with Python's")
+        for cats_ in (None, FILTER):
+            hits = hybrid.search(qtexts, k=10, categories=cats_)
+            if cats_ is None:
+                dv, dr = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales, emb,
+                                                  RERANK_TOP_K, n_valid=idx._n_valid)
+                bits = None
+            else:
+                qmask = torch.full((nq,), qmask_bits, dtype=torch.int32, device="cuda")
+                dv, dr = ft.fused_topk_int8_masked_plain(
+                    idx._device_values, idx._device_scales, idx._device_masks, qmask, emb,
+                    RERANK_TOP_K, n_valid=idx._n_valid)
+                bits = idx.category_mask(cats_)
+            dv, dr = dv.cpu().numpy(), dr.cpu().numpy()
+            label = "hybrid" if cats_ is None else f"hybrid categories={cats_} (K4 s8s8)"
+            wv, wr = plain_hybrid(dv, dr, py_window, 10, FLAGSHIP_ALPHA, bits, idx.row_masks)
+            check_hybrid(hits, wv, wr, corpus,
+                         f"{label} Q={nq} vs plain int8 scan + Python BM25 + numpy merge",
+                         limit=bm25_gap_limit(py_window, FLAGSHIP_ALPHA, bits, idx.row_masks))
+            wv, wr = plain_hybrid(dv, dr, nat_window, 10, FLAGSHIP_ALPHA, bits, idx.row_masks)
+            check_hybrid(hits, wv, wr, corpus,
+                         f"{label} Q={nq} vs plain int8 scan + native BM25 window + numpy "
+                         "merge")
+            if cats_ is not None and not all(h.category in FILTER for row in hits for h in row):
+                fail(f"{label}: a hit outside the categories")
+
+    # each window is one search, timed alone; qps and stage times are the
+    # median of WINDOW_RUNS windows (host-bound, they vary from run to run)
+    stages, qps, spread = {}, {}, {}
+    for label, engine in flagship.items():
+        for nq in (32, 512):
+            qtexts = corpus_queries(nq)
+            engine.search(qtexts, k=10)  # warm
+            key = f"{label}_q{nq}"
+            secs, per_run = [], []
+            for _ in range(WINDOW_RUNS):
+                before = dataclasses.replace(rr.stats, buckets=dict(rr.stats.buckets))
+                METRICS.reset()
+                t0 = time.perf_counter()
+                hits = engine.search(qtexts, k=10)
+                secs.append(time.perf_counter() - t0)
+                snap = METRICS.snapshot()
+                st = stage_ms(snap)
+                if engine.reranker is not None:
+                    flops = rr.stats.flops_padded - before.flops_padded
+                    st.update(pairs=rr.stats.pairs - before.pairs,
+                              tflops=flops / snap["timers"]["search.rerank"]["total_s"] / 1e12,
+                              bucket_efficiency=(rr.stats.flops_useful - before.flops_useful)
+                              / flops,
+                              buckets={b: c - before.buckets.get(b, 0)
+                                       for b, c in rr.stats.buckets.items()
+                                       if c - before.buckets.get(b, 0)})
+                per_run.append(st)
+            qps[key] = nq / statistics.median(secs)
+            spread[key] = (nq / max(secs), nq / min(secs))
+            stages[key] = {name: statistics.median(r[name] for r in per_run)
+                           for name in per_run[0] if name != "buckets"}
+            if len(hits) != nq or not all(len(row) == 10 and all(
+                    np.isfinite(h.score) and h.text for h in row) for row in hits):
+                fail(f"{key}: expected 10 finite, hydrated hits per query")
+            line = ", ".join(f"{k} {stages[key][k]:.1f}" for k in STAGES)
+            extra = ""
+            if engine.reranker is not None:
+                if not all("dense_score" in h.extras for row in hits for h in row):
+                    fail(f"{key}: reranked hits without their dense_score")
+                stages[key]["buckets_per_window"] = per_run[-1]["buckets"]
+                extra = (f"; rerank {stages[key]['pairs']:.0f} pairs a window, "
+                         f"buckets {stages[key]['buckets_per_window']}, "
+                         f"{stages[key]['tflops']:.1f} TFLOP/s (flops_padded / stage time; "
+                         f"{100 * stages[key]['tflops'] * 1e12 / PEAK_OPS[torch.bfloat16]:.1f}% "
+                         f"of the bf16 peak), bucketing efficiency "
+                         f"{stages[key]['bucket_efficiency']:.3f}")
+            print(f"  {key}: median of {WINDOW_RUNS} windows {statistics.median(secs) * 1e3:.1f} "
+                  f"ms = {qps[key]:.1f} qps (windows {spread[key][0]:.1f} .. "
+                  f"{spread[key][1]:.1f} qps); median stages per window (ms): {line}{extra}",
+                  flush=True)
+    out["qps"], out["qps_range"], out["stages"] = qps, spread, stages
+
+    engine = flagship["hybrid_rerank"]
+    httpd, thread = serve_in_thread(engine, host="127.0.0.1", port=0)
+    port = httpd.server_address[1]
+    try:
+        qtexts = corpus_queries(64, seed=11)
+        for i in range(2):
+            batch = qtexts[i * 32:(i + 1) * 32]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/search",
+                data=json.dumps({"queries": batch, "k": 10}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answer = json.loads(resp.read())["results"]
+            want = [[(h.row, h.score, h.extras["dense_score"]) for h in hits]
+                    for hits in engine.search(batch, k=10)]
+            got = [[(h["row"], h["score"], h.get("dense_score")) for h in hits]
+                   for hits in answer]
+            if got != want:
+                fail(f"hybrid + rerank HTTP answer {i} differs from engine.search")
+        print("  hybrid + rerank server: 2 /search requests of 32 queries equal "
+              "engine.search, dense_score included", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.batcher.close()
+        httpd.server_close()
+        thread.join(timeout=30)
+    launches = all_launches()
+    for key, counter in (("K2", "fused_topk_int8"), ("K4", "fused_topk_masked")):
+        if launches[counter] < 1:
+            fail(f"the flagship path launched no {key} ({counter}) kernel")
+    return launches
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -1321,11 +1808,18 @@ def main() -> int:
             fail(f"the W8A8 path launched no {key} ({counter}) kernel")
     print(f"== W8A8 path launches: {w8a8_launches} (K7 is not on it: the encoder "
           "quantizes inside K8)", flush=True)
+    flagship_launches = phase_flagship(indexes, engines, texts, args.seed, results, card)
+    print(f"== flagship path launches: {flagship_launches} (K2 on the hybrid route, K4 "
+          "with categories)", flush=True)
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
           f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "
           f"{ {k: round(v, 1) for k, v in results['qps'].items()} }", flush=True)
     print(f"  IVF build {results['ivf_build_s']}", flush=True)
+    fl = results["flagship"]
+    print(f"  flagship ({card}): BM25 build {fl['bm25_build_s']:.1f} s; qps "
+          f"{ {k: round(v, 1) for k, v in fl['qps'].items()} }; tokenization ms "
+          f"{ {k: round(v, 1) for k, v in fl['tokenize_ms'].items()} }", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)

@@ -737,3 +737,144 @@ def test_quantized_encoder_kernel_route_bitwise_plain_route(gen, compute_dtype, 
         x, lin.weight, lin.scale, lin.bias, out_dtype=x.dtype))
     want = model.encode(ids, mask)
     assert torch.equal(got, want)
+
+
+# -- the flagship route: the cross-encoder and the hybrid merge on the card ---------
+
+
+def _pairs_batch(gen, vocab, b=6, s=96):
+    ids = torch.randint(5, vocab, (b, s), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 40:] = 0
+    mask[4, 7:] = 0
+    ids[mask == 0] = 0
+    types = torch.zeros_like(ids)
+    types[:, 20:] = 1
+    return ids, mask, types
+
+
+def test_bert_fp32_on_the_card_matches_the_cpu(gen):
+    """MiniLM-L6 widths in fp32: the card's forward (TF32 off) within
+    1e-4 of the CPU's on the same weights; classify and encode_sentences
+    too."""
+    import copy
+
+    from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = BertConfig(vocab_size=1000)
+    model = random_bert(cfg, seed=1, param_dtype=torch.float32, compute_dtype=torch.float32)
+    cpu = copy.deepcopy(model).cpu()
+    ids, mask, types = _pairs_batch(gen, cfg.vocab_size)
+    args_cpu = (ids.cpu(), mask.cpu(), types.cpu())
+    assert (model(ids, mask, types).cpu() - cpu(*args_cpu)).abs().max().item() <= 1e-4
+    assert (model.classify(ids, mask, types).cpu() - cpu.classify(*args_cpu)).abs().max() <= 1e-4
+    assert (model.encode_sentences(ids, mask).cpu()
+            - cpu.encode_sentences(ids.cpu(), mask.cpu())).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_pairs_on_the_card(gen, dtype):
+    """The reranker on the card against the same reranker on the CPU: fp32
+    within 1e-4, bf16 within 2e-2 (bf16 rounding of every layer); the
+    same batches, buckets and FLOP counts either way."""
+    import copy
+
+    from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
+    from arxiv_rag_tpu_torch.search.rerank import CrossEncoderReranker
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+    tok = WordPieceTokenizer.toy()
+    cfg = BertConfig(vocab_size=len(tok.vocab), num_hidden_layers=2, pad_token_id=tok.pad_id)
+    model = random_bert(cfg, seed=2, param_dtype=dtype, compute_dtype=dtype)
+    pairs = [(f"query {i % 3} words", "passage " + "text words " * (3 + 11 * (i % 4)))
+             for i in range(37)]
+    card = CrossEncoderReranker(model, tok, batch_size=16)
+    cpu = CrossEncoderReranker(copy.deepcopy(model).cpu(), tok, batch_size=16)
+    got, want = card.score_pairs(pairs), cpu.score_pairs(pairs)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert abs(got - want).max() <= tol
+    assert (card.stats.batches, card.stats.buckets, card.stats.flops_padded) == \
+           (cpu.stats.batches, cpu.stats.buckets, cpu.stats.flops_padded)
+    window = card.rerank_window(["query 1 words"], [[p for _, p in pairs]], 5)
+    assert len(window[0][1]) == 5
+
+
+def _plain_merge(dv, dr, window, k, alpha, cat_bits=None, row_masks=None):
+    """The reference's hybrid merge (search/engine.py:668-724) in numpy."""
+    import numpy as np
+
+    out = []
+    for i in range(dv.shape[0]):
+        keep = (dr[i] >= 0) & np.isfinite(dv[i])
+        d_v, d_r = dv[i][keep], dr[i][keep].astype(np.int64)
+        b_v, b_r = window[i]
+        if cat_bits is not None:
+            inside = (row_masks[b_r] & cat_bits) != 0
+            b_v, b_r = b_v[inside], b_r[inside]
+
+        def norm(v):
+            if len(v) == 0:
+                return v
+            lo, hi = float(v.min()), float(v.max())
+            if hi > lo:
+                return (v - lo) / (hi - lo)
+            return np.zeros_like(v) if hi == 0.0 else np.ones_like(v)
+
+        rows, where = np.unique(np.concatenate([d_r, b_r]), return_inverse=True)
+        dense, sparse = np.zeros(len(rows), np.float32), np.zeros(len(rows), np.float32)
+        dense[where[:len(d_r)]] = norm(d_v)
+        sparse[where[len(d_r):]] = norm(b_v)
+        comb = alpha * dense + (1.0 - alpha) * sparse
+        kk = min(k, len(rows))
+        top = np.argpartition(-comb, kk - 1)[:kk]
+        top = top[np.argsort(-comb[top], kind="stable")]
+        out.append([(int(r), float(v)) for r, v in zip(rows[top], comb[top])])
+    return out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_hybrid_window_bitwise_plain_recomputation(gen, masked):
+    """A hybrid window on the card (K2, or K4 s8s8 with categories) equals
+    the plain int8 scan + the BM25 window + the reference's merge in
+    numpy, rows and scores bit for bit."""
+    import numpy as np
+
+    from arxiv_rag_tpu_torch.index.store import build_index
+    from arxiv_rag_tpu_torch.search.bm25 import BM25Index
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    n, d, k, c = 20_000, 768, 10, 50
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(3000)]
+    texts = [" ".join(words[j] for j in rng.integers(0, 3000, int(rng.integers(20, 40))))
+             for _ in range(n)]
+    cats = [f"cs.{i % 5}" for i in range(n)]
+    idx = build_index(_unit(n, d, gen), categories=cats, dtype="int8").to_device()
+    queries = [" ".join(words[j] for j in rng.integers(0, 3000, 6)) for _ in range(40)]
+    q = _unit(len(queries), d, gen)
+
+    class Embedder:
+        def encode_texts(self, texts):
+            return q[: len(texts)].cpu().numpy()
+
+    bm25 = BM25Index.build(texts)
+    engine = SearchEngine(idx, embedder=Embedder(), bm25=bm25)
+    want_cats = ["cs.1", "cs.3"] if masked else None
+    ft.reset_launches()
+    hits = engine.search(queries, k=k, categories=want_cats, hybrid_alpha=0.7)
+    assert ft.LAUNCHES["fused_topk_masked" if masked else "fused_topk_int8"] == 1
+    if masked:
+        bits = idx.category_mask(want_cats)
+        qmask = torch.full((len(queries),), int(np.uint32(bits).view(np.int32)),
+                           dtype=torch.int32, device="cuda")
+        dv, dr = ft.fused_topk_int8_masked_plain(idx._device_values, idx._device_scales,
+                                                 idx._device_masks, qmask, q, c,
+                                                 n_valid=idx._n_valid)
+    else:
+        bits = None
+        dv, dr = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales, q, c,
+                                          n_valid=idx._n_valid)
+    want = _plain_merge(dv.cpu().numpy(), dr.cpu().numpy(), bm25.topk_batch(queries, c), k,
+                        0.7, bits, idx.row_masks)
+    assert [[(h.row, h.score) for h in row] for row in hits] == want

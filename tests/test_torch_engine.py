@@ -155,22 +155,25 @@ def test_search_launch_counts_and_buckets(stack):
 
 
 def test_later_slice_routes_raise(stack):
+    """Live reload is the one route of a later slice. Hybrid, rerank and
+    corpus hydration are ported (tests/test_torch_hybrid.py); without a
+    BM25 index ``hybrid_alpha`` leaves the dense route as it is, as in
+    the reference."""
     jeng, eng = _engines(stack, "float32")
     q = stack[4][:1]
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        eng.search(q, hybrid_alpha=0.7)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        SearchEngine(eng.index, bm25=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="rerank"):
-        SearchEngine(eng.index, reranker=object(), device="cpu")
-    # category filters and IVF are ported: with no IVF attached, nprobe
-    # takes the flat route (as in the reference)
-    assert [h.row for h in eng.search(q, nprobe=4)[0]] == [h.row for h in eng.search(q)[0]]
     with pytest.raises(NotImplementedError, match="reload"):
         eng.prepare_reload("somewhere")
-    with pytest.raises(NotImplementedError, match="corpus"):
-        SearchEngine(eng.index, corpus=object(), device="cpu")
-    eng.search(q, hybrid_alpha=1.0)  # pure dense is this slice
+    dense = [h.row for h in eng.search(q)[0]]
+    assert [h.row for h in eng.search(q, hybrid_alpha=0.7)[0]] == dense == \
+           [h.row for h in jeng.search(q, hybrid_alpha=0.7)[0]]
+    from arxiv_rag_tpu_torch.search.bm25 import BM25Index
+
+    with pytest.raises(ValueError, match="index row order"):
+        SearchEngine(eng.index, bm25=BM25Index.build(stack[2][:10]), device="cpu")
+    # category filters and IVF are ported: with no IVF attached, nprobe
+    # takes the flat route (as in the reference)
+    assert [h.row for h in eng.search(q, nprobe=4)[0]] == dense
+    eng.search(q, hybrid_alpha=1.0)
 
 
 def test_serving_round_trip(stack):

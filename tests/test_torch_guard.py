@@ -34,6 +34,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert n_modules >= 15  # every module of the port was imported
 
 
+def test_port_imports_without_pyarrow():
+    """The card's machine has no pyarrow: every module of the port
+    imports with it blocked (the corpus store imports it where used)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = "import sys\nsys.modules['pyarrow'] = None\n" + _IMPORT_ALL
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20  # the corpus store and the reranker too
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -61,6 +72,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
         idx.to_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SearchEngine(idx)
+    from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        random_bert(BertConfig(vocab_size=20, hidden_size=16, num_hidden_layers=1,
+                               num_attention_heads=2, intermediate_size=32))
     # asked for explicitly, the CPU works
     assert default_device("cpu").type == "cpu"
     assert random_model(cfg, device="cpu").word.weight.device.type == "cpu"
