@@ -1,19 +1,28 @@
 """`python -m arxiv_rag_tpu_torch.cli.main` — the port's CLI.
 
-Verbs of the serving path, following ``arxiv_rag_tpu/cli/main.py``:
+Verbs of the index lifecycle and the serving path, following
+``arxiv_rag_tpu/cli/main.py``:
 
-  index   build the dense index from an embed output directory, and
-          with ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it
-  search  query an index with text (``--categories``, ``--nprobe``; with
-          ``--corpus``: hydrated text, ``--hybrid-alpha`` BM25 + dense,
-          ``--rerank-checkpoint`` / ``--rerank-random-init`` the
-          cross-encoder, ``--rerank-cascade`` its two-stage form)
-  serve   HTTP query service over an index (the same options)
+  convert  an HF MPNet checkpoint (``model.safetensors`` + ``config.json``)
+           into the reference's native checkpoint, tokenizer files copied
+  embed    embed the corpus store's chunks into batch files (resumable)
+  index    build the dense index from an embed output directory
+           (``--corpus``: categories from the corpus store), with
+           ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it;
+           ``--append`` grows an existing index and refreshes its delta
+  search   query an index with text (``--categories``, ``--nprobe``; with
+           ``--corpus``: hydrated text, ``--hybrid-alpha`` BM25 + dense,
+           ``--rerank-checkpoint`` / ``--rerank-random-init`` the
+           cross-encoder, ``--rerank-cascade`` its two-stage form)
+  eval     recall@k, MRR@k and hit@1 with paper titles as queries
+  serve    HTTP query service over an index (the same options; POST
+           /admin/reload swaps in a grown index with no downtime)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
-CPU. Without ``--checkpoint`` the encoder is a seeded random bf16
-all-mpnet-base-v2 (smoke runs), as in the reference. ``--corpus`` reads
-the Parquet corpus store, which needs pyarrow.
+CPU. Without ``--checkpoint`` the query encoder is a seeded random bf16
+all-mpnet-base-v2 (smoke runs), as in the reference; ``embed`` asks for
+``--random-init`` to say so. ``--corpus`` reads the Parquet corpus
+store, which needs pyarrow.
 """
 
 from __future__ import annotations
@@ -52,15 +61,91 @@ def _tokenizer_or_toy(vocab_path):
     return WordPieceTokenizer.toy()
 
 
+def _add_convert(sub) -> None:
+    p = sub.add_parser("convert", help="convert an HF MPNet checkpoint")
+    p.add_argument("--hf-dir", required=True, help="dir with model.safetensors + config.json")
+    p.add_argument("--out", required=True)
+
+
+def cmd_convert(args) -> int:
+    from arxiv_rag_tpu_torch.models.convert import (
+        from_safetensors,
+        load_model_config,
+        save_checkpoint,
+    )
+
+    cfg = load_model_config(args.hf_dir)
+    save_checkpoint(args.out, from_safetensors(args.hf_dir, cfg), cfg)
+    # embed, search and serve look for vocab.txt beside the checkpoint
+    copied = []
+    for name in ("vocab.txt", "tokenizer.json", "tokenizer_config.json",
+                 "special_tokens_map.json"):
+        src = Path(args.hf_dir) / name
+        if src.exists():
+            (Path(args.out) / name).write_bytes(src.read_bytes())
+            copied.append(name)
+    print(json.dumps({"saved": args.out, "hidden": cfg.hidden_size,
+                      "layers": cfg.num_hidden_layers, "tokenizer_files": copied}))
+    return 0
+
+
+def _add_embed(sub) -> None:
+    p = sub.add_parser("embed", help="embed corpus chunks")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--out", required=True, help="output embeddings dir")
+    p.add_argument("--checkpoint", default=None, help="native checkpoint dir")
+    p.add_argument("--vocab", default=None, help="tokenizer vocab.txt")
+    p.add_argument("--random-init", action="store_true", help="random weights (smoke runs)")
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--min-quality", type=float, default=0.9)
+    p.add_argument("--device", default="cuda")
+
+
+def cmd_embed(args) -> int:
+    from arxiv_rag_tpu_torch.device import default_device
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.embed.runner import embed_batches
+    from arxiv_rag_tpu_torch.models.convert import load_model
+    from arxiv_rag_tpu_torch.models.mpnet import random_model
+    from arxiv_rag_tpu_torch.store.corpus import CorpusReader
+
+    if not args.checkpoint and not args.random_init:
+        print("need --checkpoint or --random-init", file=sys.stderr)
+        return 2
+    dev = default_device(args.device)
+    if args.checkpoint:  # the bf16 encoder, as the reference's verb runs it
+        model, _ = load_model(args.checkpoint, device=dev)
+        vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
+    else:
+        model = random_model(seed=0, device=dev)
+        vocab_path = args.vocab
+    embedder = Embedder(model, _tokenizer_or_toy(vocab_path), batch_size=args.batch_size,
+                        native_tokenizer=_native_tokenizer_or_none(vocab_path))
+    batches = ((b.column("chunk_id").to_pylist(), b.column("text").to_pylist())
+               for b in CorpusReader(args.corpus).iter_batches(
+                   batch_size=8192, columns=["chunk_id", "text"],
+                   min_quality=args.min_quality))
+    print(json.dumps(embed_batches(embedder, batches, args.out,
+                                   model=args.checkpoint or "random-init")))
+    return 0
+
+
 def _add_index(sub) -> None:
     p = sub.add_parser("index", help="build the dense search index")
     p.add_argument("--embeddings", required=True, help="embed output dir")
+    p.add_argument("--corpus", default=None,
+                   help="corpus store dir: each chunk's category for the row masks")
     p.add_argument("--out", required=True)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"])
     p.add_argument("--device", default="cuda", help="where the index is built")
+    p.add_argument("--append", action="store_true",
+                   help="append these embeddings to the existing index at --out (new "
+                        "shards; dtype and normalization follow its manifest) and refresh "
+                        "its IVF delta from the trained centroids")
     p.add_argument("--ivf-clusters", type=int, default=0,
                    help="also train an IVF (cluster-pruned) delta with this many "
-                        "clusters; search probes it via --nprobe")
+                        "clusters; search probes it via --nprobe (with --append, only "
+                        "onto an index that has no delta yet)")
     p.add_argument("--ivf-block-rows", type=int, default=1024,
                    help="IVF layout block size; a multiple of 128, as the reference "
                         "requires, so a delta serves both packages")
@@ -72,12 +157,18 @@ def cmd_index(args) -> int:
     import torch
 
     from arxiv_rag_tpu_torch.device import default_device
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
     from arxiv_rag_tpu_torch.index.store import build_index
 
     if args.ivf_clusters and args.ivf_block_rows % 128:
         print(f"error: --ivf-block-rows {args.ivf_block_rows} must be a multiple of 128 "
               "(the reference's IVF kernel tiles its scale/mask sidecars by 128)",
               file=sys.stderr)
+        return 2
+    if args.append and args.ivf_clusters and IVFIndex.exists(args.out):
+        print(f"error: --ivf-clusters {args.ivf_clusters} with --append: {args.out} already has "
+              "an IVF delta, which the append extends with its trained centroids; rebuild "
+              "the index to retrain it", file=sys.stderr)
         return 2
     src = Path(args.embeddings)
     manifest = json.loads((src / "index.json").read_text())
@@ -87,15 +178,32 @@ def cmd_index(args) -> int:
         ids.extend(json.loads((src / f"ids_{i:05d}.json").read_text()))
     embs = (np.concatenate(parts, axis=0) if parts
             else np.zeros((0, manifest["dim"]), np.float32))
-    dev = default_device(args.device)
-    data = embs if dev.type == "cpu" else torch.from_numpy(embs).to(dev)
-    idx = build_index(data, dtype=args.dtype, chunk_ids=ids)
-    idx.model = manifest.get("model", "")
-    idx.save(args.out)
-    ivf_meta = {}
-    if args.ivf_clusters:
-        from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    categories = None
+    if args.corpus:
+        from arxiv_rag_tpu_torch.store.corpus import CorpusReader
 
+        cat_of: dict[str, str] = {}
+        for batch in CorpusReader(args.corpus).iter_batches(columns=["chunk_id", "category"]):
+            cat_of.update(zip(batch.column("chunk_id").to_pylist(),
+                              batch.column("category").to_pylist()))
+        categories = [cat_of.get(cid, "") for cid in ids]
+    dev = default_device(args.device)
+    ivf_meta = {}
+    if args.append:
+        from arxiv_rag_tpu_torch.index.store import append_index
+
+        idx = append_index(args.out, embs, categories=categories,
+                           chunk_ids=ids if ids else None, device=dev)
+        if IVFIndex.exists(args.out):
+            ivf = IVFIndex.extend(args.out, idx, device=dev)
+            ivf_meta = {"ivf_clusters": ivf.n_clusters, "ivf_block_rows": ivf.block_rows,
+                        "ivf_refreshed": True}
+    else:
+        data = embs if dev.type == "cpu" else torch.from_numpy(embs).to(dev)
+        idx = build_index(data, categories=categories, dtype=args.dtype, chunk_ids=ids)
+        idx.model = manifest.get("model", "")
+        idx.save(args.out)
+    if args.ivf_clusters and not ivf_meta:
         ivf = IVFIndex.build(idx, args.ivf_clusters, block_rows=args.ivf_block_rows,
                              iters=args.ivf_iters, device=dev)
         ivf.save(args.out)
@@ -189,10 +297,15 @@ def build_engine(args):
         from arxiv_rag_tpu_torch.store.corpus import CorpusReader
 
         # the lazy-hydration row-group cache holds the whole corpus: 1.5x
-        # its Parquet bytes (decompression headroom), within [512 MB, 4 GB]
-        disk = sum(p.stat().st_size for p in Path(corpus_dir).glob("*.parquet"))
-        corpus = CorpusReader(corpus_dir,
-                              cache_bytes=max(512 << 20, min(4 << 30, int(disk * 1.5))))
+        # its Parquet bytes (decompression headroom), within [512 MB, 4 GB],
+        # unless --hydration-cache-mb says otherwise
+        mb = getattr(args, "hydration_cache_mb", None)
+        if mb is None:
+            disk = sum(p.stat().st_size for p in Path(corpus_dir).glob("*.parquet"))
+            cache = max(512 << 20, min(4 << 30, int(disk * 1.5)))
+        else:
+            cache = int(mb) << 20
+        corpus = CorpusReader(corpus_dir, cache_bytes=cache)
     bm25 = None
     if alpha is not None:
         if corpus is None:
@@ -243,6 +356,31 @@ def cmd_search(args) -> int:
     return 0
 
 
+def _add_eval(sub) -> None:
+    p = sub.add_parser("eval", help="retrieval quality (recall@k, MRR@k, hit@1) with paper "
+                                    "titles as queries")
+    _add_common(p)
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--max-queries", type=int, default=256)
+    p.add_argument("--nprobe", type=int, default=None)
+
+
+def cmd_eval(args) -> int:
+    from arxiv_rag_tpu_torch.evaluate import evaluate_engine, load_paper_titles, title_queries
+
+    if not args.corpus:
+        print("eval needs --corpus", file=sys.stderr)
+        return 2
+    engine = build_engine(args)
+    queries, relevant = title_queries(engine.corpus, load_paper_titles(args.corpus),
+                                      args.max_queries)
+    if not queries:
+        print("no usable (title, chunks) pairs in the corpus", file=sys.stderr)
+        return 2
+    print(json.dumps(evaluate_engine(engine, queries, relevant, k=args.k).to_dict()))
+    return 0
+
+
 def _add_serve(sub) -> None:
     p = sub.add_parser("serve", help="HTTP query service over an index")
     _add_common(p)
@@ -254,12 +392,53 @@ def _add_serve(sub) -> None:
                    help="micro-batch coalescing window (0 = serialize directly)")
     p.add_argument("--max-batch", type=int, default=512,
                    help="dispatch immediately once this many queries are queued")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every query-window shape once before listening, so kernel "
+                        "builds and first launches never stall a live window")
+    p.add_argument("--hydration-cache-mb", type=int, default=None,
+                   help="row-group text cache for lazy hydration (default: 1.5x the "
+                        "corpus's Parquet bytes, within [512 MB, 4 GB])")
+    p.add_argument("--admin-token", default=None,
+                   help="shared secret (X-Admin-Token header) for POST /admin/reload; "
+                        "without it reload takes only this server's --index/--corpus")
+
+
+def _warm_texts(tokenizer, buckets) -> dict[int, str]:
+    """Per token bucket, a text whose MEASURED token count nearly fills
+    it (a chars-per-token guess misses the larger buckets with a real
+    vocab), leaving room for the per-query suffix."""
+    out = {}
+    for b in buckets:
+        target = max(1, b - 8)
+        words = ["warm"]
+        while len(tokenizer.encode(" ".join(words))) < target and len(words) < 8 * target:
+            words = words + words
+        while len(words) > 1 and len(tokenizer.encode(" ".join(words[:-1]))) >= target:
+            words = words[:-1]
+        out[b] = " ".join(words)
+    return out
+
+
+def warmup(engine, max_batch: int) -> None:
+    """Every (window size, token bucket) shape the micro-batcher can give
+    the engine, once; past 512 the engine pads windows to multiples of
+    128, so a larger ``max_batch`` adds those sizes."""
+    qs = [1, 32, 64, 128, 256, 384, 512] + list(range(640, max_batch + 1, 128))
+    texts = _warm_texts(engine.embedder.tokenizer, engine.embedder.buckets)
+    for qn in qs:
+        if qn > max_batch and qn != 1:
+            continue
+        for text in texts.values():
+            engine.search([f"{text} {i}" for i in range(qn)], k=10)
+        print(f"warmed shapes for {qn}-query windows", file=sys.stderr)
 
 
 def cmd_serve(args) -> int:
     from arxiv_rag_tpu_torch.serve import serve
 
     engine = build_engine(args)
+    if args.warmup:
+        warmup(engine, args.max_batch)
     groups = engine.warm_hydration()
     if groups:
         print(f"hydration cache prewarmed ({groups} row groups)", file=sys.stderr)
@@ -270,6 +449,9 @@ def cmd_serve(args) -> int:
         index_stats={"rows": engine.index.num_rows, "dim": engine.index.dim,
                      "dtype": engine.index.dtype},
         max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+        # POST /admin/reload picks up `index --append` growth from here
+        reload_paths={"index": args.index, "corpus": args.corpus},
+        admin_token=args.admin_token,
     )
     print(f"serving on http://{args.host}:{args.port}", file=sys.stderr)
 
@@ -288,13 +470,14 @@ def cmd_serve(args) -> int:
     return 0
 
 
-COMMANDS = {"index": cmd_index, "search": cmd_search, "serve": cmd_serve}
+COMMANDS = {"convert": cmd_convert, "embed": cmd_embed, "index": cmd_index,
+            "search": cmd_search, "eval": cmd_eval, "serve": cmd_serve}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="arag-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="command", required=True)
-    for adder in (_add_index, _add_search, _add_serve):
+    for adder in (_add_convert, _add_embed, _add_index, _add_search, _add_eval, _add_serve):
         adder(sub)
     return ap
 

@@ -10,8 +10,10 @@ position.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import Sequence
+from pathlib import Path
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
@@ -215,3 +217,58 @@ class Embedder:
         METRICS.inc("embed.texts", n)
         with METRICS.timer("embed.device"):
             return self._run_batch(ids, mask), n
+
+
+def embed_batches(
+    embedder: Embedder,
+    batches: Iterable[tuple[Sequence[str], Sequence[str]]],
+    out_dir: str | Path,
+    model: str = "",
+) -> dict:
+    """The ``embed`` verb's loop over (chunk ids, texts) batches: batch i
+    goes to ``embeddings_{i:05d}.npy`` and ``ids_{i:05d}.json``, and
+    ``index.json`` lists them with ``dim``, ``model`` and ``total_rows``,
+    as the reference writes them, so either package's ``index`` reads
+    the directory.
+
+    Resume: a batch whose two files exist with the same ids is skipped.
+    Failure ladder: a batch that fails to encode is encoded text by text;
+    texts that still fail are left out and recorded in
+    ``_excluded.jsonl``, and no zero vector is ever written for them.
+    Returns {"embedded", "resumed_batches", "batches", "stats"}."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dim = embedder.cfg.hidden_size
+    manifest = {"batches": [], "dim": dim, "model": model}
+    total = resumed = 0
+    for i, (ids, texts) in enumerate(batches):
+        ids, texts = list(ids), list(texts)
+        emb_path, ids_path = out / f"embeddings_{i:05d}.npy", out / f"ids_{i:05d}.json"
+        if emb_path.exists() and ids_path.exists() and json.loads(ids_path.read_text()) == ids:
+            resumed += 1
+        else:
+            try:
+                embs = embedder.encode_texts(texts)
+            except Exception as batch_exc:  # noqa: BLE001 — the ladder, not silence
+                good_embs, good_ids = [], []
+                with open(out / "_excluded.jsonl", "a") as exf:
+                    for cid, text in zip(ids, texts):
+                        try:
+                            good_embs.append(embedder.encode_texts([text])[0])
+                            good_ids.append(cid)
+                        except Exception as item_exc:  # noqa: BLE001
+                            exf.write(json.dumps({
+                                "chunk_id": cid,
+                                "error": f"{type(item_exc).__name__}: {item_exc}",
+                                "batch_error": type(batch_exc).__name__,
+                            }) + "\n")
+                embs = np.stack(good_embs) if good_embs else np.zeros((0, dim), np.float32)
+                ids = good_ids
+            np.save(emb_path, embs)
+            ids_path.write_text(json.dumps(ids))
+        manifest["batches"].append({"file": emb_path.name, "rows": len(ids)})
+        total += len(ids)
+    manifest["total_rows"] = total
+    (out / "index.json").write_text(json.dumps(manifest, indent=1))
+    return {"embedded": total, "resumed_batches": resumed,
+            "batches": len(manifest["batches"]), "stats": embedder.stats.__dict__}

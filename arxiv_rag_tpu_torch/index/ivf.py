@@ -194,10 +194,43 @@ class IVFIndex:
         return (Path(directory) / IVF_DIR / "meta.json").exists()
 
     @classmethod
-    def extend(cls, directory, dense, **kwargs):
-        raise NotImplementedError(
-            "IVFIndex.extend is not ported to arxiv_rag_tpu_torch yet (later slice: "
-            "append_index); rebuild with `index --ivf-clusters` or use arxiv_rag_tpu")
+    def extend(cls, directory: str | Path, dense, *, assign_batch: int = 262144,
+               device=None) -> "IVFIndex":
+        """Refresh the saved delta after ``append_index`` grew ``dense``:
+        the trained centroids stay, the old rows keep the clusters that
+        ``perm``/``offsets`` record (position p of ``perm`` lies in
+        cluster c iff offsets[c] <= p < offsets[c+1]), only the new rows
+        are assigned, on ``device`` (the card by default), in the batches
+        a full build assigns them in; the layout is rebuilt there and
+        saved. The result is a full ``build`` with the same centroids on
+        that device, bit for bit (the same assignments, stably sorted)."""
+        d = Path(directory) / IVF_DIR
+        meta = json.loads((d / "meta.json").read_text())
+        if meta["dtype"] != dense.dtype:
+            raise ValueError(f"IVF delta was built for dtype {meta['dtype']}, dense index "
+                             f"is {dense.dtype}; rebuild with `index --ivf-clusters`")
+        old_n, new_n = int(meta["n_valid"]), dense.num_rows
+        if new_n < old_n:
+            raise ValueError(f"dense index shrank ({new_n} rows < IVF's {old_n}); rebuild")
+        dev = default_device(device)
+        perm = np.load(d / "perm.npy")
+        offsets = np.load(d / "offsets.npy")
+        centroids = np.load(d / "centroids.npy")
+        n_clusters = centroids.shape[0]
+        assign = np.empty((new_n,), np.int32)
+        assign[perm] = np.repeat(np.arange(n_clusters, dtype=np.int32), np.diff(offsets))
+        cents = torch.from_numpy(np.array(centroids, np.float32)).to(dev)
+        # the batches a full build assigns in, from the one holding the first
+        # new row: each row's scores come from the same product shapes
+        for start in range(old_n - old_n % assign_batch, new_n, assign_batch):
+            stop = min(start + assign_batch, new_n)
+            got = assign_clusters(_dense_rows_f32(dense, slice(start, stop), dev), cents)
+            assign[max(start, old_n):stop] = got[max(start, old_n) - start:].cpu().numpy()
+        ivf = cls.build(dense, n_clusters, block_rows=int(meta["block_rows"]),
+                        centroids=centroids, assignments=assign, device=dev)
+        ivf.save(directory)
+        log.info("extended IVF delta: %d -> %d rows (%d clusters)", old_n, new_n, n_clusters)
+        return ivf
 
     # -- device ----------------------------------------------------------
 

@@ -12,8 +12,14 @@ int32 (a bit view, so category 31 sets the sign bit), zero-padded.
 
 ``build_index`` takes a numpy array (normalized on the host exactly as
 the reference does) or a tensor on any device (normalized there, so a
-multi-million-row index is built on the card). ``to_device`` pads rows
-to a multiple and records ``n_valid``; scans never return padding rows.
+multi-million-row index is built on the card); ``build_index_device``
+runs that tensor path in row batches. ``to_device`` pads rows to a
+multiple and records ``n_valid``; scans never return padding rows.
+
+Growth: ``append_index`` adds rows to a saved index as new shards (the
+reference's ``collection.add`` answer), the sidecars replaced atomically
+and the manifest last, so an interrupted append leaves the base index
+loadable.
 """
 
 from __future__ import annotations
@@ -102,8 +108,165 @@ def build_index(
     )
 
 
+def build_index_device(
+    embeddings: np.ndarray | torch.Tensor,
+    categories: Sequence[str] | None = None,
+    category_names: Sequence[str] | None = None,
+    dtype: str = "bfloat16",
+    normalize: bool = True,
+    chunk_ids: Sequence[str] | None = None,
+    batch_rows: int = 262144,
+    device=None,
+) -> "DenseIndex":
+    """``build_index``'s tensor path on ``device`` (the card by default)
+    in batches of ``batch_rows`` rows, so fp32 copies of one batch at a
+    time exist there; the values stay on ``device``. Each row is
+    normalized and quantized on its own, so the result is bitwise one
+    ``build_index`` of all rows as a tensor on that device."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"index dtype must be one of {sorted(_DTYPES)}, not {dtype!r}")
+    dev = default_device(device)
+    n = embeddings.shape[0]
+    parts = []
+    for start in range(0, n, batch_rows):
+        chunk = embeddings[start : start + batch_rows]
+        if not isinstance(chunk, torch.Tensor):
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk, np.float32))
+        parts.append(build_index(chunk.to(dev), dtype=dtype, normalize=normalize))
+    if parts:
+        values = torch.cat([p.values for p in parts])
+        scales = torch.cat([p.scales for p in parts]) if dtype == "int8" else None
+    else:
+        values = torch.zeros((0, embeddings.shape[1]), dtype=_DTYPES[dtype], device=dev)
+        scales = torch.zeros((0,), dtype=torch.float32, device=dev) if dtype == "int8" else None
+    if categories is not None:
+        cats = list(category_names) if category_names else sorted(set(categories))
+        row_masks = make_row_masks(np.asarray(categories, object), cats)
+    else:
+        cats, row_masks = [], None
+    return DenseIndex(
+        values=values, scales=scales, dtype=dtype, normalized=normalize,
+        categories=cats, row_masks=row_masks,
+        chunk_ids=list(chunk_ids) if chunk_ids is not None else None,
+    )
+
+
+def _atomic_save(path: Path, arr: np.ndarray) -> None:
+    tmp = path.with_name(path.name + ".tmp.npy")
+    np.save(tmp, arr)
+    tmp.replace(path)
+
+
+def append_index(
+    directory: str | Path,
+    embeddings: np.ndarray | torch.Tensor,
+    categories: Sequence[str] | None = None,
+    chunk_ids: Sequence[str] | None = None,
+    rows_per_shard: int = 262144,
+    device=None,
+) -> "DenseIndex":
+    """Grow a saved index by ``embeddings`` rows; returns the combined
+    index, loaded on the host.
+
+    The new rows are normalized and quantized with the base manifest's
+    dtype and ``normalized`` setting: on the card (``device=None``) by
+    ``build_index_device``, on the CPU (``device="cpu"``) by the host
+    path, bitwise the reference's ``append_index``. They go to NEW shard
+    files (existing shards are never rewritten); the sidecars
+    (``scales.npy``, ``row_masks.npy``, ``chunk_ids.json``) are replaced
+    atomically and the manifest last, so a crash before the manifest
+    leaves the base index loadable (``load`` trims longer sidecars, and
+    the next append trims them too before it extends them).
+
+    The category vocabulary grows in place: old categories keep their
+    bits, new names append in sorted order, at most 32. A base with row
+    masks (or chunk ids) takes only rows that carry them, and one
+    without only rows that do not. An IVF delta in ``directory`` goes
+    stale: refresh it with ``IVFIndex.extend``."""
+    directory = Path(directory)
+    dev = default_device(device)
+    manifest = IndexManifest.from_json((directory / MANIFEST_NAME).read_text())
+    if embeddings.ndim != 2 or embeddings.shape[1] != manifest.dim:
+        raise ValueError(f"appended embeddings have shape {tuple(embeddings.shape)}; "
+                         f"index dim is {manifest.dim}")
+    n_new = embeddings.shape[0]
+    has_masks = (directory / "row_masks.npy").exists()
+    if has_masks != (categories is not None):
+        raise ValueError(
+            "category parity: the base index " + ("has" if has_masks else "has no")
+            + " row masks, so appended rows must "
+            + ("also carry categories" if has_masks else "not carry categories"))
+    has_ids = (directory / "chunk_ids.json").exists()
+    if has_ids != (chunk_ids is not None):
+        raise ValueError(
+            "chunk-id parity: the base index "
+            + ("maps rows to chunk_ids" if has_ids else "has no chunk_ids")
+            + ", so appended rows must match")
+    if chunk_ids is not None and len(chunk_ids) != n_new:
+        raise ValueError(f"{len(chunk_ids)} chunk_ids for {n_new} appended rows")
+    cats = list(manifest.categories)
+    if categories is not None:
+        if len(categories) != n_new:
+            raise ValueError(f"{len(categories)} categories for {n_new} appended rows")
+        cats += [c for c in sorted(set(categories)) if c not in cats]
+        if len(cats) > 32:
+            raise ValueError("more than 32 categories needs a wider mask")
+
+    kw = dict(categories=categories, category_names=cats, dtype=manifest.dtype,
+              normalize=manifest.normalized, chunk_ids=chunk_ids)
+    if dev.type == "cpu":
+        emb = embeddings.cpu().numpy() if isinstance(embeddings, torch.Tensor) else embeddings
+        new = build_index(np.asarray(emb), **kw)
+    else:
+        new = build_index_device(embeddings, device=dev, **kw)
+
+    shards = list(manifest.shards)
+    base_rows, i0 = manifest.num_rows, len(shards)
+    for j, start in enumerate(range(0, n_new, rows_per_shard)):
+        stop = min(start + rows_per_shard, n_new)
+        chunk = new.values[start:stop]
+        arr = _bf16_bits(chunk) if manifest.dtype == "bfloat16" else chunk.cpu().numpy()
+        name = f"embeddings-{i0 + j:05d}.npy"
+        np.save(directory / name, arr)
+        shards.append({"file": name, "num_rows": stop - start,
+                       "row_offset": base_rows + start})
+    # sidecars longer than the manifest (an append cut before its manifest)
+    # are trimmed to the base rows first
+    if new.scales is not None:
+        _atomic_save(directory / "scales.npy", np.concatenate(
+            [np.load(directory / "scales.npy")[:base_rows], new.scales.cpu().numpy()]))
+    if categories is not None:
+        _atomic_save(directory / "row_masks.npy", np.concatenate(
+            [np.load(directory / "row_masks.npy")[:base_rows], new.row_masks]))
+    if chunk_ids is not None:
+        old_ids = json.loads((directory / "chunk_ids.json").read_text())[:base_rows]
+        tmp = directory / "chunk_ids.json.tmp"
+        tmp.write_text(json.dumps(old_ids + list(chunk_ids)))
+        tmp.replace(directory / "chunk_ids.json")
+    manifest.num_rows = base_rows + n_new
+    manifest.categories = cats
+    manifest.shards = shards
+    manifest.created_at = time.time()
+    tmp = directory / (MANIFEST_NAME + ".tmp")
+    tmp.write_text(manifest.to_json())
+    tmp.replace(directory / MANIFEST_NAME)
+    log.info("appended %d rows to index (%d total, %d shards)",
+             n_new, manifest.num_rows, len(shards))
+    return DenseIndex.load(directory)
+
+
 def _bf16_bits(t: torch.Tensor) -> np.ndarray:
     return t.cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _padded(t: torch.Tensor, pad: int, dev, dtype=None) -> torch.Tensor:
+    """``t`` on ``dev`` followed by ``pad`` zero rows, copied straight
+    into its final buffer: a host index placed on the card never has a
+    second full-size copy there (a reload's peak holds old and new
+    index, not two of the new one)."""
+    out = torch.zeros((t.shape[0] + pad, *t.shape[1:]), dtype=dtype or t.dtype, device=dev)
+    out[: t.shape[0]].copy_(t)
+    return out
 
 
 @dataclass
@@ -218,22 +381,13 @@ class DenseIndex:
         dev = default_device(device)
         n = self.num_rows
         pad = (-n) % row_multiple
-        vals = self.values.to(dev)
-        if pad:
-            vals = torch.cat([vals, vals.new_zeros((pad, self.dim))])
-        self._device_values = vals.contiguous()
+        self._device_values = _padded(self.values, pad, dev)
         self.values = self._device_values[:n]
         if self.scales is not None:
-            s = self.scales.to(dev, torch.float32)
-            if pad:
-                s = torch.cat([s, s.new_zeros(pad)])
-            self._device_scales = s.contiguous()
+            self._device_scales = _padded(self.scales, pad, dev, torch.float32)
             self.scales = self._device_scales[:n]
         if self.row_masks is not None:
             bits = np.ascontiguousarray(self.row_masks, np.uint32).view(np.int32)
-            m = torch.from_numpy(bits).to(dev)
-            if pad:
-                m = torch.cat([m, m.new_zeros(pad)])
-            self._device_masks = m.contiguous()
+            self._device_masks = _padded(torch.from_numpy(bits), pad, dev)
         self._n_valid = n
         return self

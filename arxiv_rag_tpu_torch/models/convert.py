@@ -1,12 +1,13 @@
 """Weights into the port's MPNet and BERT: the JAX params pytree, HF
-state dicts, and the reference's native MPNet checkpoint
-(``params.msgpack`` + ``model_config.json``).
+state dicts and ``model.safetensors``, and the reference's native MPNet
+checkpoint (``params.msgpack`` + ``model_config.json``), which
+``save_checkpoint`` also writes.
 
 The port of ``arxiv_rag_tpu/models/convert.py``. The reference stores
 dense kernels stacked over layers as ``[L, d_in, d_out]``; ``nn.Linear``
 keeps ``[d_out, d_in]`` per layer, so kernels are split and transposed.
-The msgpack checkpoint is decoded with ``msgpack`` alone (flax's array
-encoding, bf16 included), never with flax or ml_dtypes.
+The msgpack checkpoint is read and written with ``msgpack`` alone
+(flax's array encoding, bf16 included), never with flax or ml_dtypes.
 """
 
 from __future__ import annotations
@@ -104,6 +105,25 @@ def from_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig) -> dict[str, 
             for leaf in ("weight", "bias"):
                 out[f"layers.{i}.{ours}.{leaf}"] = t(f"encoder.layer.{i}.{theirs}.{leaf}")
     return out
+
+
+def from_safetensors(path: str | Path, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """An HF checkpoint's ``model.safetensors`` (the file or its
+    directory) → this package's ``MPNet`` state dict, in the file's
+    dtype."""
+    from safetensors.numpy import load_file  # the card's machine may lack it
+
+    path = Path(path)
+    if path.is_dir():
+        path = path / "model.safetensors"
+    return from_hf_state_dict(load_file(str(path)), cfg)
+
+
+def load_model_config(checkpoint_dir: str | Path) -> ModelConfig:
+    """An HF ``config.json`` as a ``ModelConfig`` (the fields it knows)."""
+    raw = json.loads((Path(checkpoint_dir) / "config.json").read_text())
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{k: v for k, v in raw.items() if k in known})
 
 
 def build_model(state: Mapping[str, torch.Tensor], cfg: ModelConfig, *,
@@ -261,6 +281,75 @@ def load_checkpoint(directory: str | Path) -> tuple[dict[str, torch.Tensor], Mod
     tree = msgpack.unpackb((directory / "params.msgpack").read_bytes(),
                            ext_hook=ext_hook, raw=False)
     return from_jax_params(_unchunk(tree), cfg), cfg
+
+
+_FLAX_MAX_LEAF = 1 << 30  # flax chunks leaves above 1 GiB; MPNet's are far below
+
+
+def _tree_from_state(state: Mapping[str, torch.Tensor], cfg: ModelConfig) -> dict:
+    """This package's ``MPNet`` state dict → the reference's params
+    pytree (layers stacked, kernels ``[d_in, d_out]``), the inverse of
+    ``from_jax_params`` for an unquantized model."""
+    if any(key.endswith(".scale") for key in state):
+        raise ValueError("a W8A8 state has no reference checkpoint form; save the "
+                         "unquantized model")
+    n = cfg.num_hidden_layers
+
+    def stack(name, leaf, transpose=False):
+        ts = [state[f"layers.{i}.{name}.{leaf}"] for i in range(n)]
+        return torch.stack([t.T if transpose else t for t in ts])
+
+    def dense(name):
+        return {"kernel": stack(name, "weight", transpose=True), "bias": stack(name, "bias")}
+
+    def norm(name):
+        return {"scale": stack(name, "weight"), "bias": stack(name, "bias")}
+
+    return {
+        "embeddings": {"word": state["word.weight"], "position": state["position.weight"],
+                       "ln": {"scale": state["emb_ln.weight"], "bias": state["emb_ln.bias"]}},
+        "rel_bias": state["rel_bias"],
+        "layers": {
+            "attn": {"q": dense("attn.q"), "k": dense("attn.k"), "v": dense("attn.v"),
+                     "o": dense("attn.o"), "ln": norm("attn.ln")},
+            "ffn": {"in": dense("ffn.inp"), "out": dense("ffn.out"), "ln": norm("ffn.ln")},
+        },
+    }
+
+
+def _leaf_to_msgpack(t: torch.Tensor) -> bytes:
+    """flax's array encoding: (shape, dtype name, C-order bytes)."""
+    import msgpack
+
+    t = t.detach().cpu().contiguous()
+    if t.numel() * t.element_size() > _FLAX_MAX_LEAF:
+        raise ValueError(f"a {tuple(t.shape)} leaf exceeds flax's 1 GiB chunk size")
+    if t.dtype == torch.bfloat16:
+        name, raw = "bfloat16", t.view(torch.int16).numpy().tobytes()
+    else:
+        arr = t.numpy()
+        name, raw = arr.dtype.name, arr.tobytes()
+    return msgpack.packb((tuple(t.shape), name, raw), use_bin_type=True)
+
+
+def save_checkpoint(directory: str | Path, state: Mapping[str, torch.Tensor],
+                    cfg: ModelConfig) -> None:
+    """Write ``state`` in the reference's native checkpoint format,
+    which either package's ``load_checkpoint`` reads: ``params.msgpack``
+    (flax's msgpack encoding of the params pytree) and
+    ``model_config.json``."""
+    import msgpack
+
+    def pack(node):
+        if isinstance(node, dict):
+            return {k: pack(v) for k, v in node.items()}
+        return msgpack.ExtType(1, _leaf_to_msgpack(node))  # flax's ndarray ext code
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tree = pack(_tree_from_state(state, cfg))
+    (directory / "params.msgpack").write_bytes(msgpack.packb(tree, strict_types=True))
+    (directory / "model_config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
 
 
 def load_model(directory: str | Path, *, compute_dtype: str | torch.dtype = torch.bfloat16,

@@ -29,9 +29,13 @@ the reference:
   ``rerank_max_window_pairs`` (``_rerank_window`` :615-666).
 
 Every mode dispatches the dense scan before ``finish``; the host stages
-(BM25, merge, hydration, rerank) run inside ``finish``. Live reload
-belongs to a later slice of the port: ``prepare_reload`` raises
-``NotImplementedError``.
+(BM25, merge, hydration, rerank) run inside ``finish``.
+
+Live reload (``prepare_reload``, ``:123-270``): a grown or rebuilt index
+is loaded, placed and warmed on a shadow engine while this one serves;
+the returned ``swap`` re-points the engine with no IO. Unlike the
+reference, a failed warm raises: on the card it is a kernel that failed
+on the new shapes, and the old index goes on serving.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 
 from arxiv_rag_tpu_torch.config import RetrievalConfig
 from arxiv_rag_tpu_torch.index.store import DenseIndex
-from arxiv_rag_tpu_torch.logging_utils import METRICS
+from arxiv_rag_tpu_torch.logging_utils import METRICS, get_logger
 from arxiv_rag_tpu_torch.ops.fused_topk import (
     K_MAX,
     fused_topk,
@@ -56,12 +60,7 @@ from arxiv_rag_tpu_torch.ops.quant import int8_search
 from arxiv_rag_tpu_torch.ops.topk import masked_flat_search
 from arxiv_rag_tpu_torch.search.bm25 import BM25Index
 
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to arxiv_rag_tpu_torch yet (later slice: {slice_name}); "
-        "use arxiv_rag_tpu for it"
-    )
+log = get_logger("search")
 
 
 def bm25_for_index(index: DenseIndex, corpus) -> BM25Index:
@@ -93,6 +92,15 @@ def bm25_for_index(index: DenseIndex, corpus) -> BM25Index:
                 "chunk_ids or use the matching corpus"
             )
     return BM25Index.build(texts)
+
+
+def _release_device(holder, fields: Sequence[str]) -> None:
+    """Drop ``holder``'s references to its device tensors (a swapped-out
+    index or IVF; ``None`` is left alone)."""
+    if holder is None:
+        return
+    for f in fields:
+        setattr(holder, f, None)
 
 
 @dataclass
@@ -153,8 +161,112 @@ class SearchEngine:
         self._meta_by_id: dict | None = None
         self._row_map = None  # index row -> corpus row (lazy mode)
 
-    def prepare_reload(self, index_dir, **kwargs):
-        raise _later("live index reload", "prepare_reload/append_index")
+    # -- live reload --------------------------------------------------------
+
+    def prepare_reload(
+        self,
+        index_dir,
+        *,
+        corpus_dir=None,
+        bm25_path: str | None = None,
+        cache_bytes: int | None = None,
+        warm_buckets: tuple[int, ...] = (8, 32),
+    ):
+        """Load a grown or rebuilt index (its IVF delta, corpus and BM25
+        side too) without touching this engine; returns ``swap() ->
+        info``, which re-points the engine with no IO.
+
+        Order: load on the host and check the dim and BM25's row count,
+        then place on this engine's device (old and new index coexist
+        there until the swap: the reload's memory peak). The IVF delta is
+        placed only when the engine probes (``cfg.nprobe``, or an IVF
+        attached). A corpus is re-opened (``corpus_dir``, else this
+        engine's corpus directory) so appended Parquet shards show; a
+        corpus object without a directory is kept. A hybrid engine
+        loads BM25 from ``bm25_path`` or rebuilds it in index row order.
+        A shadow engine over the new state runs a search at every
+        ``warm_buckets`` height for each k in use (and with every
+        category, where the index has them) and the hydration warm; a
+        failure there raises and nothing is swapped.
+
+        ``swap`` runs where no window is in flight (``serve.py`` runs it
+        on the dispatch thread behind a completion barrier). It adopts
+        the shadow's warmed hydration state and drops this engine's last
+        references to the old device tensors."""
+        from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+
+        dev = self.index._device_values.device
+        new_idx = DenseIndex.load(index_dir)
+        if new_idx.dim != self.index.dim:
+            raise ValueError(f"reload index dim {new_idx.dim} != serving dim "
+                             f"{self.index.dim}: wrong index for this embedder")
+        new_corpus = None
+        cdir = corpus_dir or getattr(self.corpus, "directory", None)
+        if cdir is not None:
+            from arxiv_rag_tpu_torch.store.corpus import CorpusReader
+
+            cb = cache_bytes or getattr(self.corpus, "cache_bytes", 512 * 1024 * 1024)
+            new_corpus = CorpusReader(cdir, cache_bytes=cb)
+        elif self.corpus is not None:
+            new_corpus = self.corpus  # not a store: nothing to re-open
+        new_bm25 = None
+        if bm25_path is not None:
+            new_bm25 = BM25Index.load(bm25_path)
+        elif self.bm25 is not None:
+            if new_corpus is None:
+                raise ValueError("hybrid engine reload needs a corpus to rebuild BM25 "
+                                 "(or pass bm25_path)")
+            new_bm25 = bm25_for_index(new_idx, new_corpus)
+        if new_bm25 is not None and new_bm25.num_docs != new_idx.num_rows:
+            raise ValueError(f"reload bm25 has {new_bm25.num_docs} docs but index has "
+                             f"{new_idx.num_rows} rows: stale bm25_path?")
+        new_idx.to_device(dev)
+        new_ivf = None
+        if (self.cfg.nprobe or self.ivf is not None) and IVFIndex.exists(index_dir):
+            new_ivf = IVFIndex.load(index_dir, new_idx, device=dev).to_device(dev)
+        shadow = SearchEngine(new_idx, embedder=self.embedder, corpus=new_corpus,
+                              cfg=self.cfg, bm25=new_bm25, reranker=self.reranker,
+                              ivf=new_ivf, device=dev)
+        shadow.lazy_hydration = self.lazy_hydration
+        ks = {min(self.cfg.top_k, K_MAX)}
+        if new_bm25 is not None or self.reranker is not None:
+            ks.add(min(max(self.cfg.top_k, self.cfg.rerank_top_k), K_MAX))
+        cat_sets = [None] + ([new_idx.categories] if new_idx.row_masks is not None else [])
+        for qb in warm_buckets:
+            for kk in sorted(ks):
+                for cats in cat_sets:
+                    shadow.search_embeddings(np.zeros((qb, new_idx.dim), np.float32), kk,
+                                             categories=cats)
+        if shadow._use_lazy_hydration():
+            shadow.warm_hydration()
+        else:
+            shadow._load_meta()
+
+        def swap() -> dict:
+            old_idx, old_ivf = self.index, self.ivf
+            old_rows = old_idx.num_rows
+            self.index, self.ivf = new_idx, new_ivf
+            if new_corpus is not None:
+                self.corpus = new_corpus
+            if new_bm25 is not None:
+                self.bm25 = new_bm25
+            self._row_map = shadow._row_map
+            self._meta_cache = shadow._meta_cache
+            self._meta_by_id = shadow._meta_by_id
+            # the barrier guarantees nothing in flight reads the old tensors:
+            # dropping the last references frees them now, not at some
+            # later collection, which would prolong the old + new peak
+            _release_device(old_idx, ("values", "scales", "_device_values",
+                                      "_device_scales", "_device_masks"))
+            _release_device(old_ivf, ("values", "scales", "row_masks",
+                                      "_device_centroids", "_device_cb"))
+            log.info("reload swap: %d -> %d rows (%s%s)", old_rows, new_idx.num_rows,
+                     new_idx.dtype, ", ivf" if new_ivf is not None else "")
+            return {"rows": new_idx.num_rows, "dim": new_idx.dim, "dtype": new_idx.dtype,
+                    "ivf": new_ivf is not None,
+                    "bm25_rebuilt": new_bm25 is not None and bm25_path is None}
+
+        return swap
 
     # -- dense ------------------------------------------------------------
 

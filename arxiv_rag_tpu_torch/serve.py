@@ -7,8 +7,13 @@ Endpoints:
 - ``POST /search``  body: {"queries": [str], "k": int?,
   "categories": [str]?, "hybrid_alpha": float?} → {"results": [[hit]]};
   a reranked hit carries its pre-rerank score as ``dense_score``
-- ``POST /admin/reload`` → 501: live index reload (the reference's
-  zero-downtime swap) comes with the port of ``prepare_reload``.
+- ``POST /admin/reload``  body: {"index_dir": str?, "corpus_dir": str?,
+  "bm25_path": str?} → swap in a grown or rebuilt index with no
+  downtime: ``engine.prepare_reload`` loads, places and warms it on the
+  handler thread while the old index serves; the swap runs on the
+  dispatch thread behind a completion barrier. Without an admin token
+  only the server's own paths reload; with one, every reload needs it
+  (``X-Admin-Token``).
 - ``GET /healthz``  → {"status": "ok", "rows": N, "dim": D, ...}
 - ``GET /metrics``  → the METRICS counters/timers snapshot
 
@@ -42,6 +47,23 @@ class _Job:
         self.queries = queries
         self.key = key
         self.results = None
+        self.error: Exception | None = None
+        self.done = threading.Event()
+
+
+class _ControlJob:
+    """An admin operation run ON the dispatch thread behind a completion
+    barrier, with no window dispatched and unfinished. That makes a live
+    engine swap safe with no lock in the engine's hot path: only the
+    dispatch thread dispatches (and it is busy running the control), and
+    every window dispatched before has finished, closures and all."""
+
+    __slots__ = ("fn", "queries", "result", "error", "done")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.queries = ()  # close() drains us like any queued job
+        self.result = None
         self.error: Exception | None = None
         self.done = threading.Event()
 
@@ -99,6 +121,26 @@ class MicroBatcher:
             raise job.error
         return job.results
 
+    def run_control(self, fn):
+        """Run ``fn()`` on the dispatch thread behind a completion barrier
+        (:class:`_ControlJob`) and return its result. Blocks the calling
+        thread, not serving: search jobs queued before and after it run
+        as usual. In direct mode the engine lock serializes it."""
+        if self.window <= 0:
+            with self._lock:
+                return fn()
+        job = _ControlJob(fn)
+        with self._wake:
+            if self._closed:
+                raise RuntimeError("batcher closed")
+            self._queue.append(job)
+            self._pending += 1
+            self._wake.notify()
+        job.done.wait()
+        if job.error is not None:
+            raise job.error
+        return job.result
+
     def _loop(self) -> None:
         while True:
             with self._wake:
@@ -125,10 +167,12 @@ class MicroBatcher:
                     self._wake.wait(timeout=remaining)
                 batch, self._queue = self._queue, []
                 self._pending = 0
+            controls = [j for j in batch if isinstance(j, _ControlJob)]
             # group by identical search params; one engine call per group
             groups: dict[tuple, list[_Job]] = {}
             for job in batch:
-                groups.setdefault(job.key, []).append(job)
+                if not isinstance(job, _ControlJob):
+                    groups.setdefault(job.key, []).append(job)
             for key, jobs in groups.items():
                 k, cats, alpha = key
                 all_q = [q for j in jobs for q in j.queries]
@@ -146,6 +190,18 @@ class MicroBatcher:
                     for j in jobs:
                         j.error = exc
                         j.done.set()
+            for cj in controls:
+                # completion barrier: the completion queue is FIFO, so once
+                # this empty window's finish has run, every window
+                # dispatched above and before has finished
+                barrier = threading.Event()
+                self._completions.put(([], barrier.set))
+                barrier.wait()
+                try:
+                    cj.result = cj.fn()
+                except Exception as exc:  # noqa: BLE001 — report, keep serving
+                    cj.error = exc
+                cj.done.set()
 
     def _completion_loop(self) -> None:
         while True:
@@ -153,6 +209,9 @@ class MicroBatcher:
             if item is None:
                 return
             jobs, finish = item
+            if not jobs:  # the completion barrier: not a search, so untimed
+                finish()
+                continue
             try:
                 with METRICS.timer("serve.batched_search"):
                     results = finish()
@@ -168,7 +227,10 @@ class MicroBatcher:
                     j.done.set()
 
 
-def make_handler(engine, index_stats: dict, batcher: MicroBatcher):
+def make_handler(engine, index_stats: dict, batcher: MicroBatcher,
+                 reload_paths: dict | None = None, admin_token: str | None = None):
+    reload_lock = threading.Lock()  # one reload at a time; serving unaffected
+
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1 keep-alive: clients reuse the TCP connection across
         # requests instead of paying a handshake each time. Safe because
@@ -196,9 +258,7 @@ def make_handler(engine, index_stats: dict, batcher: MicroBatcher):
 
         def do_POST(self):
             if self.path == "/admin/reload":
-                self._reply(501, {"error": "live index reload is not ported to "
-                                           "arxiv_rag_tpu_torch yet (later slice: "
-                                           "prepare_reload/append_index/corpus hydration)"})
+                self._do_reload()
                 return
             if self.path != "/search":
                 self._reply(404, {"error": "not found"})
@@ -247,14 +307,72 @@ def make_handler(engine, index_stats: dict, batcher: MicroBatcher):
                 log.error("search failed: %s", exc)
                 self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
 
+        def _do_reload(self):
+            """Zero-downtime reload: ``engine.prepare_reload`` on THIS
+            handler thread while the old index serves, then the swap on
+            the dispatch thread behind the barrier (``run_control``).
+            Body, each key optional where the server has a default path:
+            {"index_dir": str, "corpus_dir": str, "bm25_path": str}. 400
+            for bad input, 403 for a missing token or a path override
+            without one, 500 when the reload fails (the old index keeps
+            serving)."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                defaults = reload_paths or {}
+                if admin_token is not None:
+                    if self.headers.get("X-Admin-Token") != admin_token:
+                        self._reply(403, {"error": "bad or missing X-Admin-Token"})
+                        return
+                else:
+                    # without a token only the preconfigured locations
+                    # reload: a client-supplied path would let anyone who
+                    # reaches the port swap the live index or probe files
+                    for key, dflt in (("index_dir", defaults.get("index")),
+                                      ("corpus_dir", defaults.get("corpus")),
+                                      ("bm25_path", None)):
+                        v = req.get(key)
+                        if v is not None and str(v) != str(dflt or ""):
+                            self._reply(403, {"error": f"{key} override requires the "
+                                                       "server's --admin-token"})
+                            return
+                index_dir = req.get("index_dir") or defaults.get("index")
+                if not index_dir:
+                    raise ValueError("no index_dir: pass it in the body or start the "
+                                     "server with a default index path")
+                corpus_dir = req.get("corpus_dir") or defaults.get("corpus")
+                with reload_lock:
+                    t0 = time.perf_counter()
+                    swap = engine.prepare_reload(index_dir, corpus_dir=corpus_dir,
+                                                 bm25_path=req.get("bm25_path"))
+                    load_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    info = batcher.run_control(swap)
+                    swap_s = time.perf_counter() - t0
+                    # inside the lock: back-to-back reloads publish their
+                    # /healthz stats in swap order
+                    index_stats.update({kk: info[kk] for kk in ("rows", "dim", "dtype")
+                                        if kk in info})
+                METRICS.inc("serve.reloads")
+                log.info("index reloaded: %s (load %.1fs, swap %.3fs)", info, load_s, swap_s)
+                self._reply(200, {"status": "reloaded", **info, "load_s": load_s,
+                                  "swap_s": swap_s})
+            except (ValueError, FileNotFoundError, json.JSONDecodeError) as exc:
+                self._reply(400, {"error": str(exc)})
+            except Exception as exc:  # noqa: BLE001 — keep serving the old state
+                log.error("reload failed: %s", exc)
+                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+
     return Handler
 
 
 def serve(engine, host: str = "127.0.0.1", port: int = 8080,
           index_stats: dict | None = None, max_batch: int = 512,
-          batch_window_ms: float = 4.0):
-    """Blocking serve loop. Returns the server object when used with
-    ``serve_in_thread`` for tests."""
+          batch_window_ms: float = 4.0, reload_paths: dict | None = None,
+          admin_token: str | None = None):
+    """The HTTP server over ``engine`` (``serve_forever`` runs it).
+    ``reload_paths`` ({"index": dir, "corpus": dir}) are /admin/reload's
+    default locations; without ``admin_token`` reload takes only those."""
     stats = index_stats or {}
     batcher = MicroBatcher(engine, max_batch=max_batch,
                            batch_window_ms=batch_window_ms)
@@ -268,7 +386,7 @@ def serve(engine, host: str = "127.0.0.1", port: int = 8080,
         daemon_threads = True
 
     httpd = _Server((host, port),
-                    make_handler(engine, stats, batcher))
+                    make_handler(engine, stats, batcher, reload_paths, admin_token))
     httpd.batcher = batcher  # kept for close() in tests
     log.info("serving on http://%s:%d (micro-batch window %.1f ms, max %d)",
              host, port, batch_window_ms, max_batch)
@@ -277,11 +395,13 @@ def serve(engine, host: str = "127.0.0.1", port: int = 8080,
 
 def serve_in_thread(engine, host: str = "127.0.0.1", port: int = 0,
                     index_stats: dict | None = None, max_batch: int = 512,
-                    batch_window_ms: float = 4.0):
+                    batch_window_ms: float = 4.0, reload_paths: dict | None = None,
+                    admin_token: str | None = None):
     """Start in a daemon thread (tests / embedding into other apps).
     Returns (server, thread); server.server_address has the bound port."""
     httpd = serve(engine, host, port, index_stats,
-                  max_batch=max_batch, batch_window_ms=batch_window_ms)
+                  max_batch=max_batch, batch_window_ms=batch_window_ms,
+                  reload_paths=reload_paths, admin_token=admin_token)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     return httpd, thread

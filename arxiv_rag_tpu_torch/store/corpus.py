@@ -183,14 +183,23 @@ class CorpusReader:
         self,
         batch_size: int = 8192,
         columns: Sequence[str] | None = None,
+        min_quality: float | None = None,
     ) -> Iterator[pa.RecordBatch]:
-        """Stream record batches, shard by shard in row order."""
+        """Stream record batches, shard by shard in row order; with
+        ``min_quality`` only the rows whose quality reaches it (the
+        reference's embed gate)."""
+        import pyarrow.compute as pc
         import pyarrow.parquet as pq
 
         cols = list(columns) if columns else None
+        if min_quality is not None and cols is not None and "quality" not in cols:
+            cols = cols + ["quality"]
         for path in self.shard_paths():
             pf = pq.ParquetFile(path)
             for batch in pf.iter_batches(batch_size=batch_size, columns=cols):
+                if min_quality is not None:
+                    batch = batch.filter(pc.greater_equal(batch.column("quality"),
+                                                          min_quality))
                 if batch.num_rows:
                     yield batch
 

@@ -53,11 +53,26 @@ its first failure:
    (K2, K4 with categories) bitwise a plain recomputation, the fp32
    cross-encoder on the card against the CPU, stage times, qps and the
    rerank's TFLOP/s, an HTTP server equal to engine.search;
-6. the kernels line, then the result line.
+6. the index lifecycle: the embed verb's loop over 16,384 of phase 5's
+   chunks (bitwise ``encode_texts``, then resumed); an int8 index of
+   phase 2's clustered corpus with categories, its first 1,737,856 rows
+   built, saved and given an IVF delta, then 262,144 rows appended with
+   a new category at bit 31 (bitwise a full 2M build) and the delta
+   extended (bitwise ``build(centroids=)``); two HTTP servers (dense
+   int8 with and without categories; IVF device plan) reloaded under 4
+   clients' 32-query requests (every answer the old engine's or the
+   new one's, those after the 200 a fresh engine's over the full
+   build), with qps and the longest request before and during; one
+   engine-level hybrid reload with a BM25 file, its device memory
+   before, at peak and after, its windows bitwise a plain
+   recomputation;
+7. the kernels line, then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
 slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
-path and before the flagship path's run, read just after each.
+path, before the flagship path's run and before each run of the
+lifecycle's reload path (each HTTP server's traffic and reload, the
+hybrid engine's reload), read just after each.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -67,6 +82,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import re
 import statistics
@@ -512,6 +528,7 @@ def phase_ivf(gen, results) -> dict:
 
     print("== phase 2 (IVF): K5 host-planned, K6 device-planned", flush=True)
     centers = unit_rows(N_CLUSTERS, gen)
+    corpus_state = gen.get_state()  # phase 6 draws this corpus again
     x = clustered_rows(centers, N_ROWS, gen)
     dense = {"bf16": build_index(x, dtype="bfloat16").to_device(),
              "int8": build_index(x, dtype="int8").to_device()}
@@ -638,7 +655,7 @@ def phase_ivf(gen, results) -> dict:
                 f"{'K1' if name == 'bf16' else 'K3'} scan of the IVF order")
         check_k1(v, i, fv, fi, what)
     results["ivf_cases"] = cases
-    return {"dense": dense, "ivf": ivfs}
+    return {"dense": dense, "ivf": ivfs, "corpus": (centers, corpus_state)}
 
 
 def ivf_bound(union_blocks: int, visits: int, nq: int, dtype, extra_bytes: int,
@@ -839,16 +856,47 @@ def phase_w8a8_kernels(gen, results) -> None:
     torch.cuda.empty_cache()
 
 
+class GCPauses:
+    """Seconds the host spends in Python's cyclic garbage collector while
+    it is entered (a host pause inside a timed window)."""
+
+    def __init__(self):
+        self.seconds, self.runs, self._t0 = 0.0, 0, 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.runs += 1
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
 def timed_search(engine, qtexts, results, label, counters, runs=3, **kw):
     """One warm search, then ``runs`` timed back to back; returns the hits
     and records qps as all their queries over the whole timed window, and
-    the launches of ``counters`` per search."""
+    the launches of ``counters`` per search. Prints each search's ms and
+    the garbage collector's share of the window. A full collection runs
+    before the window: without it, the collector's pass over this run's
+    host objects fell as one pause of 158-171 ms into whichever window
+    the allocation count happened to trigger it in."""
     engine.search(qtexts, k=10, **kw)  # warm
+    gc.collect()
     before = all_launches()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        hits = engine.search(qtexts, k=10, **kw)
-    dt = time.perf_counter() - t0
+    each = []
+    with GCPauses() as pauses:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            hits = engine.search(qtexts, k=10, **kw)
+            each.append((time.perf_counter() - t1) * 1e3)
+        dt = time.perf_counter() - t0
     after = all_launches()
     launched = {c: (after[c] - before[c]) // runs for c in counters}
     results.setdefault("qps", {})[label] = runs * len(qtexts) / dt
@@ -857,7 +905,8 @@ def timed_search(engine, qtexts, results, label, counters, runs=3, **kw):
         fail(f"{label}: engine.search launched none of {counters}: {launched}")
     print(f"  {label}: {runs} searches of {len(qtexts)} text queries in {dt * 1e3:.1f} ms end "
           f"to end ({dt / runs * 1e3:.1f} ms each) = {runs * len(qtexts) / dt:.1f} qps; "
-          f"launches per search: {launched}", flush=True)
+          f"launches per search: {launched}; ms a search {[round(t, 1) for t in each]}, of "
+          f"the window {pauses.seconds * 1e3:.1f} ms in {pauses.runs} GC runs", flush=True)
     return hits
 
 
@@ -1622,6 +1671,362 @@ def phase_flagship(indexes, engines, texts, seed, results, card) -> dict:
     for key, counter in (("K2", "fused_topk_int8"), ("K4", "fused_topk_masked")):
         if launches[counter] < 1:
             fail(f"the flagship path launched no {key} ({counter}) kernel")
+    return launches, {"chunks": chunks, "bm25": bm25, "native": nat}
+
+
+# phase 6: the index lifecycle (embed, index, append, extend, live reload)
+LC_BASE = 1_737_856  # the base index's rows; the rest of the 2M corpus is appended
+LC_APPEND = N_ROWS - LC_BASE  # 262,144 rows: one shard of new papers' chunks
+LC_EMBED = 16_384  # chunks through the embed loop, two batches of 8,192
+LC_CATS = [f"cat.{i:02d}" for i in range(31)]  # the base vocabulary: bits 0-30
+LC_NEW_CAT = "new.cat"  # the append brings it at bit 31, the int32 sign bit of the masks
+LC_FILTER = LC_CATS[:3]
+LC_STEADY_S = 2.0  # seconds of steady load before the reload and after it
+LC_MEM_SLACK = 64 << 20  # bytes the caching allocator may still hold for warm temporaries
+
+
+def index_bytes(idx, ivf=None) -> int:
+    """Device bytes of an index (values, scales, masks, padded) and of
+    its IVF layout."""
+    ts = [idx._device_values, idx._device_scales, idx._device_masks]
+    if ivf is not None:
+        ts += [ivf.values, ivf.scales, ivf.row_masks, ivf._device_centroids, ivf._device_cb]
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def lifecycle_embed(embedder, chunks, results) -> None:
+    """The embed verb's loop over 16,384 of phase 5's chunks: bitwise
+    ``encode_texts`` of each batch, and a second run resumes both."""
+    from arxiv_rag_tpu_torch.embed.runner import embed_batches
+
+    texts = chunks[:LC_EMBED]
+    batches = [([f"s{i}" for i in range(s, min(s + 8192, LC_EMBED))], texts[s:s + 8192])
+               for s in range(0, LC_EMBED, 8192)]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = embed_batches(embedder, batches, tmp, model="random-init")
+        dt = time.perf_counter() - t0
+        again = embed_batches(embedder, batches, tmp, model="random-init")
+        same = all(np.array_equal(np.load(Path(tmp) / f"embeddings_{i:05d}.npy"),
+                                  embedder.encode_texts(b[1])) for i, b in enumerate(batches))
+        manifest = json.loads((Path(tmp) / "index.json").read_text())
+    results["lifecycle"]["embed_chunks_per_s"] = LC_EMBED / dt
+    print(f"  embed loop: {LC_EMBED} chunks in {dt:.2f} s = {LC_EMBED / dt:.1f} chunks/s "
+          f"(native tokenizer; phase 3's encode_texts {results['encoder_chunks_per_s']:.1f} "
+          f"chunks/s at bucket 128); output bitwise encode_texts of each batch: {same}; "
+          f"second run resumed {again['resumed_batches']} of {again['batches']} batches; "
+          f"manifest total_rows {manifest['total_rows']}", flush=True)
+    if not same or out["embedded"] != LC_EMBED or again["resumed_batches"] != len(batches) \
+            or manifest["total_rows"] != LC_EMBED:
+        fail("the embed loop's output is not encode_texts, or it did not resume")
+
+
+def reload_under_load(label, engine, fresh, index_dir, qtexts, results, kernels) -> dict:
+    """An HTTP server over ``engine`` reloads ``index_dir`` while 4
+    clients send 32-query requests (two with categories): every answer
+    must be the old engine's or ``fresh``'s, none may fail, and every
+    request sent after the 200 must be answered as ``fresh`` answers.
+    Returns the launches of this server's run alone (its traffic, the
+    reload and the shadow warm), which must include each of
+    ``kernels`` ({key: counter})."""
+    from arxiv_rag_tpu_torch.serve import serve_in_thread
+
+    batches = [qtexts[32 * c:32 * (c + 1)] for c in range(4)]
+    cats = [None, None, LC_FILTER, LC_FILTER]
+
+    def answers(eng):
+        return [[[(h.row, h.score) for h in hits]
+                 for hits in eng.search(batches[c], k=10, categories=cats[c])]
+                for c in range(4)]
+
+    old, new = answers(engine), answers(fresh)
+    if all(o == n for o, n in zip(old, new)):
+        fail(f"{label}: the grown index answers every batch as the base does")
+    reset_all_launches()  # this server's run starts here
+    httpd, thread = serve_in_thread(engine, host="127.0.0.1", port=0,
+                                    index_stats={"rows": engine.index.num_rows},
+                                    reload_paths={"index": str(index_dir)})
+    port = httpd.server_address[1]
+    log, stop = [], threading.Event()
+
+    def client(c: int) -> None:
+        body = {"queries": batches[c], "k": 10}
+        if cats[c] is not None:
+            body["categories"] = cats[c]
+        data = json.dumps(body).encode()
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/search", data=data,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    status, got = resp.status, [[(h["row"], h["score"]) for h in hits]
+                                                for hits in json.loads(resp.read())["results"]]
+            except Exception as exc:  # noqa: BLE001 — counted as a failed request
+                status, got = repr(exc), None
+            # a batch the growth leaves unchanged is answered by both ("same")
+            kind = ("same" if got == old[c] == new[c] else "old" if got == old[c] else
+                    "new" if got == new[c] else "bad")
+            log.append((c, t0, time.perf_counter(), status, kind))
+
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    try:
+        t_start = time.perf_counter()
+        for t in clients:
+            t.start()
+        time.sleep(LC_STEADY_S)
+        r0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/admin/reload", data=b"{}",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, info = resp.status, json.loads(resp.read())
+        r1 = time.perf_counter()
+        time.sleep(LC_STEADY_S)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=180)
+        httpd.shutdown()
+        httpd.batcher.close()
+        httpd.server_close()
+        thread.join(timeout=30)
+    launches = all_launches()  # and ends here
+    bad = [e for e in log if e[3] != 200 or e[4] == "bad"]
+    before = [e for e in log if e[2] < r0]
+    during = [e for e in log if e[1] < r1 and e[2] > r0]
+    after = [e for e in log if e[1] > r1]
+    lat = {name: max((e[2] - e[1]) * 1e3 for e in part) if part else float("nan")
+           for name, part in (("before", before), ("during", during), ("after", after))}
+    qps = {"before": 32 * len(before) / (r0 - t_start),
+           "during": 32 * sum(r0 <= e[2] <= r1 for e in log) / (r1 - r0),
+           "after": 32 * sum(e[2] > r1 for e in log) / (time.perf_counter() - r1)}
+    reading = {"load_s": info.get("load_s"), "swap_s": info.get("swap_s"), "qps": qps,
+               "max_latency_ms": lat, "requests": len(log),
+               "answered": {k: sum(e[4] == k for e in log) for k in ("old", "new", "same",
+                                                                       "bad")}}
+    results["lifecycle"].setdefault("reload", {})[label] = reading
+    print(f"  {label}: /admin/reload {status} {info.get('status')} ({info.get('rows')} rows) "
+          f"under 4 clients: prepare_reload (load + upload + warm) {reading['load_s']:.3f} s, "
+          f"swap behind the barrier {reading['swap_s'] * 1e3:.1f} ms; {len(log)} requests, "
+          f"answered {reading['answered']}, failed {len(bad)}; qps before / during / after "
+          f"{qps['before']:.1f} / {qps['during']:.1f} / {qps['after']:.1f}; longest request "
+          f"before / during / after {lat['before']:.1f} / {lat['during']:.1f} / "
+          f"{lat['after']:.1f} ms", flush=True)
+    if status != 200 or bad or not after or any(e[4] == "old" for e in after) \
+            or any(e[4] == "new" for e in before):
+        fail(f"{label}: a request failed or got neither engine's answer: {bad[:2]}; after the "
+             f"200: {[e[4] for e in after][:8]}")
+    return path_launches(label, launches, kernels)
+
+
+def path_launches(label, launches, kernels) -> dict:
+    """The launches of ``kernels`` ({key: counter}) in one counted run;
+    fails if one of them was not launched."""
+    got = {f"{key} ({counter})": launches[counter] for key, counter in kernels.items()}
+    print(f"  {label}: launches in its own run {got}", flush=True)
+    for key, counter in kernels.items():
+        if launches[counter] < 1:
+            fail(f"{label}: its run launched no {key} ({counter}) kernel")
+    return got
+
+
+LC_DENSE_KERNELS = {"K2": "fused_topk_int8", "K4": "fused_topk_masked"}
+LC_IVF_KERNELS = {"K6": "ivf_topk_device", "K3": "fused_topk_int8_row"}
+
+
+def phase_lifecycle(ivfs, engines, texts, flagship, results, card) -> dict:
+    """embed → index → append → extend → live reload on the card; returns
+    the launches of the reload path, each run counted alone: two HTTP
+    servers (traffic, reload, shadow warm) and one engine-level hybrid
+    reload (its load, shadow warm and swap)."""
+    from arxiv_rag_tpu_torch.config import RetrievalConfig
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import DenseIndex, append_index, build_index
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    print(f"== phase 6: the index lifecycle on {card}", flush=True)
+    results["lifecycle"] = out = {}
+    model, tok = engines["bf16"].embedder.model, engines["bf16"].embedder.tokenizer
+    lifecycle_embed(Embedder(model, tok, batch_sizes=(64, 512),
+                             native_tokenizer=flagship["native"]), flagship["chunks"], results)
+
+    centers, state = ivfs["corpus"]
+    g = torch.Generator(device="cuda")
+    g.set_state(state)
+    x = clustered_rows(centers, N_ROWS, g)  # phase 2's corpus, drawn again
+    rng = np.random.default_rng(6)
+    cats = list(np.array(LC_CATS)[rng.integers(0, len(LC_CATS), LC_BASE)]) + \
+        [LC_NEW_CAT if i % 2 else LC_CATS[i % len(LC_CATS)] for i in range(LC_APPEND)]
+    ids = [f"c{i:07d}" for i in range(N_ROWS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        base = build_index(x[:LC_BASE], categories=cats[:LC_BASE], category_names=LC_CATS,
+                           dtype="int8", chunk_ids=ids[:LC_BASE])
+        same = torch.equal(base.values, ivfs["dense"]["int8"].values[:LC_BASE])
+        base.save(tmp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ivf0 = IVFIndex.build(base, N_CLUSTERS, block_rows=IVF_BLOCK)
+        ivf0.save(tmp)
+        centroids = ivf0.centroids
+        torch.cuda.synchronize()
+        out["base_ivf_build_s"] = time.perf_counter() - t1
+        print(f"  base: int8 index of {LC_BASE} rows of phase 2's corpus (its values bitwise "
+              f"phase 2's: {same}), {len(LC_CATS)} categories, chunk ids, built and saved in "
+              f"{t1 - t0:.1f} s; IVF delta ({N_CLUSTERS} clusters, {IVF_BLOCK}-row blocks) "
+              f"trained on it and saved in {out['base_ivf_build_s']:.1f} s", flush=True)
+        if not same:
+            fail("phase 6's corpus is not phase 2's")
+        del base, ivf0
+
+        # the serving engines over the base, each loading it as a server does
+        qemb = Embedder(model, tok, batch_sizes=(512,), native_tokenizer=flagship["native"])
+
+        def load(probe: bool, cfg=None):
+            idx = DenseIndex.load(tmp).to_device()
+            ivf = IVFIndex.load(tmp, idx).to_device() if probe else None
+            return SearchEngine(idx, embedder=qemb if cfg is None else engines["bf16"].embedder,
+                                ivf=ivf, cfg=cfg or RetrievalConfig(nprobe=NPROBE if probe else 0))
+
+        dense_engine, ivf_engine = load(False), load(True)
+        hybrid = load(False, RetrievalConfig(hybrid_alpha=FLAGSHIP_ALPHA,
+                                             rerank_top_k=RERANK_TOP_K))
+
+        # growth: append 262,144 rows that bring a new category, then extend
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grown = append_index(tmp, x[LC_BASE:], categories=cats[LC_BASE:],
+                             chunk_ids=ids[LC_BASE:])
+        out["append_s"] = time.perf_counter() - t0
+        full = build_index(x, categories=cats, category_names=grown.categories, dtype="int8",
+                           chunk_ids=ids)
+        del x
+        checks = {"values": torch.equal(grown.values.cuda(), full.values),
+                  "scales": torch.equal(grown.scales.cuda(), full.scales),
+                  "masks": np.array_equal(grown.row_masks, full.row_masks),
+                  "chunk ids": grown.chunk_ids == full.chunk_ids,
+                  f"{LC_NEW_CAT} at bit 31": grown.categories.index(LC_NEW_CAT) == 31}
+        print(f"  append_index of {LC_APPEND} rows onto {LC_BASE} (on the card, new shard, "
+              f"sidecars, manifest, reload of the whole index): {out['append_s']:.2f} s; "
+              f"bitwise a full {N_ROWS}-row build: {checks}", flush=True)
+        if not all(checks.values()):
+            fail("the appended index differs from a full build")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ext = IVFIndex.extend(tmp, grown)
+        torch.cuda.synchronize()
+        out["extend_s"] = time.perf_counter() - t0
+        oracle = IVFIndex.build(full, N_CLUSTERS, block_rows=IVF_BLOCK, centroids=centroids)
+        same = (np.array_equal(ext.perm, oracle.perm) and np.array_equal(ext.offsets,
+                                                                         oracle.offsets))
+        print(f"  IVFIndex.extend (assign the new rows, rebuild the layout, save): "
+              f"{out['extend_s']:.2f} s against phase 2's full int8 IVF build "
+              f"{results['ivf_build_s']['int8']:.1f} s and the base's "
+              f"{out['base_ivf_build_s']:.1f} s; perm and offsets bitwise build(centroids=) "
+              f"on the card: {same}", flush=True)
+        if not same:
+            fail("IVFIndex.extend differs from a full build with the same centroids")
+        del ext, grown
+        full.to_device()
+        fresh_dense = SearchEngine(full, embedder=qemb)
+        fresh_ivf = SearchEngine(full, embedder=qemb, ivf=oracle.to_device(),
+                                 cfg=RetrievalConfig(nprobe=NPROBE))
+
+        launches = {
+            "dense int8 server": reload_under_load("dense int8 server", dense_engine,
+                                                   fresh_dense, tmp, texts, results,
+                                                   LC_DENSE_KERNELS),
+            "IVF int8 server (device plan)": reload_under_load(
+                "IVF int8 server (device plan)", ivf_engine, fresh_ivf, tmp, texts, results,
+                LC_IVF_KERNELS)}
+        # after the swap, the new category (bit 31) filters as on a fresh engine
+        want_cats = [LC_NEW_CAT, LC_CATS[0]]
+        for eng, fresh, label in ((dense_engine, fresh_dense, "dense"),
+                                  (ivf_engine, fresh_ivf, "IVF")):
+            got = [[(h.row, h.score) for h in hits]
+                   for hits in eng.search(texts[:32], k=10, categories=want_cats)]
+            want = [[(h.row, h.score) for h in hits]
+                    for hits in fresh.search(texts[:32], k=10, categories=want_cats)]
+            if got != want:
+                fail(f"reloaded {label} engine, categories {want_cats}: differs from a fresh "
+                     "engine")
+        print(f"  reloaded engines with categories {want_cats} (bit 31): bitwise a fresh "
+              "engine over the full build", flush=True)
+        del dense_engine, ivf_engine, fresh_ivf, oracle
+
+        # one engine-level hybrid reload, with the BM25 file of phase 5's chunks
+        t0 = time.perf_counter()
+        flagship["bm25"].save(Path(tmp) / "bm25.npz")
+        out["bm25_save_s"] = time.perf_counter() - t0
+        # the servers' handler classes (cyclic, as every class is) hold their
+        # engines, and so their 2M-row indexes, until a full collection: one
+        # falling inside the reload freed 1.5 GB there. Collect first, and
+        # let only the swap free memory while the reload is measured
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            old_bytes = index_bytes(hybrid.index)
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()  # the hybrid reload's run starts here
+            t0 = time.perf_counter()
+            swap = hybrid.prepare_reload(tmp, bm25_path=str(Path(tmp) / "bm25.npz"))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            info = swap()
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            launches["hybrid engine reload"] = path_launches("hybrid engine reload",
+                                                             all_launches(), LC_DENSE_KERNELS)
+            a1, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        finally:
+            gc.enable()
+        new_bytes = index_bytes(hybrid.index)
+        mem = {"old_index_bytes": old_bytes, "new_index_bytes": new_bytes,
+               "peak_over_before": peak - a0, "after_minus_before": a1 - a0}
+        out.update(hybrid_prepare_s=t1 - t0, hybrid_swap_ms=(t2 - t1) * 1e3, memory=mem)
+        print(f"  hybrid engine reload (bm25_path; BM25 of phase 5's {hybrid.bm25.num_docs} "
+              f"chunks saved in {out['bm25_save_s']:.1f} s): prepare_reload {t1 - t0:.2f} s, "
+              f"swap {(t2 - t1) * 1e3:.3f} ms, {info}; device memory: old index "
+              f"{old_bytes / 2**20:.1f} MiB, new {new_bytes / 2**20:.1f} MiB, peak over the "
+              f"start {mem['peak_over_before'] / 2**20:.1f} MiB (old + new resident: the old "
+              f"was already counted), allocated after the swap minus before "
+              f"{mem['after_minus_before'] / 2**20:.1f} MiB (new - old "
+              f"{(new_bytes - old_bytes) / 2**20:.1f})", flush=True)
+        if abs(mem["after_minus_before"] - (new_bytes - old_bytes)) > LC_MEM_SLACK:
+            fail("after the swap the device still holds the old index's tensors")
+        for cats_ in (None, [LC_NEW_CAT] + LC_CATS[:2]):
+            qtexts = corpus_queries(32)
+            hits = hybrid.search(qtexts, k=10, categories=cats_)
+            emb, m = hybrid.embedder.encode_window_device(qtexts)
+            idx = hybrid.index
+            if cats_ is None:
+                dv, dr = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales,
+                                                  emb[:m], RERANK_TOP_K, n_valid=idx._n_valid)
+                bits = None
+            else:
+                bits = idx.category_mask(cats_)
+                qmask = torch.full((m,), int(np.uint32(bits).view(np.int32)),
+                                   dtype=torch.int32, device="cuda")
+                dv, dr = ft.fused_topk_int8_masked_plain(
+                    idx._device_values, idx._device_scales, idx._device_masks, qmask, emb[:m],
+                    RERANK_TOP_K, n_valid=idx._n_valid)
+            wv, wr = plain_hybrid(dv.cpu().numpy(), dr.cpu().numpy(),
+                                  hybrid.bm25.topk_batch(qtexts, RERANK_TOP_K), 10,
+                                  FLAGSHIP_ALPHA, bits, idx.row_masks)
+            got = [[(h.row, h.score) for h in row] for row in hits]
+            want = [[(int(r), float(v)) for v, r in zip(vr, rr) if r >= 0]
+                    for vr, rr in zip(wv, wr)]
+            print(f"  hybrid after the reload, categories {cats_}: bitwise the plain int8 "
+                  f"scan + BM25 window + numpy merge: {got == want}", flush=True)
+            if got != want:
+                fail("the reloaded hybrid engine disagrees with plain_hybrid")
+        del hybrid, fresh_dense, full, swap
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1808,9 +2213,13 @@ def main() -> int:
             fail(f"the W8A8 path launched no {key} ({counter}) kernel")
     print(f"== W8A8 path launches: {w8a8_launches} (K7 is not on it: the encoder "
           "quantizes inside K8)", flush=True)
-    flagship_launches = phase_flagship(indexes, engines, texts, args.seed, results, card)
+    flagship_launches, flagship = phase_flagship(indexes, engines, texts, args.seed, results,
+                                                 card)
     print(f"== flagship path launches: {flagship_launches} (K2 on the hybrid route, K4 "
           "with categories)", flush=True)
+    lifecycle_launches = phase_lifecycle(ivfs, engines, texts, flagship, results, card)
+    print(f"== lifecycle path launches (the reload path, each run counted alone): "
+          f"{lifecycle_launches}", flush=True)
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
           f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "
@@ -1820,6 +2229,11 @@ def main() -> int:
     print(f"  flagship ({card}): BM25 build {fl['bm25_build_s']:.1f} s; qps "
           f"{ {k: round(v, 1) for k, v in fl['qps'].items()} }; tokenization ms "
           f"{ {k: round(v, 1) for k, v in fl['tokenize_ms'].items()} }", flush=True)
+    lc = results["lifecycle"]
+    print(f"  lifecycle ({card}): embed {lc['embed_chunks_per_s']:.1f} chunks/s; append "
+          f"{lc['append_s']:.2f} s; extend {lc['extend_s']:.2f} s; reloads "
+          f"{json.dumps(lc['reload'])}; hybrid prepare_reload {lc['hybrid_prepare_s']:.2f} s, "
+          f"swap {lc['hybrid_swap_ms']:.3f} ms; memory {lc['memory']}", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)

@@ -167,3 +167,47 @@ def test_random_bert_is_seeded_and_on_the_asked_device():
     ids, mask, types = (_t(x) for x in _batch())
     assert a.classify(ids, mask, types).shape == (3, 1)
     assert isinstance(a, Bert)
+
+
+def test_bf16_first_divergence_is_the_first_products_sum_order():
+    """Where the bf16 forward first parts from JAX's at MiniLM-L6 widths
+    (hidden 384, past the small config of the test above; later layers
+    inherit and spread the difference): the embedding sum and its
+    LayerNorm are bitwise, and the first difference is layer 0's
+    query projection, whose fp32 sums over 384 products (bf16 operands)
+    come out in another order. A bf16 output differs only where JAX's
+    fp32 sum lies within that order's difference of a bf16 rounding
+    midpoint, so the port rounds where the reference rounds."""
+    from arxiv_rag_tpu.models.mpnet import _dense as jax_dense
+    from arxiv_rag_tpu.models.mpnet import _layer_norm as jax_layer_norm
+
+    from arxiv_rag_tpu_torch.models.mpnet import _dense, _layer_norm, _matmul_f32
+
+    widths = dict(SMALL, vocab_size=300, hidden_size=384, num_hidden_layers=1,
+                  num_attention_heads=12, intermediate_size=1536, max_position_embeddings=512)
+    jcfg = jbert.BertConfig(**widths)
+    params = jbert.init_params(jax.random.PRNGKey(4), jcfg)
+    model = build_bert(
+        bert_from_jax_params(jax.tree.map(np.asarray, params), BertConfig(**widths)),
+        BertConfig(**widths), compute_dtype="bfloat16", device="cpu")
+    ids = np.random.default_rng(0).integers(4, 300, (3, 64)).astype(np.int32)
+    emb = params["embeddings"]
+    x = emb["word"][ids] + emb["position"][jnp.arange(64)[None]] + emb["token_type"][0]
+    x = jax_layer_norm(x.astype(jnp.bfloat16), emb["ln"], jcfg.layer_norm_eps)
+    with torch.no_grad():
+        t = (model.word(_t(ids).long()) + model.position(torch.arange(64)[None])
+             + model.token_type.weight[0])
+        t = _layer_norm(t.to(torch.bfloat16), model.emb_ln)
+        assert np.array_equal(t.float().numpy(), np.asarray(x.astype(jnp.float32)))
+        p, lin = jax.tree.map(lambda a: a[0], params["layers"]["attn"]["q"]), model.layers[0].attn.q
+        want32 = np.asarray(jnp.dot(x, p["kernel"].astype(jnp.bfloat16),
+                                    preferred_element_type=jnp.float32) + p["bias"])
+        got32 = (_matmul_f32(t, lin.weight.to(torch.bfloat16).T) + lin.bias.float()).numpy()
+        want = np.asarray(jax_dense(x, p).astype(jnp.float32))
+        got = _dense(t, lin).float().numpy()
+    order = np.abs(got32 - want32)
+    assert 0 < order.max() <= 2e-6  # summation order: ~1e-6 of sums of magnitude ~1
+    differ = got != want
+    assert 0 < differ.mean() <= 1e-3
+    midpoint = (got[differ] + want[differ]) / 2
+    assert (np.abs(want32[differ] - midpoint) <= order[differ]).all()

@@ -878,3 +878,86 @@ def test_hybrid_window_bitwise_plain_recomputation(gen, masked):
     want = _plain_merge(dv.cpu().numpy(), dr.cpu().numpy(), bm25.topk_batch(queries, c), k,
                         0.7, bits, idx.row_masks)
     assert [[(h.row, h.score) for h in row] for row in hits] == want
+
+
+def _index_bits(idx):
+    """(values bits, scales, row masks, chunk ids) of an index, on the host."""
+    v = idx.values.cpu().contiguous()
+    return (v.view(torch.uint8), None if idx.scales is None else idx.scales.cpu(),
+            idx.row_masks, idx.chunk_ids)
+
+
+def _same_index(a, b) -> bool:
+    va, sa, ma, ia = _index_bits(a)
+    vb, sb, mb, ib = _index_bits(b)
+    return (torch.equal(va, vb) and (sa is None) == (sb is None)
+            and (sa is None or torch.equal(sa, sb)) and ia == ib
+            and ((ma is None and mb is None) or (ma == mb).all()))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_append_on_the_card(gen, dtype, tmp_path):
+    """``append_index`` on the card (its default) is bitwise a full build
+    on the card, new category at bit 31 included. Rows the card and the
+    CPU see already normalized (a ``normalize=False`` index) it grows
+    bitwise as the CPU does: the quantization divides by a tensor on
+    both. A normalized index differs from the CPU's only where the
+    card's row norms sum in another order (within a bf16 / int8 step)."""
+    import numpy as np
+
+    from arxiv_rag_tpu_torch.index.store import DenseIndex, append_index, build_index
+
+    n, split, d = 9000, 6100, 256
+    x = torch.randn(n, d, generator=gen, device="cuda") * 3
+    names = [f"c{i:02d}" for i in range(31)]
+    cats = [names[i % 31] for i in range(split)] + ["zz" if i % 7 else "c03"
+                                                    for i in range(n - split)]
+    ids = [f"r{i}" for i in range(n)]
+    for normalize in (True, False):
+        d_card, d_cpu = tmp_path / f"card{normalize}", tmp_path / f"cpu{normalize}"
+        base = build_index(x[:split], categories=cats[:split], dtype=dtype,
+                           normalize=normalize, chunk_ids=ids[:split])
+        base.save(d_card, rows_per_shard=4096)
+        base.save(d_cpu, rows_per_shard=4096)
+        grown = append_index(d_card, x[split:], categories=cats[split:], chunk_ids=ids[split:])
+        assert grown.categories[31] == "zz"
+        full = build_index(x, categories=cats, category_names=grown.categories, dtype=dtype,
+                           normalize=normalize, chunk_ids=ids)
+        assert _same_index(grown, full)
+        on_cpu = append_index(d_cpu, x[split:].cpu().numpy(), categories=cats[split:],
+                              chunk_ids=ids[split:], device="cpu")
+        if not normalize:
+            assert _same_index(grown, on_cpu)
+        else:
+            a = grown.values.to(torch.float32)
+            b = on_cpu.values.to(torch.float32)
+            step = {"int8": 1.0, "bfloat16": 2.0**-7, "float32": 1e-6}[dtype]
+            assert (a - b).abs().max() <= step
+        on = DenseIndex.load(d_card).to_device()
+        assert int(on._device_masks[split + 1]) == -(1 << 31)
+        assert np.array_equal(on.row_masks, grown.row_masks)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_extend_on_the_card_equals_a_full_build(gen, dtype, tmp_path):
+    """``IVFIndex.extend`` on the card: the perm, offsets and layout of
+    ``build(centroids=)`` there, the new rows assigned in the full
+    build's batches."""
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import append_index, build_index
+
+    n, split, d, c = 40_000, 29_000, 128, 64
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    build_index(x[:split], dtype=dtype).save(tmp_path)
+    base = build_index(x[:split], dtype=dtype)
+    ivf0 = IVFIndex.build(base, c, block_rows=256, iters=3)
+    ivf0.save(tmp_path)
+    grown = append_index(tmp_path, x[split:])
+    ext = IVFIndex.extend(tmp_path, grown, assign_batch=16_384)
+    full = IVFIndex.build(grown, c, block_rows=256, centroids=ivf0.centroids,
+                          assign_batch=16_384)
+    assert ext.values.device.type == "cuda"
+    assert (ext.perm == full.perm).all() and (ext.offsets == full.offsets).all()
+    assert torch.equal(ext.values.view(torch.uint8), full.values.view(torch.uint8))
+    reloaded = IVFIndex.load(tmp_path, grown)
+    assert (reloaded.perm == full.perm).all()

@@ -154,15 +154,23 @@ def test_search_launch_counts_and_buckets(stack):
     assert eng.search([], k=K) == []
 
 
-def test_later_slice_routes_raise(stack):
-    """Live reload is the one route of a later slice. Hybrid, rerank and
-    corpus hydration are ported (tests/test_torch_hybrid.py); without a
-    BM25 index ``hybrid_alpha`` leaves the dense route as it is, as in
-    the reference."""
+def test_reload_and_routes_without_their_indexes(stack, tmp_path):
+    """Live reload works (tests/test_torch_reload.py has its cases): the
+    same index reloaded answers as before, and as the JAX engine. Without
+    a BM25 index ``hybrid_alpha`` leaves the dense route as it is, and
+    without an IVF ``nprobe`` takes the flat route, as in the
+    reference."""
     jeng, eng = _engines(stack, "float32")
     q = stack[4][:1]
-    with pytest.raises(NotImplementedError, match="reload"):
-        eng.prepare_reload("somewhere")
+    build_index(stack[3], dtype="float32").save(tmp_path / "idx")
+    build_index(stack[3][:, :16], dtype="float32").save(tmp_path / "narrow")
+    with pytest.raises(ValueError, match="dim"):
+        eng.prepare_reload(tmp_path / "narrow")
+    before = [(h.row, h.score) for h in eng.search(q)[0]]
+    info = eng.prepare_reload(tmp_path / "idx")()
+    assert info == {"rows": 60, "dim": 32, "dtype": "float32", "ivf": False,
+                    "bm25_rebuilt": False}
+    assert [(h.row, h.score) for h in eng.search(q)[0]] == before
     dense = [h.row for h in eng.search(q)[0]]
     assert [h.row for h in eng.search(q, hybrid_alpha=0.7)[0]] == dense == \
            [h.row for h in jeng.search(q, hybrid_alpha=0.7)[0]]
@@ -205,7 +213,8 @@ def test_serving_round_trip(stack):
             assert [[(h["row"], h["score"]) for h in hits] for hits in payload["results"]] == \
                    [[(h.row, h.score) for h in hits] for hits in want]
         post(2, "/admin/reload", {"index_dir": "an-index-dir"})
-        assert answers[2][0] == 501  # live reload is a later slice
+        assert answers[2][0] == 403  # a path override needs the admin token
+        assert "admin-token" in answers[2][1]["error"]
         post(3, "/search", {"queries": queries[:1], "categories": ["cs.LG"]})
         assert answers[3][0] == 400  # the index has no such category
         assert "unknown category" in answers[3][1]["error"]

@@ -45,6 +45,19 @@ def test_port_imports_without_pyarrow():
     assert int(out.stdout.split()[0]) >= 20  # the corpus store and the reranker too
 
 
+def test_port_imports_without_pyarrow_or_safetensors():
+    """The lifecycle's modules (the CLI's embed and convert verbs,
+    ``evaluate``, the engine's corpus re-open) import neither: the card's
+    machine may lack both, so each is imported where it is used."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys\nsys.modules['pyarrow'] = None\nsys.modules['safetensors'] = None\n"
+            + _IMPORT_ALL.replace("sys.exit(", "assert 'arxiv_rag_tpu_torch.evaluate' in names\n"
+                                  "sys.exit(", 1))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -53,7 +66,7 @@ def no_card():
 
 def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
     from arxiv_rag_tpu_torch.device import default_device
-    from arxiv_rag_tpu_torch.index import build_index
+    from arxiv_rag_tpu_torch.index import DenseIndex, build_index
     from arxiv_rag_tpu_torch.models.convert import build_model, from_jax_params
     from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig, random_model
     from arxiv_rag_tpu_torch.search import SearchEngine
@@ -77,6 +90,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         random_bert(BertConfig(vocab_size=20, hidden_size=16, num_hidden_layers=1,
                                num_attention_heads=2, intermediate_size=32))
+    # the lifecycle's entry points: growth, the device build, the IVF refresh
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import append_index, build_index_device
+
+    idx.save(tmp_path / "idx")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        append_index(tmp_path / "idx", np.eye(2, 8, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_index_device(np.eye(2, 8, dtype=np.float32))
+    IVFIndex.build(idx, 2, block_rows=128, device="cpu").save(tmp_path / "idx")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IVFIndex.extend(tmp_path / "idx", idx)
+    assert DenseIndex.load(tmp_path / "idx").num_rows == 4  # nothing was appended
     # asked for explicitly, the CPU works
     assert default_device("cpu").type == "cpu"
     assert random_model(cfg, device="cpu").word.weight.device.type == "cpu"
@@ -98,6 +124,14 @@ def test_cli_defaults_to_the_card(no_card, tmp_path):
     assert main(["index", "--embeddings", str(emb_dir), "--out", str(tmp_path / "idx"),
                  "--device", "cpu", "--dtype", "int8"]) == 0
     assert (tmp_path / "idx" / "index.json").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):  # --append too
+        main(["index", "--embeddings", str(emb_dir), "--out", str(tmp_path / "idx"),
+              "--append"])
+    assert main(["index", "--embeddings", str(emb_dir), "--out", str(tmp_path / "idx"),
+                 "--append", "--device", "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="CUDA is not available"):  # and embed
+        main(["embed", "--corpus", str(tmp_path), "--out", str(tmp_path / "e"),
+              "--random-init"])
 
 
 def test_kernel_build_is_not_touched_on_import():

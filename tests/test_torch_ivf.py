@@ -364,8 +364,15 @@ def test_delta_loads_in_either_package(blob_data, clustering, tmp_path):
     with pytest.raises(ValueError, match="rebuild"):
         IVFIndex.load(tmp_path / "ours", build_index(blob_data[0][:500], dtype="int8"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="append"):
-        IVFIndex.extend(tmp_path / "ours", dense)
+    # extend with no new rows: the same layout, in either package, from
+    # either package's delta
+    for d in ("ours", "theirs"):
+        ext = IVFIndex.extend(tmp_path / d, dense, device="cpu")
+        jext = JaxIVFIndex.extend(tmp_path / d, jdense)
+        for a in (ext, jext):
+            np.testing.assert_array_equal(a.perm, ivf.perm)
+            np.testing.assert_array_equal(a.offsets, ivf.offsets)
+        np.testing.assert_array_equal(ext.values.numpy(), ivf.values.numpy())
 
 
 # -- the engine's IVF route -------------------------------------------------------
@@ -434,6 +441,13 @@ def test_cli_index_ivf_then_search_nprobe_categories(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["ivf_clusters"] == 8 and out["ivf_block_rows"] == 128
     assert IVFIndex.exists(tmp_path / "idx") and JaxIVFIndex.exists(tmp_path / "idx")
+    # --append extends the existing delta with its centroids: asking for a
+    # cluster count as well is refused before anything is written
+    manifest = (tmp_path / "idx" / "index.json").read_text()
+    assert main(["index", "--embeddings", str(emb), "--device", "cpu", "--append",
+                 "--ivf-clusters", "4", "--out", str(tmp_path / "idx")]) == 2
+    assert "already has an IVF delta" in capsys.readouterr().err
+    assert (tmp_path / "idx" / "index.json").read_text() == manifest
 
     # an index with categories (the CLI reads them from a corpus in a later
     # slice), its delta built by the library
