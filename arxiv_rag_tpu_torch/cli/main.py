@@ -153,12 +153,13 @@ def _add_index(sub) -> None:
 
 
 def cmd_index(args) -> int:
+    from functools import partial
+
     import numpy as np
-    import torch
 
     from arxiv_rag_tpu_torch.device import default_device
     from arxiv_rag_tpu_torch.index.ivf import IVFIndex
-    from arxiv_rag_tpu_torch.index.store import build_index
+    from arxiv_rag_tpu_torch.index.store import build_index, build_index_device
 
     if args.ivf_clusters and args.ivf_block_rows % 128:
         print(f"error: --ivf-block-rows {args.ivf_block_rows} must be a multiple of 128 "
@@ -199,8 +200,10 @@ def cmd_index(args) -> int:
             ivf_meta = {"ivf_clusters": ivf.n_clusters, "ivf_block_rows": ivf.block_rows,
                         "ivf_refreshed": True}
     else:
-        data = embs if dev.type == "cpu" else torch.from_numpy(embs).to(dev)
-        idx = build_index(data, categories=categories, dtype=args.dtype, chunk_ids=ids)
+        # on the card: divided and quantized there, the row norms numpy's
+        # (bitwise the host build)
+        build = build_index if dev.type == "cpu" else partial(build_index_device, device=dev)
+        idx = build(embs, categories=categories, dtype=args.dtype, chunk_ids=ids)
         idx.model = manifest.get("model", "")
         idx.save(args.out)
     if args.ivf_clusters and not ivf_meta:

@@ -11,9 +11,12 @@ query bits, and ``to_device`` places the row masks beside the values as
 int32 (a bit view, so category 31 sets the sign bit), zero-padded.
 
 ``build_index`` takes a numpy array (normalized on the host exactly as
-the reference does) or a tensor on any device (normalized there, so a
-multi-million-row index is built on the card); ``build_index_device``
-runs that tensor path in row batches. ``to_device`` pads rows to a
+the reference does) or a tensor on any device (divided and quantized
+there, so a multi-million-row index is built on the card);
+``build_index_device`` runs that tensor path in row batches. Every path
+takes its row norms from numpy on the host (``_row_norms``): a division
+is correctly rounded on every device, so each build is bitwise the
+reference's host build, normalized or not. ``to_device`` pads rows to a
 multiple and records ``n_valid``; scans never return padding rows.
 
 Growth: ``append_index`` adds rows to a saved index as new shards (the
@@ -64,9 +67,25 @@ class IndexManifest:
         return cls(**json.loads(text))
 
 
+def _row_norms(x: np.ndarray) -> np.ndarray:
+    """[N, 1] row L2 norms floored at 1e-12, summed as numpy sums them."""
+    return np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+
+
 def _l2_normalize(x: np.ndarray) -> np.ndarray:
-    norms = np.linalg.norm(x, axis=1, keepdims=True)
-    return x / np.maximum(norms, 1e-12)
+    return x / _row_norms(x)
+
+
+def _normalize_tensor(emb: torch.Tensor, host: np.ndarray | None = None) -> torch.Tensor:
+    """``emb`` [N, D] fp32 divided by its row norms, the norms taken on the
+    host by ``_row_norms`` (from ``host``, ``emb``'s values there, when
+    the caller has them; else ``emb`` is copied down): bitwise
+    ``_l2_normalize`` on any device. A card sums the squares in another
+    order than numpy, which moved a normalized value by up to one bf16
+    or int8 step."""
+    if host is None:
+        host = emb.cpu().numpy()
+    return emb / torch.from_numpy(_row_norms(host)).to(emb.device)
 
 
 def build_index(
@@ -84,8 +103,7 @@ def build_index(
     if isinstance(embeddings, torch.Tensor):
         emb = embeddings.to(torch.float32)
         if normalize:
-            emb = emb / torch.clamp(
-                torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+            emb = _normalize_tensor(emb)
     else:
         emb = np.asarray(embeddings, np.float32)
         if normalize:
@@ -96,16 +114,19 @@ def build_index(
         row_masks = make_row_masks(np.asarray(categories, object), cats)
     else:
         cats, row_masks = [], None
-    scales = None
-    if dtype == "int8":
-        values, scales = quantize_int8(emb)
-    else:
-        values = emb.to(_DTYPES[dtype])
+    values, scales = _values_and_scales(emb, dtype)
     return DenseIndex(
         values=values, scales=scales, dtype=dtype, normalized=normalize,
         categories=cats, row_masks=row_masks,
         chunk_ids=list(chunk_ids) if chunk_ids is not None else None,
     )
+
+
+def _values_and_scales(emb: torch.Tensor, dtype: str):
+    """fp32 rows → (values in ``dtype``, int8 scales or None)."""
+    if dtype == "int8":
+        return quantize_int8(emb)
+    return emb.to(_DTYPES[dtype]), None
 
 
 def build_index_device(
@@ -122,7 +143,9 @@ def build_index_device(
     in batches of ``batch_rows`` rows, so fp32 copies of one batch at a
     time exist there; the values stay on ``device``. Each row is
     normalized and quantized on its own, so the result is bitwise one
-    ``build_index`` of all rows as a tensor on that device."""
+    ``build_index`` of all rows (and, normalized or not, the host
+    build's). A numpy input's row norms come from the host copy the
+    batch is uploaded from."""
     if dtype not in _DTYPES:
         raise ValueError(f"index dtype must be one of {sorted(_DTYPES)}, not {dtype!r}")
     dev = default_device(device)
@@ -130,12 +153,17 @@ def build_index_device(
     parts = []
     for start in range(0, n, batch_rows):
         chunk = embeddings[start : start + batch_rows]
-        if not isinstance(chunk, torch.Tensor):
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk, np.float32))
-        parts.append(build_index(chunk.to(dev), dtype=dtype, normalize=normalize))
+        if isinstance(chunk, torch.Tensor):
+            emb, host = chunk.to(dev, torch.float32), None
+        else:
+            host = np.ascontiguousarray(chunk, np.float32)
+            emb = torch.from_numpy(host).to(dev)
+        if normalize:
+            emb = _normalize_tensor(emb, host)
+        parts.append(_values_and_scales(emb, dtype))
     if parts:
-        values = torch.cat([p.values for p in parts])
-        scales = torch.cat([p.scales for p in parts]) if dtype == "int8" else None
+        values = torch.cat([v for v, _ in parts])
+        scales = torch.cat([s for _, s in parts]) if dtype == "int8" else None
     else:
         values = torch.zeros((0, embeddings.shape[1]), dtype=_DTYPES[dtype], device=dev)
         scales = torch.zeros((0,), dtype=torch.float32, device=dev) if dtype == "int8" else None

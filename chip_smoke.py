@@ -300,19 +300,95 @@ def library_topk(q, x, k, row_masks=None, qmask=None, out_dtype=torch.float32):
     return torch.topk(s, k)
 
 
-def build_with_categories(emb, dtype, gen):
-    """A 2M-row index whose rows carry one of 8 categories, built through
-    ``build_index(categories=...)`` as a corpus would give them."""
-    from arxiv_rag_tpu_torch.index.store import build_index
+def build_with_categories(host, dtype, gen):
+    """A 2M-row index whose rows carry one of 8 categories, built on the
+    card by ``build_index_device(categories=...)`` (the ``index`` verb's
+    build) as a corpus would give them."""
+    from arxiv_rag_tpu_torch.index.store import build_index_device
 
-    codes = torch.randint(0, len(CATS), (emb.shape[0],), generator=gen, device="cuda")
+    codes = torch.randint(0, len(CATS), (host.shape[0],), generator=gen, device="cuda")
     cats = np.array(CATS)[codes.cpu().numpy()]
-    return build_index(emb, categories=cats, category_names=CATS, dtype=dtype).to_device()
+    return build_index_device(host, categories=cats, category_names=CATS,
+                              dtype=dtype).to_device()
 
 
-def phase_kernels(gen, results) -> tuple[dict, object]:
-    """Returns the 2M bf16 and int8 indexes (by dtype) and the 2M f32 index."""
-    from arxiv_rag_tpu_torch.index.store import build_index
+def check_index_build(host, built, results) -> dict:
+    """The card's default build (``build_index_device``: numpy's row norms,
+    the division and quantization on the card) against ``build_index`` of
+    the numpy rows, bitwise in values and scales, bf16 and int8; and how
+    far the card's former normalization (``torch.linalg.vector_norm`` on
+    the card) strays from the host build: rows whose values or scales
+    differ. Returns the former build's device values (by dtype) for phase
+    3's top-10 count."""
+    from arxiv_rag_tpu_torch.index.store import _row_norms, _values_and_scales, build_index
+
+    t0 = time.perf_counter()
+    _row_norms(host)
+    norms_s = time.perf_counter() - t0
+    emb = torch.from_numpy(host).cuda()
+    former = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+    del emb
+    out, stats = {}, {"host_norms_s": norms_s}
+    for dtype in ("bfloat16", "int8"):
+        t0 = time.perf_counter()
+        want = build_index(host, dtype=dtype)
+        host_s = time.perf_counter() - t0
+        got = built[dtype]
+        vals = got.values.cpu()
+        if not torch.equal(vals.view(torch.uint8), want.values.view(torch.uint8)):
+            fail(f"the card's {dtype} index build is not bitwise build_index(numpy)")
+        if dtype == "int8" and not torch.equal(got.scales.cpu(), want.scales):
+            fail("the card's int8 index scales are not bitwise build_index(numpy)'s")
+        fv, fs = _values_and_scales(former, dtype)
+        rows_v = (fv.cpu().view(torch.uint8).view(N_ROWS, -1)
+                  != want.values.view(torch.uint8).view(N_ROWS, -1)).any(dim=1)
+        rows_s = (fs.cpu() != want.scales) if fs is not None else torch.zeros_like(rows_v)
+        stats[dtype] = {"host_build_s": host_s, "former_rows_values_differ": int(rows_v.sum()),
+                        "former_rows_scales_differ": int(rows_s.sum()),
+                        "former_rows_differ": int((rows_v | rows_s).sum())}
+        out[dtype] = (fv, fs)
+    del former
+    results["index_build"] = stats
+    print(f"  index build: the card's default build is bitwise build_index(numpy) in values "
+          f"and scales (bf16, int8, {N_ROWS} x {DIM}); numpy's row norms took "
+          f"{norms_s:.2f} s on the host; the former card normalization "
+          f"(torch.linalg.vector_norm) against the host build: "
+          f"{ {k: v for k, v in stats.items() if k != 'host_norms_s'} }", flush=True)
+    return out
+
+
+def former_build_top10(indexes, former, embedder, texts, results) -> None:
+    """Phase 3's 512 text queries over the default build and over the
+    card's former normalization: how many top-10 lists change (ids in
+    order, and as sets). Plain scans on both sides, so only the index
+    differs and no kernel launch is counted."""
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+
+    emb, n = embedder.encode_window_device(texts[:512])
+    q = emb[:n]
+    out = {}
+    for dtype, name in (("bfloat16", "bf16"), ("int8", "int8")):
+        idx, (fv, fs) = indexes[name], former[dtype]
+        if fs is None:
+            _, want = ft.fused_topk_plain(idx.values, q, 10)
+            _, got = ft.fused_topk_plain(fv, q, 10)
+        else:
+            _, want = ft.fused_topk_int8_plain(idx.values, idx.scales, q, 10)
+            _, got = ft.fused_topk_int8_plain(fv, fs, q, 10)
+        want, got = want.cpu(), got.cpu()
+        out[dtype] = {"lists_changed": int((want != got).any(dim=1).sum()),
+                      "sets_changed": int((want.sort(dim=1).values
+                                           != got.sort(dim=1).values).any(dim=1).sum()),
+                      "queries": int(n)}
+    results["index_build"]["former_top10"] = out
+    print(f"  the former card normalization's top-10 lists for phase 3's {n} queries "
+          f"(plain scans): {out}", flush=True)
+
+
+def phase_kernels(gen, results) -> tuple[dict, object, dict]:
+    """Returns the 2M bf16 and int8 indexes (by dtype), the 2M f32 index
+    and the former card normalization's values (by dtype)."""
+    from arxiv_rag_tpu_torch.index.store import build_index_device
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops.quant import quantize_int8
 
@@ -322,15 +398,22 @@ def phase_kernels(gen, results) -> tuple[dict, object]:
     rows = emb[:N_F32]
     check_card_vs_cpu(quantize_int8(rows), quantize_int8(rows.cpu()),
                       f"quantize_int8 of {N_F32} rows")
-    bf16 = build_with_categories(emb, "bfloat16", gen)
-    int8 = build_with_categories(emb, "int8", gen)
-    f32 = build_index(emb[:N_F32], dtype="float32").to_device()
-    f32_2m = build_index(emb, dtype="float32").to_device()  # the corpus size, 6.1 GB
-    del emb
+    host = emb.cpu().numpy()  # the index verb reads its embeddings on the host
+    del emb, rows
+    t1 = time.perf_counter()
+    bf16 = build_with_categories(host, "bfloat16", gen)
+    int8 = build_with_categories(host, "int8", gen)
+    torch.cuda.synchronize()
+    results["index_build_s"] = (time.perf_counter() - t1) / 2
+    f32 = build_index_device(host[:N_F32], dtype="float32").to_device()
+    f32_2m = build_index_device(host, dtype="float32").to_device()  # the corpus size, 6.1 GB
     torch.cuda.synchronize()
     print(f"  built indexes on the card in {time.perf_counter() - t0:.1f} s "
-          f"(bf16 {tuple(bf16._device_values.shape)}, int8, both with 8 categories; "
+          f"(bf16 {tuple(bf16._device_values.shape)}, int8, both with 8 categories, "
+          f"{results['index_build_s']:.2f} s a build; "
           f"f32 {tuple(f32_2m._device_values.shape)} and {N_F32} rows)", flush=True)
+    former = check_index_build(host, {"bfloat16": bf16, "int8": int8}, results)
+    del host
     xb, x8, s8, xf, xf2 = (bf16._device_values, int8._device_values, int8._device_scales,
                            f32._device_values, f32_2m._device_values)
     mb, m8 = bf16._device_masks, int8._device_masks
@@ -378,7 +461,7 @@ def phase_kernels(gen, results) -> tuple[dict, object]:
     del f32
     phase_masked_and_row(gen, xb, x8, s8, xf2, mb, m8, cases)
     results["cases"] = cases
-    return {"bf16": bf16, "int8": int8}, f32_2m
+    return {"bf16": bf16, "int8": int8}, f32_2m, former
 
 
 def phase_masked_and_row(gen, xb, x8, s8, xf, mb, m8, cases) -> None:
@@ -2190,7 +2273,7 @@ def main() -> int:
 
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    indexes, f32_index = phase_kernels(gen, results)
+    indexes, f32_index, former = phase_kernels(gen, results)
     ivfs = phase_ivf(gen, results)
     phase_w8a8_kernels(gen, results)
 
@@ -2199,6 +2282,8 @@ def main() -> int:
     phase_serving(engines, texts)
     launches = {"main": all_launches()}
     print(f"== main path launches (slices 1-2): {launches['main']}", flush=True)
+    former_build_top10(indexes, former, engines["bf16"].embedder, texts, results)
+    del former
     launches["f32"] = phase_f32_route(f32_index, engines["bf16"].embedder, texts, results)
     print(f"== f32 route launches: {launches['f32']}", flush=True)
     del f32_index

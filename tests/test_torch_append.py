@@ -223,6 +223,25 @@ def test_build_index_device_is_the_tensor_build_in_batches(corpus, dtype):
         build_index_device(full, dtype="float16", device="cpu")
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+def test_every_build_path_is_the_reference_host_build(corpus, dtype):
+    """Normalized, the tensor path and the batched device path (numpy or
+    tensor input) are bitwise the JAX package's host build in values and
+    scales: each takes its row norms from numpy and divides by a tensor.
+    A second run at 768 wide rows, where numpy's pairwise sum and
+    ``torch.linalg.vector_norm`` part more often, holds the same."""
+    full, cats, ids = corpus
+    wide = _emb(64, d=768, seed=5)
+    for x, c, i in ((full, cats, ids), (wide, None, None)):
+        want = jax_build_index(x, categories=c, dtype=dtype, chunk_ids=i)
+        for got in (build_index(torch.from_numpy(x), categories=c, dtype=dtype, chunk_ids=i),
+                    build_index_device(x, categories=c, dtype=dtype, chunk_ids=i,
+                                       batch_rows=23, device="cpu"),
+                    build_index_device(torch.from_numpy(x), categories=c, dtype=dtype,
+                                       chunk_ids=i, batch_rows=23, device="cpu")):
+            assert_same_index(got, want, dtype)
+
+
 # -- IVFIndex.extend ---------------------------------------------------------------
 
 

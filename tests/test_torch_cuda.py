@@ -898,11 +898,10 @@ def _same_index(a, b) -> bool:
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 def test_append_on_the_card(gen, dtype, tmp_path):
     """``append_index`` on the card (its default) is bitwise a full build
-    on the card, new category at bit 31 included. Rows the card and the
-    CPU see already normalized (a ``normalize=False`` index) it grows
-    bitwise as the CPU does: the quantization divides by a tensor on
-    both. A normalized index differs from the CPU's only where the
-    card's row norms sum in another order (within a bf16 / int8 step)."""
+    on the card, new category at bit 31 included, and bitwise the CPU's
+    append in values and scales, normalized or not: the row norms are
+    numpy's on both, and the division and the quantization divide by a
+    tensor."""
     import numpy as np
 
     from arxiv_rag_tpu_torch.index.store import DenseIndex, append_index, build_index
@@ -926,13 +925,10 @@ def test_append_on_the_card(gen, dtype, tmp_path):
         assert _same_index(grown, full)
         on_cpu = append_index(d_cpu, x[split:].cpu().numpy(), categories=cats[split:],
                               chunk_ids=ids[split:], device="cpu")
-        if not normalize:
-            assert _same_index(grown, on_cpu)
-        else:
-            a = grown.values.to(torch.float32)
-            b = on_cpu.values.to(torch.float32)
-            step = {"int8": 1.0, "bfloat16": 2.0**-7, "float32": 1e-6}[dtype]
-            assert (a - b).abs().max() <= step
+        assert _same_index(grown, on_cpu)
+        host = build_index(x.cpu().numpy(), categories=cats, category_names=grown.categories,
+                           dtype=dtype, normalize=normalize, chunk_ids=ids)
+        assert _same_index(full, host)
         on = DenseIndex.load(d_card).to_device()
         assert int(on._device_masks[split + 1]) == -(1 << 31)
         assert np.array_equal(on.row_masks, grown.row_masks)
