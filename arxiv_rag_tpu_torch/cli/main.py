@@ -17,6 +17,9 @@ Verbs of the index lifecycle and the serving path, following
   eval     recall@k, MRR@k and hit@1 with paper titles as queries
   serve    HTTP query service over an index (the same options; POST
            /admin/reload swaps in a grown index with no downtime)
+  train    contrastive fine-tune of the encoder on (title -> chunk) pairs
+           from the corpus store (``--checkpoint-every``/``--resume``:
+           TrainState snapshots under ``--out/state``)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
 CPU. Without ``--checkpoint`` the query encoder is a seeded random bf16
@@ -473,14 +476,140 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _add_train(sub) -> None:
+    p = sub.add_parser("train", help="contrastive fine-tune of the encoder")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--out", required=True, help="output checkpoint dir")
+    p.add_argument("--checkpoint", default=None, help="starting checkpoint (else random init)")
+    p.add_argument("--vocab", default=None)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--max-pairs", type=int, default=50000)
+    p.add_argument("--shard-batches", action="store_true",
+                   help="data-parallel training: not in the port yet (exits 2)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="TrainState snapshot under --out/state every N steps (0=off)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest snapshot under --out/state")
+    p.add_argument("--small-model", action="store_true",
+                   help="tiny ModelConfig for smoke runs")
+    p.add_argument("--device", default="cuda")
+
+
+def cmd_train(args, corpus=None) -> int:
+    """Fine-tune the embedder on (paper title -> chunk) pairs mined from
+    the corpus store, as the reference's verb does; the result is a
+    native checkpoint either package loads. ``corpus`` stands in for the
+    store at ``--corpus`` (any object with its ``iter_batches(columns=)``,
+    as where pyarrow is missing); titles come from ``--corpus``'s
+    ``papers.jsonl`` either way."""
+    import numpy as np
+    import torch
+
+    from arxiv_rag_tpu_torch.device import default_device
+    from arxiv_rag_tpu_torch.models.convert import load_checkpoint, save_checkpoint
+    from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
+    from arxiv_rag_tpu_torch.pipeline.repair import load_paper_titles
+    from arxiv_rag_tpu_torch.train import make_train_step
+    from arxiv_rag_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+
+    if args.shard_batches:
+        print("--shard-batches: data-parallel training (in-batch negatives across the "
+              "global batch) waits for the port's parallel/ module; run without it to "
+              "train on one device", file=sys.stderr)
+        return 2
+    dev = default_device(args.device)
+    if corpus is None:
+        from arxiv_rag_tpu_torch.store.corpus import CorpusReader
+
+        corpus = CorpusReader(args.corpus)
+    # --- mine pairs: query = paper title, positive = a chunk of it ---
+    titles = load_paper_titles(args.corpus)
+    pairs: list[tuple[str, str]] = []
+    for batch in corpus.iter_batches(columns=["paper_id", "text"]):
+        for row in batch.to_pylist():
+            title = titles.get(row["paper_id"], "")
+            if len(title) > 10 and len(row["text"]) > 100:
+                pairs.append((title, row["text"]))
+            if len(pairs) >= args.max_pairs:
+                break
+        if len(pairs) >= args.max_pairs:
+            break
+    if len(pairs) < args.batch_size:
+        print(f"not enough pairs ({len(pairs)}) for batch {args.batch_size}",
+              file=sys.stderr)
+        return 2
+
+    state_dict = None
+    if args.checkpoint:
+        state_dict, mcfg = load_checkpoint(args.checkpoint)
+        vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
+    else:
+        mcfg, vocab_path = ModelConfig(), args.vocab
+    tokenizer = _tokenizer_or_toy(vocab_path)
+    if args.small_model:
+        mcfg = ModelConfig(
+            vocab_size=max(tokenizer.vocab.values()) + 1, hidden_size=64,
+            num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+            max_position_embeddings=args.seq_len + 2, pad_token_id=tokenizer.pad_id,
+        )
+        state_dict = None
+    if state_dict is None:  # seeded random fp32 weights
+        state_dict = random_model(mcfg, seed=0, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32, device=dev).state_dict()
+    init_state, train_step = make_train_step(
+        mcfg, learning_rate=args.lr, device=dev,
+        compute_dtype=torch.float32 if args.small_model else torch.bfloat16,
+    )
+    state = init_state(state_dict)
+    del state_dict
+    state_dir = Path(args.out) / "state"
+    if args.resume:
+        restored = restore_train_state(state_dir, state)
+        if restored is not None:
+            state = restored
+            print(f"resumed at step {state.step}", file=sys.stderr)
+
+    rng = np.random.default_rng(0)
+    order = rng.permutation(len(pairs))
+    bs, sl = args.batch_size, args.seq_len
+    losses = []
+    for step in range(args.steps):
+        sel = order[(step * bs) % len(pairs):][:bs]
+        if len(sel) < bs:
+            sel = np.concatenate([sel, order[: bs - len(sel)]])
+        q_ids, q_mask = tokenizer.encode_batch([pairs[i][0] for i in sel], max_len=sl)
+        p_ids, p_mask = tokenizer.encode_batch([pairs[i][1] for i in sel], max_len=sl)
+        state, metrics = train_step(state, q_ids, q_mask, p_ids, p_mask)
+        losses.append(float(metrics["loss"]))
+        if (step + 1) % 10 == 0:
+            print(f"step {step+1}/{args.steps} loss={losses[-1]:.4f} "
+                  f"acc={float(metrics['in_batch_acc']):.3f}", file=sys.stderr)
+        if args.checkpoint_every and (step + 1) % args.checkpoint_every == 0:
+            save_train_state(state_dir, state)
+
+    save_checkpoint(args.out, state.params, mcfg)
+    if vocab_path and Path(vocab_path).exists():
+        (Path(args.out) / "vocab.txt").write_text(Path(vocab_path).read_text())
+    print(json.dumps({
+        "steps": args.steps, "pairs": len(pairs),
+        "first_loss": round(losses[0], 4), "last_loss": round(losses[-1], 4),
+        "saved": args.out,
+    }))
+    return 0
+
+
 COMMANDS = {"convert": cmd_convert, "embed": cmd_embed, "index": cmd_index,
-            "search": cmd_search, "eval": cmd_eval, "serve": cmd_serve}
+            "search": cmd_search, "eval": cmd_eval, "serve": cmd_serve, "train": cmd_train}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="arag-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="command", required=True)
-    for adder in (_add_convert, _add_embed, _add_index, _add_search, _add_eval, _add_serve):
+    for adder in (_add_convert, _add_embed, _add_index, _add_search, _add_eval, _add_serve,
+                  _add_train):
         adder(sub)
     return ap
 

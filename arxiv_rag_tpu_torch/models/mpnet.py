@@ -136,18 +136,67 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dtype (the reference's ``preferred_element_type=float32``). ``b`` is
     2-D (a dense kernel) or batched like ``a``. fp32 operands run in full
     fp32 (TF32 is off, see device.py). bf16 operands on the card run the
-    bf16 GEMM with an fp32 output (``out_dtype``); the CPU's GEMMs have no
-    ``out_dtype``, so there they are cast up first, which forms the same
-    exact products and sums them in fp32."""
+    bf16 GEMM with an fp32 output (``out_dtype``, through ``_MatmulF32``,
+    which gives it a backward); the CPU's GEMMs have no ``out_dtype``, so
+    there they are cast up first, which forms the same exact products and
+    sums them in fp32, and autograd differentiates the casts and the fp32
+    product as JAX transposes the reference's product."""
     if a.dtype == torch.float32 or not a.is_cuda:
         return torch.matmul(a.to(torch.float32), b.to(torch.float32))
-    lead, (m, kk), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
-    if b.dim() == 2:
-        out = torch.mm(a.reshape(-1, kk), b, out_dtype=torch.float32)
-    else:
-        out = torch.bmm(a.reshape(-1, m, kk), b.reshape(-1, kk, n),
-                        out_dtype=torch.float32)
-    return out.reshape(*lead, m, n)
+    return _MatmulF32.apply(a, b)
+
+
+def _gemm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 [M, K] @ [K, N] (or [B, M, K] @ [B, K, N]) on the card with an
+    fp32 result."""
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _product_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` in fp32 with each operand cast up (exact for bf16): the
+    product JAX forms for a transpose, ``dot_general(fp32 cotangent, bf16
+    operand, preferred_element_type=float32)``. TF32 is off (device.py),
+    so on the card it is a full fp32 GEMM."""
+    return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's bf16 product with an fp32 result, differentiated as JAX
+    transposes ``dot_general(preferred_element_type=float32)``: the fp32
+    cotangent is not rounded to bf16; each operand's gradient is the
+    cotangent times the other bf16 operand, an fp32 product
+    (``_product_f32``), then cast to the operand's dtype. The forward is
+    the bf16 GEMM with ``out_dtype`` alone. (A split of the cotangent into
+    three bf16 parts on one bf16 GEMM computes the same up to the sum
+    order; on the H100 it was slower over a training step's products,
+    so the fp32 GEMM stays.)"""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        lead, (m, kk), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
+        if b.dim() == 2:
+            out = _gemm_f32_out(a.reshape(-1, kk), b)
+        else:
+            out = _gemm_f32_out(a.reshape(-1, m, kk), b.reshape(-1, kk, n))
+        return out.reshape(*lead, m, n)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        a, b = ctx.saved_tensors
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = _product_f32(ct, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:  # a dense kernel: its gradient sums over every row of a
+                kk, n = b.shape
+                grad_b = _product_f32(a.reshape(-1, kk).T, ct.reshape(-1, n))
+            else:
+                grad_b = _product_f32(a.transpose(-1, -2), ct)
+            grad_b = grad_b.to(b.dtype)
+        return grad_a, grad_b
 
 
 class QuantLinear(nn.Module):
@@ -317,6 +366,21 @@ class MPNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.hidden(input_ids, attention_mask)
+
+    @torch.no_grad()
+    def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+               normalize: bool = True) -> torch.Tensor:
+        """Sentence embeddings [batch, hidden] in fp32 (L2-normalized)."""
+        return self.embed(input_ids, attention_mask, normalize)
+
+    def embed(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+              normalize: bool = True) -> torch.Tensor:
+        """``encode`` with autograd as the caller has it: the trainer's path."""
+        return mean_pool(self.hidden(input_ids, attention_mask), attention_mask, normalize)
+
+    def hidden(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """``forward`` with autograd as the caller has it: fp32 token states."""
         cfg = self.cfg
         pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
         x = self.word(input_ids) + self.position(pos_ids)
@@ -327,12 +391,6 @@ class MPNet(nn.Module):
         for layer in self.layers:
             x = layer(x, bias, mask_bias)
         return x.to(torch.float32)
-
-    @torch.no_grad()
-    def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-               normalize: bool = True) -> torch.Tensor:
-        """Sentence embeddings [batch, hidden] in fp32 (L2-normalized)."""
-        return mean_pool(self(input_ids, attention_mask), attention_mask, normalize)
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor,

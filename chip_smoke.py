@@ -12,7 +12,12 @@ its first failure:
 
 1. environment: card name and power limit, versions, the kernels' build
    (one nvcc per source, all started together);
-2. kernels against their plain versions at full size, with times
+2. the index build: 2M × 768 bf16 and int8 indexes built on the card
+   by ``build_index_device`` from host rows (the index verb's path),
+   bitwise ``build_index`` of the numpy rows in values and scales, and
+   how many rows (and, in phase 3, top-10 lists) the card's former
+   normalization changed; then kernels against their plain versions
+   at full size, with times
    (median of CUDA-event timings), bounds and a library yardstick:
    K1 flat scans of a bf16 index and of f32 indexes of 2M and 262,144
    rows, K2 flat s8s8 scans, K4 masked scans (bf16, s8s8 and f32), K3
@@ -66,13 +71,24 @@ its first failure:
    engine-level hybrid reload with a BM25 file, its device memory
    before, at peak and after, its windows bitwise a plain
    recomputation;
-7. the kernels line, then the result line.
+7. contrastive fine-tuning (the train verb): the encoder's backward
+   products on the card against the CPU's formula at the training
+   shapes, the port's fp32 GEMM timed beside a three-part bf16 split; one fp32 step at all-mpnet-base-v2 widths (2 layers) on the
+   card against the CPU; ``train`` at the reference's defaults (batch
+   32, seq 128, lr 2e-5) for 30 steps over 12 layers on pairs mined
+   from a corpus the phase writes (the loss must fall), each step timed
+   as forward, backward and optimizer (CUDA events) with its TFLOP/s and
+   the allocator's peak; a snapshot restored steps bitwise as the live
+   state; the fine-tuned checkpoint through embed, index (int8) and
+   search (K2), bitwise the plain scan;
+8. the kernels line, then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
 slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
 path, before the flagship path's run and before each run of the
 lifecycle's reload path (each HTTP server's traffic and reload, the
-hybrid engine's reload), read just after each.
+hybrid engine's reload) and before the fine-tuned encoder's search,
+read just after each.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -83,6 +99,7 @@ import argparse
 import contextlib
 import copy
 import gc
+import io
 import json
 import re
 import statistics
@@ -2113,6 +2130,393 @@ def phase_lifecycle(ivfs, engines, texts, flagship, results, card) -> dict:
     return launches
 
 
+# phase 7: contrastive fine-tuning (the train verb) at all-mpnet-base-v2 width
+TR_BATCH, TR_SEQ, TR_LR = 32, 128, 2e-5  # the reference's train defaults (cli/main.py:787-804)
+TR_STEPS = 30
+TR_SNAPSHOT_EVERY = 15
+TR_PAPERS, TR_CHUNKS = 2048, 4  # papers of phase 5's chunks, each chunk headed by its title
+TR_TIMED = 10  # steps timed piece by piece after the verb's run
+TR_RESUME_AT = 3
+TR_ROUNDTRIP = 4096  # chunks embedded, indexed and searched with the fine-tuned encoder
+TR_QUERIES = 64
+TR_CHECK_LAYERS, TR_CHECK_BATCH, TR_CHECK_SEQ = 2, 8, 64  # the fp32 card-vs-CPU step
+TR_STEP_TOL = 1e-5  # tests/test_train.py:77-82: two ways of computing one step
+
+
+class PairCorpus:
+    """The corpus store's ``iter_batches(columns=)`` over Python lists,
+    for the train verb: the card's machine has no pyarrow."""
+
+    def __init__(self, rows: list[dict]) -> None:
+        self.rows = rows
+
+    def iter_batches(self, columns=None, batch_size=1024):
+        for s in range(0, len(self.rows), batch_size):
+            part = [{c: r[c] for c in columns} for r in self.rows[s:s + batch_size]]
+            yield types.SimpleNamespace(to_pylist=lambda part=part: part)
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one training step from its shapes: both encodes' products
+    (q/k/v/o, the FFN's two, both attention products), forward and the
+    backward's two products for each (3x the forward)."""
+    m, h, f = batch * seq, cfg.hidden_size, cfg.intermediate_size
+    per_layer = 2 * m * h * h * 4 + 2 * m * h * f * 2 + 4 * batch * seq * seq * h
+    return 3 * 2 * cfg.num_hidden_layers * per_layer
+
+
+def split3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``t`` as three bf16 parts whose sum is ``t`` (8 + 8 + 8
+    significant bits)."""
+    hi = t.to(torch.bfloat16)
+    rest = t - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.to(torch.float32)).to(torch.bfloat16)
+
+
+def split3_product(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The other way to form the backward's fp32 products (timed beside
+    the port's fp32 GEMM, used nowhere in the port): the fp32 operand
+    split into ``split3``'s parts along the contracted axis, the bf16 one
+    repeated, one bf16 GEMM over three times the depth with an fp32
+    result: exact partial products, fp32 sums."""
+    if x.dtype == torch.float32:
+        x3, z3 = torch.cat(split3(x), dim=-1), torch.cat((z, z, z), dim=-2)
+    else:
+        x3, z3 = torch.cat((x, x, x), dim=-1), torch.cat(split3(z), dim=-2)
+    if x3.dim() == 2:
+        return torch.mm(x3, z3, out_dtype=torch.float32)
+    return torch.bmm(x3, z3, out_dtype=torch.float32)
+
+
+def train_backward_check(gen, out) -> None:
+    """The card's ``_MatmulF32`` backward at the training step's shapes
+    (M = 32 x 128 rows; the attention's [b·h, s, s] products) against
+    the CPU's formula (the bf16 operand cast up, an fp32 product): before
+    the bf16 cast within fp32 summation order (twice K·2^-24 of the sum
+    of |terms|, K the contracted length), then the bf16 gradients that
+    differ (each by one bf16 step at most, plus that bound where a sum
+    cancels to near 0). Times the port's fp32 GEMM (TF32 off) for each
+    operand's gradient beside the three-part bf16 split on one bf16 GEMM
+    (checked to the same bound)."""
+    from arxiv_rag_tpu_torch.models import mpnet
+
+    m, bh, s, hd = TR_BATCH * TR_SEQ, TR_BATCH * 12, TR_SEQ, 64
+    cases = (("dense 768->768", (m, 768), (768, 768)),
+             ("dense 768->3072", (m, 768), (768, 3072)),
+             ("dense 3072->768", (m, 3072), (3072, 768)),
+             ("attention q.k^T", (bh, s, hd), (bh, hd, s)),
+             ("attention p.v", (bh, s, s), (bh, s, hd)))
+    rows = []
+    for label, sa, sb in cases:
+        a = torch.randn(sa, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+        b = (torch.randn(sb, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        b.requires_grad_()
+        y = mpnet._matmul_f32(a, b)
+        ct = torch.randn(y.shape, generator=gen, device="cuda") * 1e-3
+        y.backward(ct)
+        ad, bd = a.detach(), b.detach()
+        row = {"case": label}
+        # (the operands of each gradient's product, as the backward forms them)
+        for name, x, z, k, grad in (("a", ct, bd.transpose(-1, -2), sb[-1], a.grad),
+                                    ("b", ad.transpose(-1, -2), ct, sa[-2], b.grad)):
+            xc, zc = x.float().cpu(), z.float().cpu()
+            want, order = xc @ zc, 2 * k * 2.0**-24 * (xc.abs() @ zc.abs())
+            got = mpnet._product_f32(x, z)
+            alt = split3_product(x, z)
+            for what, val in (("the port's fp32 GEMM", got), ("the three-part split", alt)):
+                if not bool(((val.cpu() - want).abs() <= order).all()):
+                    fail(f"the backward's product ({label}, d{name}) by {what} is off the "
+                         "CPU's fp32 product by more than fp32 summation order")
+            if not torch.equal(grad, got.to(torch.bfloat16)):
+                fail(f"the backward's d{name} ({label}) is not its fp32 product cast to bf16")
+            # bf16 roundings of fp32 values that differ in their sum order: one bf16
+            # step apart at most, plus that order's error where the sum cancels
+            g, w = grad.float().cpu(), want.to(torch.bfloat16).float()
+            step = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs())
+                                                     .clamp_min(1e-30))) - 7)
+            if not bool(((g - w).abs() <= step + order).all()):
+                fail(f"the card's bf16 gradient ({label}, d{name}) is more than one bf16 step "
+                     "and fp32 summation order off the CPU's")
+            row[name] = {"k": k, "max_err_over_order": float(((got.cpu() - want).abs()
+                                                              / order.clamp_min(1e-30)).max()),
+                         "bf16_differ": int((g != w).sum()), "values": g.numel(),
+                         "fp32_gemm_ms": median_ms(lambda: mpnet._product_f32(x, z)),
+                         "split_ms": median_ms(lambda: split3_product(x, z))}
+        rows.append(row)
+        print(f"  backward {label}: {json.dumps({n: row[n] for n in 'ab'})}", flush=True)
+        del a, b, y, ct
+    out["backward"] = rows
+    total = {key: 2 * 12 * sum(r[n][key] * (4 if r["case"] == "dense 768->768" else 1)
+                               for r in rows for n in "ab")
+             for key in ("fp32_gemm_ms", "split_ms")}
+    out["backward_products_ms_per_step"] = total
+    print(f"  the backward's products over a step (12 layers x 2 encodes; q/k/v/o at 768->768): "
+          f"fp32 GEMM {total['fp32_gemm_ms']:.2f} ms, three-part split "
+          f"{total['split_ms']:.2f} ms", flush=True)
+
+
+def train_step_card_vs_cpu(out) -> None:
+    """One fp32 step at all-mpnet-base-v2 widths (768 wide, 12 heads, FFN
+    3072, the 30,527-token vocabulary, 514 positions) cut to 2 layers,
+    batch 8, seq 64, on the card and on the port's CPU path from the
+    same seeded weights: the loss and every updated parameter within
+    1e-5."""
+    from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig
+    from arxiv_rag_tpu_torch.train import make_train_step
+
+    cfg = ModelConfig(num_hidden_layers=TR_CHECK_LAYERS)
+    weights = MPNet(cfg).reset_parameters(torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(7)
+    q = rng.integers(5, cfg.vocab_size, (TR_CHECK_BATCH, TR_CHECK_SEQ))
+    p = np.where(rng.random(q.shape) < 0.15, rng.integers(5, cfg.vocab_size, q.shape), q)
+    mask = np.ones_like(q)
+    mask[:, 50:] = 0
+    mask[0, 20:] = 0
+    res = {}
+    for dev in ("cpu", "cuda"):
+        init_state, train_step = make_train_step(cfg, learning_rate=TR_LR,
+                                                 compute_dtype=torch.float32, device=dev)
+        state, m = train_step(init_state(weights), q, mask, p, mask)
+        res[dev] = float(m["loss"]), {k: v.detach().cpu() for k, v in state.params.items()}
+    loss_err = abs(res["cuda"][0] - res["cpu"][0])
+    errs = {k: float((res["cuda"][1][k] - v).abs().max()) for k, v in res["cpu"][1].items()}
+    worst = max(errs, key=errs.get)
+    out["fp32_step"] = {"loss": res["cpu"][0], "loss_err": loss_err, "max_param_err": errs[worst],
+                        "worst": worst}
+    print(f"  fp32 step, card against CPU ({TR_CHECK_LAYERS} layers x 768, batch "
+          f"{TR_CHECK_BATCH}, seq {TR_CHECK_SEQ}): loss {res['cpu'][0]:.6f}, |diff| "
+          f"{loss_err:.3g}; largest parameter difference {errs[worst]:.3g} ({worst}); "
+          f"tolerance {TR_STEP_TOL}", flush=True)
+    if loss_err > TR_STEP_TOL or errs[worst] > TR_STEP_TOL:
+        fail("the fp32 training step on the card disagrees with the CPU's")
+
+
+def phase_train(flagship, results, card) -> dict:
+    """contrastive fine-tuning on the card: the backward's products and an
+    fp32 step against the CPU, then ``train`` at the reference's defaults
+    over all-mpnet-base-v2 (12 layers, random seeded weights, the toy
+    tokenizer) on pairs mined from a corpus this phase writes, each step
+    timed piece by piece, resume from a snapshot, and the fine-tuned
+    checkpoint through embed → index → search (K2). Returns the round
+    trip's launches, counted alone."""
+    from arxiv_rag_tpu_torch.cli.main import build_parser, cmd_train
+    from arxiv_rag_tpu_torch.models.convert import load_checkpoint, load_model
+    from arxiv_rag_tpu_torch.models.mpnet import random_model
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+    from arxiv_rag_tpu_torch.train import AdamW, make_train_step
+    from arxiv_rag_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+    from arxiv_rag_tpu_torch.train.contrastive import _batch, loss_and_accuracy
+
+    print(f"== phase 7: contrastive fine-tuning on {card}", flush=True)
+    results["train"] = out = {}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    train_backward_check(gen, out)
+    train_step_card_vs_cpu(out)
+
+    # the corpus: TR_PAPERS papers of TR_CHUNKS of phase 5's chunks, each
+    # chunk headed by its paper's title (learnable pairs); titles in papers.jsonl
+    chunks = flagship["chunks"]
+    rng = np.random.default_rng(8)
+    titles = [" ".join(chunks[int(i)].split()[:6]) for i in rng.integers(0, len(chunks),
+                                                                         TR_PAPERS)]
+    rows = [{"paper_id": f"p{i:05d}", "chunk_id": f"p{i:05d}#{c}",
+             "text": f"{titles[i]}. {chunks[i * TR_CHUNKS + c]}"}
+            for i in range(TR_PAPERS) for c in range(TR_CHUNKS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with open(tmp / "papers.jsonl", "w") as f:
+            for i, t in enumerate(titles):
+                f.write(json.dumps({"paper_id": f"p{i:05d}", "title": t}) + "\n")
+        ckpt = tmp / "ft"
+        args = build_parser().parse_args([
+            "train", "--corpus", str(tmp), "--out", str(ckpt), "--steps", str(TR_STEPS),
+            "--checkpoint-every", str(TR_SNAPSHOT_EVERY)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = cmd_train(args, corpus=PairCorpus(rows))
+        verb_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"train exited {rc}")
+        report_line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        out["verb"] = {**report_line, "seconds": verb_s,
+                       "peak_bytes": torch.cuda.max_memory_allocated() - start_bytes}
+        print(f"  train (12 layers x 768, bf16, batch {TR_BATCH}, seq {TR_SEQ}, lr {TR_LR}, "
+              f"{TR_STEPS} steps, snapshots every {TR_SNAPSHOT_EVERY}): {report_line}; "
+              f"{verb_s:.1f} s with pair mining, tokenization and snapshots; allocator peak "
+              f"over the phase's start {out['verb']['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        snaps = sorted(p.name for p in (ckpt / "state").iterdir())
+        if snaps != [f"step_{s:08d}" for s in range(TR_SNAPSHOT_EVERY, TR_STEPS + 1,
+                                                      TR_SNAPSHOT_EVERY)]:
+            fail(f"unexpected snapshots {snaps}")
+
+        # the verb's first batches (its pairs, its order), tokenized as it does
+        state_dict, cfg = load_checkpoint(ckpt)
+        tok = WordPieceTokenizer.toy()
+        pairs = [(titles[i // TR_CHUNKS], r["text"]) for i, r in enumerate(rows)
+                 if len(r["text"]) > 100]  # the verb's filter; every title is > 10 chars
+        order = np.random.default_rng(0).permutation(len(pairs))
+        batches = []
+        for s in range(TR_TIMED + 1):
+            sel = [pairs[i] for i in order[s * TR_BATCH:(s + 1) * TR_BATCH]]
+            q_ids, q_mask = tok.encode_batch([p[0] for p in sel], max_len=TR_SEQ)
+            p_ids, p_mask = tok.encode_batch([p[1] for p in sel], max_len=TR_SEQ)
+            batches.append(_batch(torch.device("cuda"), q_ids, q_mask, p_ids, p_mask))
+
+        # the loss falls: the verb's first 5 batches under its starting weights
+        # and under the fine-tuned ones (the first is the verb's own first loss)
+        def batch_losses(model) -> list[float]:
+            with torch.no_grad():
+                return [float(loss_and_accuracy(model, *b)[0]) for b in batches[:5]]
+
+        before = batch_losses(random_model(cfg, seed=0, param_dtype=torch.float32,
+                                           compute_dtype=torch.bfloat16))
+        init_state, train_step = make_train_step(cfg, learning_rate=TR_LR)
+        state = init_state(state_dict)
+        after = batch_losses(state.model)
+        out["loss_before_after"] = {"before": before, "after": after}
+        print(f"  loss on the verb's first 5 batches: starting weights {np.round(before, 4)} "
+              f"(mean {np.mean(before):.4f}; the verb's first loss {report_line['first_loss']}), "
+              f"fine-tuned {np.round(after, 4)} (mean {np.mean(after):.4f})", flush=True)
+        if not (np.isfinite(after).all() and np.mean(after) < np.mean(before)):
+            fail(f"the training loss did not fall: {np.mean(before)} -> {np.mean(after)}")
+        if abs(before[0] - report_line["first_loss"]) > 1e-4:
+            fail("the verb's first batch is not the one replayed here")
+
+        # each step timed piece by piece (CUDA events), from the fine-tuned weights
+        opt = AdamW(TR_LR)
+        names = list(state.params)
+        params = [state.params[k] for k in names]
+        times = {"forward": [], "backward": [], "optimizer": [], "step": []}
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        for i in range(TR_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss, _ = loss_and_accuracy(state.model, *batches[i])
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            with torch.no_grad():
+                opt.update(params, [p.grad for p in params], state.opt_state)
+            ev[3].record()
+            for p in params:
+                p.grad = None
+            state.step += 1
+            losses.append(float(loss.detach()))
+            for key, (x, y) in (("forward", (0, 1)), ("backward", (1, 2)),
+                                ("optimizer", (2, 3)), ("step", (0, 3))):
+                times[key].append(ev[x].elapsed_time(ev[y]))
+        peak = torch.cuda.max_memory_allocated() - start_bytes  # the step's, over the state
+        # the whole train_step, as the verb calls it
+        torch.cuda.synchronize()
+        whole = []
+        for i in range(3):
+            t1 = time.perf_counter()
+            state, m = train_step(state, *batches[TR_TIMED - 3 + i])
+            float(m["loss"])
+            whole.append((time.perf_counter() - t1) * 1e3)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        flops = train_flops(cfg, TR_BATCH, TR_SEQ)
+        out["step"] = {"ms": med, "train_step_host_ms": statistics.median(whole),
+                       "samples_per_s": TR_BATCH / med["step"] * 1e3,
+                       "tokens_per_s": 2 * TR_BATCH * TR_SEQ / med["step"] * 1e3,
+                       "tflops": flops / med["step"] / 1e9, "flops": flops,
+                       "peak_share": flops / med["step"] / 1e9 / (PEAK_OPS[torch.bfloat16] / 1e12),
+                       "peak_bytes": peak, "losses": losses}
+        st = out["step"]
+        print(f"  step ({card}; medians of {TR_TIMED} steps, CUDA events): "
+              f"{med['step']:.2f} ms = forward {med['forward']:.2f} + backward "
+              f"{med['backward']:.2f} + optimizer {med['optimizer']:.2f} ms; train_step on the "
+              f"host clock {st['train_step_host_ms']:.2f} ms; {st['samples_per_s']:.1f} "
+              f"pairs/s, {st['tokens_per_s']:.0f} tokens/s; {flops / 1e12:.3f} TFLOP a step "
+              f"(3x the two encodes' products) = {st['tflops']:.1f} TFLOP/s, "
+              f"{100 * st['peak_share']:.2f}% of the 989 TFLOP/s bf16 peak; allocator peak "
+              f"over the train state {peak / 2**30:.2f} GiB", flush=True)
+
+        # resume: a snapshot restored steps bitwise as the live state does
+        snap = tmp / "resume"
+        save_train_state(snap, state)
+        restored = restore_train_state(snap, init_state(state_dict))
+        nxt = batches[TR_TIMED]
+        state, m_live = train_step(state, *nxt)
+        restored, m_back = train_step(restored, *nxt)
+        differ = [k for k in names if not torch.equal(state.params[k], restored.params[k])
+                  or not torch.equal(state.opt_state.mu[k], restored.opt_state.mu[k])
+                  or not torch.equal(state.opt_state.nu[k], restored.opt_state.nu[k])]
+        same_loss = torch.equal(m_live["loss"], m_back["loss"])
+        out["resume"] = {"bitwise": not differ and same_loss, "differ": differ}
+        print(f"  resume: the step after restoring the step-{state.step - 1} snapshot is bitwise "
+              f"the live state's step (params, both moments, loss): "
+              f"{not differ and same_loss}; differing: {differ}", flush=True)
+        if differ or not same_loss:
+            worst = max((float((state.params[k] - restored.params[k]).abs().max()), k)
+                        for k in differ) if differ else (0.0, "")
+            fail(f"resume is not bitwise: {worst} (loss equal: {same_loss})")
+        del state, restored, params, batches
+
+        # round trip: the fine-tuned checkpoint through embed -> index -> search
+        model, _ = load_model(ckpt)
+        launches = roundtrip_search(model, rows, titles, tmp, out, "fine-tuned")
+        base = random_model(seed=0)  # the verb's starting weights, for the hit@1 beside it
+        roundtrip_search(base, rows, titles, tmp, out, "random init")
+    return launches
+
+
+def roundtrip_search(model, rows, titles, tmp, out, label) -> dict:
+    """TR_ROUNDTRIP chunks through the embed verb's loop, the index verb
+    (int8, on the card) and SearchEngine with paper titles as queries:
+    K2 launched, the answers bitwise the plain int8 scan, and hit@1 (a
+    title's top hit is a chunk of its paper). Returns the search's
+    launches, counted alone."""
+    from arxiv_rag_tpu_torch.cli.main import main as cli_main
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.embed.runner import embed_batches
+    from arxiv_rag_tpu_torch.index.store import DenseIndex
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+    embedder = Embedder(model, WordPieceTokenizer.toy(), batch_sizes=(64, 512))
+    sub = rows[:TR_ROUNDTRIP]
+    emb_dir, idx_dir = tmp / f"emb-{label}", tmp / f"idx-{label}"
+    embed_batches(embedder, [([r["chunk_id"] for r in sub], [r["text"] for r in sub])],
+                  emb_dir, model=label)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli_main(["index", "--embeddings", str(emb_dir), "--out", str(idx_dir),
+                     "--dtype", "int8"]) != 0:
+            fail("the index verb failed on the fine-tuned embeddings")
+    idx = DenseIndex.load(idx_dir).to_device()
+    engine = SearchEngine(idx, embedder=embedder)
+    queries = titles[:TR_QUERIES]
+    engine.search(queries, k=10)  # warm
+    reset_all_launches()
+    hits = engine.search(queries, k=10)
+    launches = all_launches()
+    got_v, got_i = hits_arrays(hits, len(queries), f"round trip ({label})")
+    emb, n = embedder.encode_window_device(queries)
+    pv, pi = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales, emb[:n], 10,
+                                      n_valid=idx._n_valid)
+    check_k2(got_v, got_i, pv.cpu(), pi.cpu(), f"round trip ({label}): engine.search vs the "
+             "plain int8 scan")
+    top = got_i[:, 0].numpy()
+    hit1 = float(np.mean([idx.chunk_ids[r].split("#")[0] == f"p{q:05d}"
+                          for q, r in enumerate(top)]))
+    out.setdefault("roundtrip", {})[label] = {"hit_at_1": hit1, "launches": launches}
+    print(f"  round trip ({label} encoder): {len(sub)} chunks embedded, an int8 index built "
+          f"by the index verb, {len(queries)} titles searched; hit@1 (a chunk of the title's "
+          f"paper first) {hit1:.3f}; launches {launches}", flush=True)
+    if launches["fused_topk_int8"] < 1:
+        fail(f"the round trip ({label}) launched no K2 (fused_topk_int8)")
+    return launches
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -2305,6 +2709,9 @@ def main() -> int:
     lifecycle_launches = phase_lifecycle(ivfs, engines, texts, flagship, results, card)
     print(f"== lifecycle path launches (the reload path, each run counted alone): "
           f"{lifecycle_launches}", flush=True)
+    train_launches = phase_train(flagship, results, card)
+    print(f"== train path launches (the fine-tuned encoder's round trip, counted alone): "
+          f"{train_launches}", flush=True)
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
           f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "
@@ -2319,6 +2726,14 @@ def main() -> int:
           f"{lc['append_s']:.2f} s; extend {lc['extend_s']:.2f} s; reloads "
           f"{json.dumps(lc['reload'])}; hybrid prepare_reload {lc['hybrid_prepare_s']:.2f} s, "
           f"swap {lc['hybrid_swap_ms']:.3f} ms; memory {lc['memory']}", flush=True)
+    tr = results["train"]
+    print(f"  train ({card}): step {tr['step']['ms']['step']:.2f} ms (forward "
+          f"{tr['step']['ms']['forward']:.2f}, backward {tr['step']['ms']['backward']:.2f}, "
+          f"optimizer {tr['step']['ms']['optimizer']:.2f}); {tr['step']['samples_per_s']:.1f} "
+          f"pairs/s; {tr['step']['tflops']:.1f} TFLOP/s ({100 * tr['step']['peak_share']:.2f}% "
+          f"of bf16 peak); peak {tr['step']['peak_bytes'] / 2**30:.2f} GiB; loss "
+          f"{tr['verb']['first_loss']} -> {tr['verb']['last_loss']}; index build "
+          f"{json.dumps(results['index_build'])}", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)

@@ -957,3 +957,93 @@ def test_extend_on_the_card_equals_a_full_build(gen, dtype, tmp_path):
     assert torch.equal(ext.values.view(torch.uint8), full.values.view(torch.uint8))
     reloaded = IVFIndex.load(tmp_path, grown)
     assert (reloaded.perm == full.perm).all()
+
+
+# -- training (the encoder's backward and the fp32 step) ----------------------------
+
+TRAIN_CFG = dict(vocab_size=96, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=64, max_position_embeddings=32)  # tests/test_train.py
+
+
+def _bf16_steps(x):
+    mag = x.abs().to(torch.bfloat16).to(torch.float32)
+    return torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                       torch.zeros_like(mag))
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((8, 64, 768), (768, 3072)),
+                                             ((8, 64, 3072), (3072, 768)),
+                                             ((8, 12, 64, 64), (8, 12, 64, 64))])
+def test_matmul_f32_backward_on_the_card_matches_the_cpu(gen, shape_a, shape_b):
+    """The card's ``_MatmulF32`` backward (an fp32 GEMM of the fp32
+    cotangent and the other bf16 operand, cast to bf16) against the
+    CPU's autograd through its cast and fp32 product: before the cast
+    within fp32 summation order of the float64 product (K·2^-24 of the
+    sum of |terms|, K the contracted length); after it, ≥ 99% of the
+    bf16 gradients equal (0.1% differ on the card) and the rest one bf16
+    step apart, plus twice that order where a sum cancels to near 0
+    (there the step of the tiny result is finer than the order's
+    error)."""
+    from arxiv_rag_tpu_torch.models import mpnet
+
+    a = torch.randn(shape_a, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(shape_b, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = mpnet._matmul_f32(a, b)
+    ct = torch.randn(out.shape, generator=gen, device="cuda") * 1e-3
+    out.backward(ct)
+    a_cpu = a.detach().cpu().requires_grad_()
+    b_cpu = b.detach().cpu().requires_grad_()
+    mpnet._matmul_f32(a_cpu, b_cpu).backward(ct.cpu())
+    ad, bd = a.detach(), b.detach()
+    if b.dim() == 2:  # the dense kernel's gradient sums over every row of a
+        x_b, z_b, k_b = ad.reshape(-1, b.shape[0]).T, ct.reshape(-1, b.shape[1]), ad.numel() // b.shape[0]
+    else:
+        x_b, z_b, k_b = ad.transpose(-1, -2), ct, a.shape[-2]
+    for name, x, z, k, grad, want in (
+            ("a", ct, bd.transpose(-1, -2), b.shape[-1], a.grad, a_cpu.grad),
+            ("b", x_b, z_b, k_b, b.grad, b_cpu.grad)):
+        x64, z64 = x.cpu().to(torch.float64), z.cpu().to(torch.float64)
+        order = (k * 2.0**-24 * (x64.abs() @ z64.abs())).reshape(grad.shape)
+        pre = mpnet._product_f32(x, z).cpu().to(torch.float64).reshape(grad.shape)
+        assert (pre - (x64 @ z64).reshape(grad.shape)).abs().le(order).all(), name
+        g, w = grad.cpu().to(torch.float32), want.to(torch.float32)
+        assert grad.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(grad.cpu(), pre.to(torch.bfloat16)), name
+        diff = (g - w).abs()
+        step = _bf16_steps(torch.maximum(g.abs(), w.abs()))
+        assert bool((diff <= step + 2 * order.to(torch.float32)).all()), name
+        assert float((diff == 0).to(torch.float32).mean()) >= 0.99, name
+
+
+def test_fp32_train_step_on_the_card_matches_the_cpu(gen):
+    """One fp32 step at the reference's test config on the card and on
+    the CPU from the same weights: loss and every parameter within 1e-5
+    (tests/test_train.py's bound for two ways of computing a step); the
+    grad-enabled forward on the card bitwise its ``no_grad`` forward."""
+    import numpy as np
+
+    from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig
+    from arxiv_rag_tpu_torch.train import make_train_step
+
+    cfg = ModelConfig(**TRAIN_CFG)
+    weights = MPNet(cfg).reset_parameters(torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(1)
+    q = rng.integers(4, cfg.vocab_size, (8, 12))
+    p = np.where(rng.random(q.shape) < 0.15, rng.integers(4, cfg.vocab_size, q.shape), q)
+    mask = np.ones_like(q)
+    mask[0, 7:] = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        init_state, train_step = make_train_step(cfg, learning_rate=3e-4,
+                                                 compute_dtype=torch.float32, device=dev)
+        state = init_state(weights)
+        state, m = train_step(state, q, mask, p, mask)
+        out[dev] = float(m["loss"]), {k: v.detach().cpu() for k, v in state.params.items()}
+        if dev == "cuda":
+            ids, msk = (torch.from_numpy(t).cuda() for t in (q, mask))
+            assert torch.equal(state.model.hidden(ids, msk).detach(), state.model(ids, msk))
+    assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-5
+    for name, want in out["cpu"][1].items():
+        assert float((out["cuda"][1][name] - want).abs().max()) <= 1e-5, name

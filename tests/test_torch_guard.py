@@ -34,6 +34,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert n_modules >= 15  # every module of the port was imported
 
 
+def test_training_modules_import_no_jax():
+    """The trainer, its checkpoints and the pipeline's title loader (the
+    ``train`` verb's modules) load no JAX and nothing of the JAX package,
+    with pyarrow blocked as on the card's machine."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys\nsys.modules['pyarrow'] = None\n"
+            "import arxiv_rag_tpu_torch.train, arxiv_rag_tpu_torch.train.checkpoint\n"
+            "import arxiv_rag_tpu_torch.pipeline.repair, arxiv_rag_tpu_torch.cli.main\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'arxiv_rag_tpu'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_port_imports_without_pyarrow():
     """The card's machine has no pyarrow: every module of the port
     imports with it blocked (the corpus store imports it where used)."""
