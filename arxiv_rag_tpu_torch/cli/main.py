@@ -156,8 +156,6 @@ def _add_index(sub) -> None:
 
 
 def cmd_index(args) -> int:
-    from functools import partial
-
     import numpy as np
 
     from arxiv_rag_tpu_torch.device import default_device
@@ -203,10 +201,11 @@ def cmd_index(args) -> int:
             ivf_meta = {"ivf_clusters": ivf.n_clusters, "ivf_block_rows": ivf.block_rows,
                         "ivf_refreshed": True}
     else:
-        # on the card: divided and quantized there, the row norms numpy's
-        # (bitwise the host build)
-        build = build_index if dev.type == "cpu" else partial(build_index_device, device=dev)
-        idx = build(embs, categories=categories, dtype=args.dtype, chunk_ids=ids)
+        kw = dict(categories=categories, dtype=args.dtype, chunk_ids=ids)
+        # on the card: divided and quantized there with numpy's row norms,
+        # bitwise the host build
+        idx = (build_index(embs, **kw) if dev.type == "cpu"
+               else build_index_device(embs, device=dev, **kw))
         idx.model = manifest.get("model", "")
         idx.save(args.out)
     if args.ivf_clusters and not ivf_meta:

@@ -16,6 +16,10 @@ numerics exactly:
   ``finfo(float32).min`` additive mask bias (:348-350);
 - attention is matmul → softmax → matmul (the reference's default
   ``fused=False``); no fused attention operator is used;
+- training: ``hidden`` and ``embed`` are ``forward`` and ``encode``
+  with autograd (the serving pair runs them under ``no_grad``); on the
+  card a bf16 product's backward is ``_MatmulF32``'s, JAX's transpose of
+  the reference's product;
 - W8A8 (``quantize_params_int8``, :201-231): q/k/v/o and both FFN
   projections become ``QuantLinear`` (int8 weights with per-output fp32
   scales); their layers quantize activations per row and run the int8
@@ -168,10 +172,10 @@ class _MatmulF32(torch.autograd.Function):
     cotangent is not rounded to bf16; each operand's gradient is the
     cotangent times the other bf16 operand, an fp32 product
     (``_product_f32``), then cast to the operand's dtype. The forward is
-    the bf16 GEMM with ``out_dtype`` alone. (A split of the cotangent into
-    three bf16 parts on one bf16 GEMM computes the same up to the sum
-    order; on the H100 it was slower over a training step's products,
-    so the fp32 GEMM stays.)"""
+    the bf16 GEMM with ``out_dtype`` alone. (Splitting the cotangent into
+    three bf16 parts for one bf16 GEMM computes the same up to the sum
+    order, but in PyTorch ops it was slower over a training step's
+    products on the H100.)"""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -77,7 +77,9 @@ def restore_train_state(directory_or_path: str | Path,
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(payload["params"][name])
-    state = TrainState(model, AdamWState(payload["mu"], payload["nu"], int(payload["count"])),
-                       int(payload["step"]))
+    names = list(template.params)  # the moments in the parameters' order
+    moments = AdamWState({k: payload["mu"][k] for k in names},
+                         {k: payload["nu"][k] for k in names}, int(payload["count"]))
+    state = TrainState(model, moments, int(payload["step"]))
     log.info("restored train state from %s (step %d)", path, state.step)
     return state

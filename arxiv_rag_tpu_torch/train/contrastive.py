@@ -31,7 +31,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,10 +57,10 @@ def in_batch_accuracy(q_emb: torch.Tensor, p_emb: torch.Tensor) -> torch.Tensor:
     return (torch.argmax(q_emb @ p_emb.T, dim=1) == labels).to(torch.float32).mean()
 
 
-@dataclass
 class AdamW:
-    """optax ``adamw`` in its own order: per element, with g the
-    gradient and p the parameter,
+    """optax ``adamw(learning_rate, weight_decay=0.01)`` (b1 0.9, b2
+    0.999, eps 1e-8) in its own order: per element, with g the gradient
+    and p the parameter,
 
         mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g² + b2 nu;  t += 1
         u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p
@@ -71,15 +70,15 @@ class AdamW:
     optax divides). Updates run as multi-tensor ops over every
     parameter at once."""
 
-    learning_rate: float
-    weight_decay: float = 0.01
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
+    weight_decay, b1, b2, eps = 0.01, 0.9, 0.999, 1e-8
+
+    def __init__(self, learning_rate: float) -> None:
+        self.learning_rate = learning_rate
 
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: "AdamWState") -> None:
-        """One step on ``params`` in place (``state`` too)."""
+        """One step on ``params`` in place (``state`` too, whose moments
+        are in ``params``' order)."""
         mu, nu = list(state.mu.values()), list(state.nu.values())
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - self.b1))
@@ -128,8 +127,8 @@ class TrainState:
 
 
 def _batch(device: torch.device, *arrays) -> list[torch.Tensor]:
-    return [torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
-            .to(device, torch.int64) for a in arrays]
+    """Token ids and masks (numpy or tensors) as int64 on ``device``."""
+    return [torch.as_tensor(a).to(device, torch.int64) for a in arrays]
 
 
 def loss_and_accuracy(model: MPNet, q_ids, q_mask, p_ids, p_mask,
@@ -173,10 +172,7 @@ def make_train_step(
 
     def train_step(state: TrainState, q_ids, q_mask, p_ids, p_mask):
         batch = _batch(dev, q_ids, q_mask, p_ids, p_mask)
-        names = list(state.params)
-        params = [state.params[k] for k in names]
-        for p in params:
-            p.grad = None
+        params = list(state.params.values())
         loss, acc = loss_and_accuracy(state.model, *batch, temperature=temperature)
         loss.backward()
         with torch.no_grad():

@@ -2150,9 +2150,9 @@ class PairCorpus:
     def __init__(self, rows: list[dict]) -> None:
         self.rows = rows
 
-    def iter_batches(self, columns=None, batch_size=1024):
-        for s in range(0, len(self.rows), batch_size):
-            part = [{c: r[c] for c in columns} for r in self.rows[s:s + batch_size]]
+    def iter_batches(self, columns):
+        for s in range(0, len(self.rows), 1024):
+            part = [{c: r[c] for c in columns} for r in self.rows[s:s + 1024]]
             yield types.SimpleNamespace(to_pylist=lambda part=part: part)
 
 
