@@ -22,7 +22,9 @@ Verbs of the index lifecycle and the serving path, following
            TrainState snapshots under ``--out/state``)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
-CPU. Without ``--checkpoint`` the query encoder is a seeded random bf16
+CPU. ``--shard`` (search, eval, serve) row-shards the index over every
+visible card (with ``--device cpu``: the CPU, one shard). Without
+``--checkpoint`` the query encoder is a seeded random bf16
 all-mpnet-base-v2 (smoke runs), as in the reference; ``embed`` asks for
 ``--random-init`` to say so. ``--corpus`` reads the Parquet corpus
 store, which needs pyarrow.
@@ -225,6 +227,9 @@ def _add_common(p) -> None:
     p.add_argument("--checkpoint", default=None, help="native checkpoint dir")
     p.add_argument("--vocab", default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--shard", action="store_true",
+                   help="row-shard the index over every visible card (an IVF delta: "
+                        "cluster-partitioned); with --device cpu, the CPU")
     p.add_argument("--hybrid-alpha", type=float, default=None,
                    help="hybrid retrieval at this dense weight (the reference config "
                         "uses 0.7); builds BM25 over --corpus, aligned to index rows")
@@ -253,7 +258,7 @@ def _add_search(sub) -> None:
 def build_engine(args):
     """Index (+ its IVF delta when probing) + query embedder (+ corpus,
     BM25, cross-encoder) + engine, as the reference's ``_build_engine``
-    does for the single-device routes."""
+    does; ``--shard`` row-shards the index over ``data_mesh()``."""
     import dataclasses
 
     import torch
@@ -281,10 +286,18 @@ def build_engine(args):
         rcfg = dataclasses.replace(rcfg, hybrid_alpha=alpha)
     if cascade is not None:
         rcfg = dataclasses.replace(rcfg, rerank_cascade_depth=cascade)
-    idx = DenseIndex.load(args.index).to_device(dev)
-    # the delta's layout is a second copy of the values on the device:
-    # placed only when the engine will probe it
-    ivf = (IVFIndex.load(args.index, idx, device=dev)
+    shard = getattr(args, "shard", False)
+    idx = DenseIndex.load(args.index)
+    if shard:
+        from arxiv_rag_tpu_torch.parallel import data_mesh
+
+        idx.to_device(mesh=data_mesh(device=dev))
+    else:
+        idx.to_device(dev)
+    # the delta's layout is a second copy of the values: loaded only when
+    # the engine will probe it, on the device, or on the host for a mesh
+    # (the engine copies each shard's clusters from there to its card)
+    ivf = (IVFIndex.load(args.index, idx, device="cpu" if shard else dev)
            if rcfg.nprobe and IVFIndex.exists(args.index) else None)
     if args.checkpoint:
         model, _ = load_model(args.checkpoint, device=dev)
@@ -516,8 +529,8 @@ def cmd_train(args, corpus=None) -> int:
 
     if args.shard_batches:
         print("--shard-batches: data-parallel training (in-batch negatives across the "
-              "global batch) waits for the port's parallel/ module; run without it to "
-              "train on one device", file=sys.stderr)
+              "global batch) waits for the port's multi-process parallel/ "
+              "(torch.distributed); run without it to train on one device", file=sys.stderr)
         return 2
     dev = default_device(args.device)
     if corpus is None:

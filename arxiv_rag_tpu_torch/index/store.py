@@ -9,6 +9,9 @@ its raw 16-bit pattern, ``uint16``), ``scales.npy`` for int8,
 Category filters: ``category_mask`` turns category names into the uint32
 query bits, and ``to_device`` places the row masks beside the values as
 int32 (a bit view, so category 31 sets the sign bit), zero-padded.
+``to_device(mesh=...)`` instead row-shards values, scales and masks over
+a ``parallel.DeviceMesh`` (the reference's :401-436); the full rows then
+stay on the host only, and no single-device copy is left to scan.
 
 ``build_index`` takes a numpy array (normalized on the host exactly as
 the reference does) or a tensor on any device (divided and quantized
@@ -309,11 +312,16 @@ class DenseIndex:
     # row -> chunk_id mapping when index rows are a subset of corpus rows
     chunk_ids: list[str] | None = None
 
-    # device-side state, set by to_device()
+    # device-side state, set by to_device(): one device ...
     _device_values: torch.Tensor | None = None
     _device_scales: torch.Tensor | None = None
     _device_masks: torch.Tensor | None = None  # [N_pad] int32 view of row_masks
     _n_valid: int = 0
+    # ... or row shards over a mesh (to_device(mesh=...)), shard s on mesh.devices[s]
+    _mesh: object = None  # parallel.DeviceMesh
+    _shard_values: list[torch.Tensor] | None = None
+    _shard_scales: list[torch.Tensor] | None = None
+    _shard_masks: list[torch.Tensor] | None = None
 
     @property
     def num_rows(self) -> int:
@@ -402,11 +410,33 @@ class DenseIndex:
 
     # -- device placement --------------------------------------------------
 
-    def to_device(self, device=None, row_multiple: int = 4096) -> "DenseIndex":
+    @property
+    def placed_device(self) -> torch.device:
+        """Where scans start: the device of the values, or a mesh's first
+        device (queries are encoded there and merged results land there)."""
+        if self._mesh is not None:
+            return self._mesh.devices[0]
+        if self._device_values is None:
+            raise RuntimeError("the index is not placed: call to_device first")
+        return self._device_values.device
+
+    def to_device(self, device=None, row_multiple: int = 4096, *, mesh=None) -> "DenseIndex":
         """Place the index on ``device`` (the card by default), rows padded
         to ``row_multiple``; scans mask ids ≥ ``n_valid``. ``values`` then
-        views the device copy, so the index is held once."""
+        views the device copy, so the index is held once.
+
+        With ``mesh`` (a ``parallel.DeviceMesh``), row-shard it instead:
+        rows padded to a multiple of ``mesh.size · row_multiple``, values,
+        scales and masks split over the mesh's devices. The full rows stay
+        on the host only (a device-resident ``values`` moves there), and
+        the single-device tensors are dropped, so a single-device scan of a
+        sharded index fails instead of reading stale rows."""
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            return self._to_mesh(mesh, row_multiple)
         dev = default_device(device)
+        self._mesh = self._shard_values = self._shard_scales = self._shard_masks = None
         n = self.num_rows
         pad = (-n) % row_multiple
         self._device_values = _padded(self.values, pad, dev)
@@ -418,4 +448,23 @@ class DenseIndex:
             bits = np.ascontiguousarray(self.row_masks, np.uint32).view(np.int32)
             self._device_masks = _padded(torch.from_numpy(bits), pad, dev)
         self._n_valid = n
+        return self
+
+    def _to_mesh(self, mesh, row_multiple: int) -> "DenseIndex":
+        from arxiv_rag_tpu_torch.parallel.mesh import shard_index_rows
+
+        n = self.num_rows
+        self._device_values = self._device_scales = self._device_masks = None
+        self._shard_values, _ = shard_index_rows(self.values, mesh, row_multiple)
+        self._shard_scales = self._shard_masks = None
+        if self.scales is not None:
+            self._shard_scales, _ = shard_index_rows(self.scales.to(torch.float32), mesh,
+                                                     row_multiple)
+        if self.row_masks is not None:
+            bits = np.ascontiguousarray(self.row_masks, np.uint32).view(np.int32)
+            self._shard_masks, _ = shard_index_rows(bits, mesh, row_multiple)
+        self.values = self.values.cpu()
+        if self.scales is not None:
+            self.scales = self.scales.cpu()
+        self._mesh, self._n_valid = mesh, n
         return self

@@ -41,10 +41,16 @@ no row fills hold (-inf, -1).
   ``row_mask & query_mask != 0`` (int32 views of the uint32 category
   bits); row validity is folded in (rows ≥ n_valid never count).
 
+``merge_topk`` merges candidate lists that other launches produced (the
+shards of ``parallel/``) with the scans' own k-way merge kernel, in the
+same order and with no query scale.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain version for a CPU tensor. ``LAUNCHES`` counts kernel launches,
 by kernel: a block-table scan of an int8 index counts as a K3 launch too,
-since it scores with the row variant.
+since it scores with the row variant; ``topk_merge`` counts only the
+merges ``merge_topk`` launches (each scan's own merge is part of its
+launch).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ _KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
 _PLAIN_SCORE_ELEMS = 1 << 26  # plain versions score this many [q, row] pairs at a time
 
 LAUNCHES = {"fused_topk": 0, "fused_topk_int8": 0, "fused_topk_int8_row": 0,
-            "fused_topk_masked": 0, "ivf_topk": 0, "ivf_topk_device": 0}
+            "fused_topk_masked": 0, "ivf_topk": 0, "ivf_topk_device": 0, "topk_merge": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB: list[ctypes.CDLL] = []
 # (library handle, kind, q_block, list capacity, device) -> (SMs, blocks an SM)
@@ -105,14 +111,23 @@ def _check_variant(variant: str) -> None:
         raise ValueError(f"int8 variant must be 's8s8' or 'row', not {variant!r}")
 
 
-def quantize_queries(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_queries(queries: torch.Tensor,
+                     query_scale: str = "product") -> tuple[torch.Tensor, torch.Tensor]:
     """s8s8 query quantization: (int8 [Q,D], fp32 scales [Q]). The scale is
-    max(max|q|, 1e-8) times float32(1/127): inside its jit the reference's
-    ``/ 127.0`` compiles to that product, which differs from the quotient
-    in the last bit for some rows."""
+    max(max|q|, 1e-8) times float32(1/127) ("product"): inside its
+    single-device jit the reference's ``/ 127.0`` compiles to that
+    product. Inside ``shard_map`` (its sharded route,
+    ``parallel/search.py:100-101``) the same expression stays a quotient
+    ("quotient", divided by a tensor so that the card divides too); the
+    two differ in the last bit for some rows."""
+    if query_scale not in ("product", "quotient"):
+        raise ValueError(f"query_scale must be 'product' or 'quotient', not {query_scale!r}")
     qf = queries.to(torch.float32)
-    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=qf.device)
-    qs = torch.clamp(torch.amax(torch.abs(qf), dim=1, keepdim=True), min=1e-8) * inv127
+    amax = torch.clamp(torch.amax(torch.abs(qf), dim=1, keepdim=True), min=1e-8)
+    if query_scale == "product":
+        qs = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=qf.device)
+    else:
+        qs = amax / torch.tensor(127.0, dtype=torch.float32, device=qf.device)
     q8 = torch.clamp(torch.round(qf / qs), -127, 127).to(torch.int8)
     return q8, qs[:, 0]
 
@@ -186,14 +201,14 @@ def score_plain(x: torch.Tensor, q: torch.Tensor, k: int, *, scales=None,
 
 
 def _flat_plain(values, queries, k, n_valid, *, kind, scales=None, row_masks=None,
-                query_mask=None):
+                query_mask=None, query_scale="product"):
     """Any flat scan kind in plain PyTorch over rows [0, n_valid)."""
     _check_k(k)
     n = _n_valid(values.shape[0], n_valid)
     x = values[:n] if kind == "s8s8" else values[:n].to(torch.float32)
     qscale = None
     if kind == "s8s8":
-        q, qscale = quantize_queries(queries)
+        q, qscale = quantize_queries(queries, query_scale)
     else:
         q = round_queries(queries, torch.float32 if kind == "f32" else torch.bfloat16)
     return score_plain(
@@ -218,13 +233,16 @@ def fused_topk_plain(index, queries, k, *, n_valid=None):
     return _flat_plain(index, queries, k, n_valid, kind=_float_kind(index.dtype))
 
 
-def fused_topk_int8_plain(values, scales, queries, k, *, n_valid=None, variant="s8s8"):
+def fused_topk_int8_plain(values, scales, queries, k, *, n_valid=None, variant="s8s8",
+                          query_scale="product"):
     """K2's (s8s8) or K3's ("row") function in plain PyTorch. s8s8: the
     exact integer sum of the int8 products (at any D) rounded once to
     fp32, times the row scale, ranked, then the survivors times the
-    query scale. row: bf16 queries, fp32 sums, × row scale."""
+    query scale (``quantize_queries``). row: bf16 queries, fp32 sums, ×
+    row scale."""
     _check_variant(variant)
-    return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales)
+    return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales,
+                       query_scale=query_scale)
 
 
 def fused_topk_masked_plain(index, row_masks, query_mask, queries, k, *, n_valid=None):
@@ -234,12 +252,12 @@ def fused_topk_masked_plain(index, row_masks, query_mask, queries, k, *, n_valid
 
 
 def fused_topk_int8_masked_plain(values, scales, row_masks, query_mask, queries, k, *,
-                                 n_valid=None, variant="s8s8"):
+                                 n_valid=None, variant="s8s8", query_scale="product"):
     """K4 (int8) in plain PyTorch: K2's or K3's scores, ineligible rows
     -inf (the s8s8 query scale keeps them -inf)."""
     _check_variant(variant)
     return _flat_plain(values, queries, k, n_valid, kind=variant, scales=scales,
-                       row_masks=row_masks, query_mask=query_mask)
+                       row_masks=row_masks, query_mask=query_mask, query_scale=query_scale)
 
 
 def _empty(k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -527,19 +545,62 @@ def _merge(lib, cand_v, cand_i, qscale, stream):
     return out_v, out_i
 
 
+def merge_topk_plain(cand_v: torch.Tensor, cand_i: torch.Tensor):
+    """``merge_topk``'s function in plain PyTorch: each query's lists
+    side by side ([Q, L·k], in list order), then a stable descending sort:
+    among equal scores the earlier entry wins, as ``lax.top_k`` over the
+    reference's shard-ordered candidates; empty slots (-inf, -1)."""
+    n_lists, nq, k = cand_v.shape
+    v = cand_v.permute(1, 0, 2).reshape(nq, n_lists * k)
+    i = cand_i.permute(1, 0, 2).reshape(nq, n_lists * k)
+    vals, pos = topk_padded(v, k)
+    ids = torch.gather(i, 1, pos.clamp(min=0)).to(torch.int32)
+    return vals, torch.where(vals == NEG_INF, torch.full_like(ids, -1), ids)
+
+
+def merge_topk(cand_v: torch.Tensor, cand_i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lossless merge of L candidate lists per query (fp32 values and int32
+    ids, [L, Q, k]), each in the scans' order (score descending, then id
+    ascending), into one [Q, k] list. Where list l's ids all lie below
+    list l+1's (shards in row order), ties go to the lowest id, which is
+    the reference's cross-shard merge (``parallel/search.py:207-215``).
+    On CUDA tensors the scans' k-way merge kernel (``arag_topk_merge``,
+    no query scale); on CPU tensors ``merge_topk_plain``."""
+    if cand_v.dim() != 3 or cand_i.shape != cand_v.shape:
+        raise ValueError(f"candidates must be [lists, Q, k], got {tuple(cand_v.shape)} and "
+                         f"{tuple(cand_i.shape)}")
+    if _route(cand_v) == "cpu":
+        return merge_topk_plain(cand_v, cand_i)
+    if (cand_v.dtype != torch.float32 or cand_i.dtype != torch.int32
+            or cand_i.device != cand_v.device):
+        raise ValueError("the merge takes fp32 values and int32 ids on one device")
+    if cand_v.shape[0] < 1 or cand_v.shape[2] < 1:
+        raise ValueError(f"the merge needs at least one list of k >= 1, got {tuple(cand_v.shape)}")
+    if cand_v.shape[1] == 0:
+        return _empty(cand_v.shape[2], cand_v.device)
+    cand_v, cand_i = cand_v.contiguous(), cand_i.contiguous()
+    lib = _lib()
+    with torch.cuda.device(cand_v.device):
+        stream = torch.cuda.current_stream(cand_v.device).cuda_stream
+        out = _merge(lib, cand_v, cand_i, None, stream)
+    count("topk_merge")
+    return out
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused top-k runs on cuda or cpu tensors, not {t.device}")
     return t.device.type
 
 
-def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n):
+def _flat_cuda(kind, values, scales, row_masks, query_mask, queries, k, n,
+               query_scale="product"):
     """Launch a flat scan on the tensor-core kernel, with the queries as
     it reads them: int8 and their scales for s8s8; the 3×TF32 halves for
     f32; bf16 for bf16 and row."""
     q_lo = qscale = None
     if kind == "s8s8":
-        q8, qs = quantize_queries(queries)
+        q8, qs = quantize_queries(queries, query_scale)
         q, qscale = q8.contiguous(), qs.contiguous()
     elif kind == "f32":
         q, q_lo = tf32_split(queries)
@@ -573,17 +634,21 @@ def _check_int8(values: torch.Tensor, scales: torch.Tensor) -> None:
 
 
 def fused_topk_int8(values: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
-                    k: int, *, n_valid: int | None = None, variant: str = "s8s8"):
+                    k: int, *, n_valid: int | None = None, variant: str = "s8s8",
+                    query_scale: str = "product"):
     """K2 (``variant="s8s8"``, the default) or K3 (``"row"``): fused scan
     of an int8 index [N, D] with per-row scales [N]. Returns (values
-    [Q,k] fp32, ids [Q,k] int32)."""
+    [Q,k] fp32, ids [Q,k] int32). ``query_scale``: the s8s8 query scale's
+    recipe (``quantize_queries``)."""
     _check_k(k)
     _check_variant(variant)
     n = _n_valid(values.shape[0], n_valid)
     if _route(values) == "cpu":
-        return fused_topk_int8_plain(values, scales, queries, k, n_valid=n, variant=variant)
+        return fused_topk_int8_plain(values, scales, queries, k, n_valid=n, variant=variant,
+                                     query_scale=query_scale)
     _check_int8(values, scales)
-    out = _flat_cuda(variant, values, scales.contiguous(), None, None, queries, k, n)
+    out = _flat_cuda(variant, values, scales.contiguous(), None, None, queries, k, n,
+                     query_scale)
     count("fused_topk_int8" if variant == "s8s8" else "fused_topk_int8_row")
     return out
 
@@ -604,7 +669,8 @@ def fused_topk_masked(index: torch.Tensor, row_masks: torch.Tensor, query_mask: 
 
 def fused_topk_int8_masked(values: torch.Tensor, scales: torch.Tensor, row_masks: torch.Tensor,
                            query_mask: torch.Tensor, queries: torch.Tensor, k: int, *,
-                           n_valid: int | None = None, variant: str = "s8s8"):
+                           n_valid: int | None = None, variant: str = "s8s8",
+                           query_scale: str = "product"):
     """K4 (int8): K2 (s8s8, the reference's default) or K3 ("row") under
     the category filter of :func:`fused_topk_masked`. The masked s8s8
     score is ``float(acc) * row_scale`` with no bias (pallas_topk.py:
@@ -614,10 +680,11 @@ def fused_topk_int8_masked(values: torch.Tensor, scales: torch.Tensor, row_masks
     n = _n_valid(values.shape[0], n_valid)
     if _route(values) == "cpu":
         return fused_topk_int8_masked_plain(values, scales, row_masks, query_mask, queries,
-                                            k, n_valid=n, variant=variant)
+                                            k, n_valid=n, variant=variant,
+                                            query_scale=query_scale)
     _check_int8(values, scales)
     out = _flat_cuda(variant, values, scales.contiguous(), row_masks, query_mask,
-                     queries, k, n)
+                     queries, k, n, query_scale)
     count("fused_topk_masked", *(("fused_topk_int8_row",) if variant == "row" else ()))
     return out
 

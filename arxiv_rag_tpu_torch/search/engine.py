@@ -1,9 +1,8 @@
 """Query-time search engine: the dense, category-filtered, IVF and
 hybrid routes, corpus hydration and the cross-encoder rerank.
 
-The port of ``arxiv_rag_tpu/search/engine.py``'s single-device routes:
-encode → scan (→ hybrid merge) → hydrate (→ rerank). Routing follows
-the reference:
+The port of ``arxiv_rag_tpu/search/engine.py``: encode → scan (→ hybrid
+merge) → hydrate (→ rerank). Routing follows the reference:
 
 - the query batch pads to the buckets 8/32/64/128, then multiples of
   128, by repeating the last row (``:311-328``, ``:433-441``);
@@ -17,6 +16,14 @@ the reference:
   masked forms K4 (``_single_chip`` :472-525); k > 128 goes to the plain
   scans, masked the same way;
 - ``categories=[]`` matches no row and returns empty lists;
+- an index row-sharded over a mesh (``DenseIndex.to_device(mesh=...)``)
+  takes the sharded routes (``:349-358``, ``:394-411``): the queries on
+  the mesh's first device, ``parallel.sharded_topk`` (every kind, masked
+  or not; k > 128 a plain scan per shard), or with an IVF index and
+  ``nprobe > 0`` the cluster-partitioned ``parallel.ShardedIVF`` (built
+  once per mesh, ``_sharded_ivf`` :443-452; either plan), whose results
+  return at once rather than from ``finish``; the single-device routes
+  raise for a sharded index;
 - hybrid (a BM25 index attached and ``hybrid_alpha < 1``): the dense
   candidates and the BM25 candidates of the whole window (one native
   call), each min-max normalized per query, merged as
@@ -32,10 +39,11 @@ Every mode dispatches the dense scan before ``finish``; the host stages
 (BM25, merge, hydration, rerank) run inside ``finish``.
 
 Live reload (``prepare_reload``, ``:123-270``): a grown or rebuilt index
-is loaded, placed and warmed on a shadow engine while this one serves;
-the returned ``swap`` re-points the engine with no IO. Unlike the
-reference, a failed warm raises: on the card it is a kernel that failed
-on the new shapes, and the old index goes on serving.
+is loaded, placed (on this engine's device, or sharded over its mesh)
+and warmed on a shadow engine while this one serves; the returned
+``swap`` re-points the engine with no IO. Unlike the reference, a failed
+warm raises: on the card it is a kernel that failed on the new shapes,
+and the old index goes on serving.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from arxiv_rag_tpu_torch.ops.fused_topk import (
 )
 from arxiv_rag_tpu_torch.ops.quant import int8_search
 from arxiv_rag_tpu_torch.ops.topk import masked_flat_search
+from arxiv_rag_tpu_torch.parallel import ShardedIVF, sharded_topk
 from arxiv_rag_tpu_torch.search.bm25 import BM25Index
 
 log = get_logger("search")
@@ -148,11 +157,13 @@ class SearchEngine:
         self.cfg = cfg
         self.bm25 = bm25
         self.reranker = reranker
-        if index._device_values is None:
+        if index._device_values is None and index._mesh is None:
             index.to_device(device)
         self.ivf = ivf
-        if ivf is not None and ivf._device_cb is None:
+        # on a mesh the IVF serves through its sharded layout (_sharded_ivf)
+        if ivf is not None and ivf._device_cb is None and index._mesh is None:
             ivf.to_device(index._device_values.device)
+        self._sharded_ivf_cache = None
         # hydration: small corpora from one in-memory table, large ones
         # lazily through the corpus's row-group cache; ``lazy_hydration``
         # forces either mode
@@ -177,10 +188,12 @@ class SearchEngine:
         info``, which re-points the engine with no IO.
 
         Order: load on the host and check the dim and BM25's row count,
-        then place on this engine's device (old and new index coexist
-        there until the swap: the reload's memory peak). The IVF delta is
-        placed only when the engine probes (``cfg.nprobe``, or an IVF
-        attached). A corpus is re-opened (``corpus_dir``, else this
+        then place on this engine's device, or shard over its mesh (old
+        and new index coexist there until the swap: the reload's memory
+        peak). The IVF delta is loaded only when the engine probes
+        (``cfg.nprobe``, or an IVF attached): placed on the device, or on
+        a mesh kept on the host for the shadow's sharded layout. A corpus
+        is re-opened (``corpus_dir``, else this
         engine's corpus directory) so appended Parquet shards show; a
         corpus object without a directory is kept. A hybrid engine
         loads BM25 from ``bm25_path`` or rebuilds it in index row order.
@@ -192,10 +205,11 @@ class SearchEngine:
         ``swap`` runs where no window is in flight (``serve.py`` runs it
         on the dispatch thread behind a completion barrier). It adopts
         the shadow's warmed hydration state and drops this engine's last
-        references to the old device tensors."""
+        references to the old device tensors (and sharded layouts)."""
         from arxiv_rag_tpu_torch.index.ivf import IVFIndex
 
-        dev = self.index._device_values.device
+        mesh = self.index._mesh
+        dev = self.index.placed_device
         new_idx = DenseIndex.load(index_dir)
         if new_idx.dim != self.index.dim:
             raise ValueError(f"reload index dim {new_idx.dim} != serving dim "
@@ -220,10 +234,16 @@ class SearchEngine:
         if new_bm25 is not None and new_bm25.num_docs != new_idx.num_rows:
             raise ValueError(f"reload bm25 has {new_bm25.num_docs} docs but index has "
                              f"{new_idx.num_rows} rows: stale bm25_path?")
-        new_idx.to_device(dev)
+        if mesh is None:
+            new_idx.to_device(dev)
+        else:
+            new_idx.to_device(mesh=mesh)
         new_ivf = None
         if (self.cfg.nprobe or self.ivf is not None) and IVFIndex.exists(index_dir):
-            new_ivf = IVFIndex.load(index_dir, new_idx, device=dev).to_device(dev)
+            if mesh is None:
+                new_ivf = IVFIndex.load(index_dir, new_idx, device=dev).to_device(dev)
+            else:  # laid out on the host, from the host rows the index keeps
+                new_ivf = IVFIndex.load(index_dir, new_idx, device="cpu")
         shadow = SearchEngine(new_idx, embedder=self.embedder, corpus=new_corpus,
                               cfg=self.cfg, bm25=new_bm25, reranker=self.reranker,
                               ivf=new_ivf, device=dev)
@@ -243,9 +263,10 @@ class SearchEngine:
             shadow._load_meta()
 
         def swap() -> dict:
-            old_idx, old_ivf = self.index, self.ivf
+            old_idx, old_ivf, old_sharded = self.index, self.ivf, self._sharded_ivf_cache
             old_rows = old_idx.num_rows
             self.index, self.ivf = new_idx, new_ivf
+            self._sharded_ivf_cache = shadow._sharded_ivf_cache
             if new_corpus is not None:
                 self.corpus = new_corpus
             if new_bm25 is not None:
@@ -257,9 +278,12 @@ class SearchEngine:
             # dropping the last references frees them now, not at some
             # later collection, which would prolong the old + new peak
             _release_device(old_idx, ("values", "scales", "_device_values",
-                                      "_device_scales", "_device_masks"))
+                                      "_device_scales", "_device_masks", "_shard_values",
+                                      "_shard_scales", "_shard_masks"))
             _release_device(old_ivf, ("values", "scales", "row_masks",
                                       "_device_centroids", "_device_cb"))
+            if old_sharded is not None:
+                old_sharded._device = {}
             log.info("reload swap: %d -> %d rows (%s%s)", old_rows, new_idx.num_rows,
                      new_idx.dtype, ", ivf" if new_ivf is not None else "")
             return {"rows": new_idx.num_rows, "dim": new_idx.dim, "dtype": new_idx.dtype,
@@ -293,7 +317,7 @@ class SearchEngine:
         tensor, possibly padded already (``n_real`` real rows)."""
         k = k or self.cfg.top_k
         idx = self.index
-        dev = idx._device_values.device
+        dev = idx.placed_device
         qn_in = query_embs.shape[0]
         qn_real = qn_in if n_real is None else n_real
         qn_pad = self._query_bucket(qn_in)
@@ -314,7 +338,11 @@ class SearchEngine:
         # it falls through to the flat route's plain scan
         if self.ivf is not None and np_probe > 0 and k <= K_MAX:
             with METRICS.timer("search.ivf"):
-                if self.cfg.ivf_plan == "device":
+                if idx._mesh is not None:
+                    ivals, irows = self._sharded_ivf(idx._mesh).search(
+                        q, k, idx._mesh, nprobe=np_probe, q_block=self.cfg.ivf_q_block,
+                        query_mask=qmask, plan=self.cfg.ivf_plan)
+                elif self.cfg.ivf_plan == "device":
                     fin = self.ivf.search_dispatch(q, k, nprobe=np_probe,
                                                    q_block=self.cfg.ivf_q_block,
                                                    query_mask=qmask)
@@ -325,16 +353,19 @@ class SearchEngine:
                         return v[:qn_real], r[:qn_real]
 
                     return finish_ivf_dev
-                ivals, irows = self.ivf.search(q, k, nprobe=np_probe,
-                                               q_block=self.cfg.ivf_q_block,
-                                               query_mask=qmask, plan=self.cfg.ivf_plan)
+                else:
+                    ivals, irows = self.ivf.search(q, k, nprobe=np_probe,
+                                                   q_block=self.cfg.ivf_q_block,
+                                                   query_mask=qmask, plan=self.cfg.ivf_plan)
 
             def finish_ivf() -> tuple[np.ndarray, np.ndarray]:
                 return ivals[:qn_real], irows[:qn_real]
 
             return finish_ivf
         with METRICS.timer("search.dense"):
-            if k <= K_MAX:
+            if idx._mesh is not None:
+                vals, rows = self._sharded(q, k, qmask)
+            elif k <= K_MAX:
                 vals, rows = self._single_chip(q, k, qmask)
             else:
                 vals, rows = self._plain(q, k, qmask)
@@ -364,10 +395,38 @@ class SearchEngine:
                              "categories")
         return self.index._device_masks
 
+    def _single_device_index(self) -> DenseIndex:
+        if self.index._mesh is not None:
+            raise RuntimeError("the index is row-sharded over a mesh: it has no "
+                               "single-device copy to scan")
+        return self.index
+
+    def _sharded(self, q, k, qmask):
+        """The row-sharded index: ``parallel.sharded_topk`` (the fused
+        kernels per shard, k > 128 a plain scan per shard), masked with a
+        query mask, s8s8 for an int8 index."""
+        idx = self.index
+        kw = {}
+        if qmask is not None:
+            if idx._shard_masks is None:
+                raise ValueError("category filter requested but index was built without "
+                                 "categories")
+            kw = {"row_masks": idx._shard_masks, "query_mask": qmask}
+        if idx.dtype == "int8":
+            kw["scales"] = idx._shard_scales
+        return sharded_topk(idx._shard_values, q, k, idx._mesh, n_valid=idx._n_valid, **kw)
+
+    def _sharded_ivf(self, mesh):
+        """The IVF's cluster-partitioned layout for ``mesh``, built once
+        (again if the mesh's size changes)."""
+        if self._sharded_ivf_cache is None or self._sharded_ivf_cache.nd != mesh.size:
+            self._sharded_ivf_cache = ShardedIVF.build(self.ivf, mesh.size)
+        return self._sharded_ivf_cache
+
     def _single_chip(self, q, k, qmask):
         """k ≤ 128: the fused kernels; with a query mask, their masked
         forms (the s8s8 one for an int8 index, as the reference)."""
-        idx = self.index
+        idx = self._single_device_index()
         n_valid = idx._n_valid
         if qmask is None:
             if idx.dtype == "int8":
@@ -383,7 +442,7 @@ class SearchEngine:
     def _plain(self, q, k, qmask):
         """k > 128: the unfused scans, padding rows (and filtered rows)
         masked out."""
-        idx = self.index
+        idx = self._single_device_index()
         n_pad = idx._device_values.shape[0]
         valid = torch.arange(n_pad, device=q.device) < idx._n_valid
         if qmask is None:

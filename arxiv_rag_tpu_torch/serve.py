@@ -10,8 +10,9 @@ Endpoints:
 - ``POST /admin/reload``  body: {"index_dir": str?, "corpus_dir": str?,
   "bm25_path": str?} → swap in a grown or rebuilt index with no
   downtime: ``engine.prepare_reload`` loads, places and warms it on the
-  handler thread while the old index serves; the swap runs on the
-  dispatch thread behind a completion barrier. Without an admin token
+  handler thread while the old index serves (a sharded index onto the
+  engine's mesh, ``serve --shard``); the swap runs on the dispatch
+  thread behind a completion barrier. Without an admin token
   only the server's own paths reload; with one, every reload needs it
   (``X-Admin-Token``).
 - ``GET /healthz``  → {"status": "ok", "rows": N, "dim": D, ...}

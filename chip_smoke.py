@@ -81,14 +81,27 @@ its first failure:
    the allocator's peak; a snapshot restored steps bitwise as the live
    state; the fine-tuned checkpoint through embed, index (int8) and
    search (K2), bitwise the plain scan;
-8. the kernels line, then the result line.
+8. sharded retrieval in one process (``parallel/``) over a mesh of 4
+   entries on the one card: ``sharded_topk`` of every kind (bf16, f32 of
+   262,144 rows, s8s8, row, masked bf16 and s8s8) at Q = 32 and 512
+   bitwise the single-device kernel (s8s8 at the sharded route's
+   quotient query scale; the product route beside it), the cross-shard
+   merge kernel bitwise its plain version, each route's time and the
+   merge's alone; ``ShardedIVF`` (int8, bf16) at full probe bitwise the
+   single-device IVF, its device plan bitwise its host plan, recall@10
+   against the single-device IVF at nprobe 8; text queries through
+   sharded engines (dense, filtered, IVF device and host plans) against
+   phase 3's engines, their qps and launches per search (4 scans and 1
+   merge); a reload of phase 6's grown index that keeps the mesh;
+9. the kernels line (phase 8's launches added to the main path's, and
+   the cross-shard merge's own entry), then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
 slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
 path, before the flagship path's run and before each run of the
 lifecycle's reload path (each HTTP server's traffic and reload, the
-hybrid engine's reload) and before the fine-tuned encoder's search,
-read just after each.
+hybrid engine's reload), before the fine-tuned encoder's search and
+before phase 8's sharded engine searches, read just after each.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -978,7 +991,7 @@ class GCPauses:
         gc.callbacks.remove(self._cb)
 
 
-def timed_search(engine, qtexts, results, label, counters, runs=3, **kw):
+def timed_search(engine, qtexts, results, label, counters, runs=3, card="", **kw):
     """One warm search, then ``runs`` timed back to back; returns the hits
     and records qps as all their queries over the whole timed window, and
     the launches of ``counters`` per search. Prints each search's ms and
@@ -1006,7 +1019,8 @@ def timed_search(engine, qtexts, results, label, counters, runs=3, **kw):
     print(f"  {label}: {runs} searches of {len(qtexts)} text queries in {dt * 1e3:.1f} ms end "
           f"to end ({dt / runs * 1e3:.1f} ms each) = {runs * len(qtexts) / dt:.1f} qps; "
           f"launches per search: {launched}; ms a search {[round(t, 1) for t in each]}, of "
-          f"the window {pauses.seconds * 1e3:.1f} ms in {pauses.runs} GC runs", flush=True)
+          f"the window {pauses.seconds * 1e3:.1f} ms in {pauses.runs} GC runs"
+          + (f" ({card})" if card else ""), flush=True)
     return hits
 
 
@@ -1935,9 +1949,10 @@ LC_DENSE_KERNELS = {"K2": "fused_topk_int8", "K4": "fused_topk_masked"}
 LC_IVF_KERNELS = {"K6": "ivf_topk_device", "K3": "fused_topk_int8_row"}
 
 
-def phase_lifecycle(ivfs, engines, texts, flagship, results, card) -> dict:
-    """embed → index → append → extend → live reload on the card; returns
-    the launches of the reload path, each run counted alone: two HTTP
+def phase_lifecycle(ivfs, engines, texts, flagship, results, card, lc_dir) -> dict:
+    """embed → index → append → extend → live reload on the card, the
+    index in ``lc_dir`` (grown there, for phase 8's reload); returns the
+    launches of the reload path, each run counted alone: two HTTP
     servers (traffic, reload, shadow warm) and one engine-level hybrid
     reload (its load, shadow warm and swap)."""
     from arxiv_rag_tpu_torch.config import RetrievalConfig
@@ -1961,7 +1976,7 @@ def phase_lifecycle(ivfs, engines, texts, flagship, results, card) -> dict:
     cats = list(np.array(LC_CATS)[rng.integers(0, len(LC_CATS), LC_BASE)]) + \
         [LC_NEW_CAT if i % 2 else LC_CATS[i % len(LC_CATS)] for i in range(LC_APPEND)]
     ids = [f"c{i:07d}" for i in range(N_ROWS)]
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(str(lc_dir)) as tmp:
         t0 = time.perf_counter()
         base = build_index(x[:LC_BASE], categories=cats[:LC_BASE], category_names=LC_CATS,
                            dtype="int8", chunk_ids=ids[:LC_BASE])
@@ -2517,6 +2532,315 @@ def roundtrip_search(model, rows, titles, tmp, out, label) -> dict:
     return launches
 
 
+# phase 8: sharded retrieval in one process, over a mesh that repeats the one card
+SH_SHARDS = 4  # mesh entries, all cuda:0: the counterpart of XLA's forced host device count
+SH_KINDS = ("bf16", "f32", "s8s8", "row", "masked bf16", "masked s8s8")
+
+
+def sharded_copy(idx, mesh):
+    """A DenseIndex of ``idx``'s rows, row-sharded over ``mesh`` (its full
+    rows copied to the host); ``idx`` stays as it is."""
+    from arxiv_rag_tpu_torch.index.store import DenseIndex
+
+    out = DenseIndex(values=idx.values, scales=idx.scales, dtype=idx.dtype,
+                     normalized=idx.normalized, categories=list(idx.categories),
+                     row_masks=idx.row_masks, chunk_ids=idx.chunk_ids)
+    return out.to_device(mesh=mesh)
+
+
+def merge_bound_ms(nq: int, k: int) -> float:
+    """The cross-shard merge's bytes: SH_SHARDS lists of (fp32, int32)
+    [Q, k] read once, one [Q, k] list written (no operations to speak of)."""
+    return (SH_SHARDS + 1) * nq * k * 8 / HBM_BYTES_PER_S * 1e3
+
+
+def sharded_kernel_gates(single, sharded, mesh, gen, card, out) -> None:
+    """``sharded_topk`` of every kind at Q = 32 and 512, k = 10, against the
+    single-device kernel on the same index (s8s8 kinds at the sharded
+    route's quotient query scale: bitwise; the product route beside it),
+    with each route's time and the merge's alone (median of 20 CUDA
+    events; for bf16 also the merge kernel's device time alone)."""
+    from arxiv_rag_tpu_torch.ab_scans import device_ms
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.parallel.search import merge_shards, shard_candidates
+
+    for kind in SH_KINDS:
+        base, masked = kind.removeprefix("masked "), kind.startswith("masked")
+        name = {"bf16": "bf16", "f32": "f32", "s8s8": "int8", "row": "int8"}[base]
+        one, sh = single[name], sharded[name]
+        x, s8, n = one._device_values, one._device_scales, one._n_valid
+        for nq in (32, 512):
+            q = unit_rows(nq, gen)
+            qm = torch.full((nq,), 0b111, dtype=torch.int32, device="cuda") if masked else None
+            kw = {"n_valid": n}
+            if base in ("s8s8", "row"):
+                kw.update(scales=sh._shard_scales, int8_variant=base)
+            if masked:
+                kw.update(row_masks=sh._shard_masks, query_mask=qm)
+
+            def run_sharded():
+                return merge_shards(*shard_candidates(sh._shard_values, q, 10, mesh, **kw),
+                                    mesh.devices[0])
+
+            def run_single(query_scale="quotient"):
+                if base in ("s8s8", "row"):
+                    extra = dict(n_valid=n, variant=base, query_scale=query_scale)
+                    if masked:
+                        return ft.fused_topk_int8_masked(x, s8, one._device_masks, qm, q, 10,
+                                                         **extra)
+                    return ft.fused_topk_int8(x, s8, q, 10, **extra)
+                if masked:
+                    return ft.fused_topk_masked(x, one._device_masks, qm, q, 10, n_valid=n)
+                return ft.fused_topk(x, q, 10, n_valid=n)
+
+            v, i = run_sharded()
+            sv, si = run_single()
+            check_equal(v, sv, f"sharded {kind} ({SH_SHARDS} shards, N={n}) Q={nq}: values vs "
+                        "the single-device kernel" + (" at the quotient query scale"
+                                                      if base == "s8s8" else ""))
+            check_equal(i, si, f"sharded {kind} Q={nq}: ids")
+            case = {"kind": kind, "rows": n, "q": nq}
+            if base == "s8s8":  # against the single-device default, the product scale
+                pv, pi = run_single("product")
+                rel = ((v - pv).abs() / pv.abs().clamp(min=1e-30))[torch.isfinite(pv)]
+                case["vs_product"] = {"ids_equal": bool(torch.equal(i, pi)),
+                                      "queries_differing": int((v != pv).any(dim=1).sum()),
+                                      "max_rel": float(rel.max()) if rel.numel() else 0.0}
+                print(f"    against the single-device product scale: {case['vs_product']}",
+                      flush=True)
+                if not case["vs_product"]["ids_equal"] or case["vs_product"]["max_rel"] > 2**-22:
+                    fail(f"sharded {kind} Q={nq}: beyond the query scale's last bit of the "
+                         "single-device product route")
+            cv, ci = shard_candidates(sh._shard_values, q, 10, mesh, **kw)
+            cand_v, cand_i = torch.stack(cv), torch.stack(ci)
+            mv, mi = ft.merge_topk(cand_v, cand_i)
+            pmv, pmi = ft.merge_topk_plain(cand_v, cand_i)
+            check_equal(mv, pmv, f"merge kernel Q={nq} ({kind} lists): values vs plain")
+            check_equal(mi, pmi, f"merge kernel Q={nq} ({kind} lists): ids vs plain")
+            flat = cand_v.permute(1, 0, 2).reshape(nq, -1).contiguous()
+            case.update(
+                ms_sharded=median_ms(run_sharded), ms_single=median_ms(run_single),
+                ms_candidates=median_ms(lambda: shard_candidates(sh._shard_values, q, 10, mesh,
+                                                                 **kw)),
+                merge_ms=median_ms(lambda: ft.merge_topk(cand_v, cand_i)),
+                merge_plain_ms=median_ms(lambda: ft.merge_topk_plain(cand_v, cand_i)),
+                merge_library_ms=median_ms(lambda: torch.topk(flat, 10)),
+                merge_bound_ms=merge_bound_ms(nq, 10))
+            if kind == "bf16":  # the kernels' device time alone, not the calls' host time
+                case["merge_device_ms"] = device_ms(lambda: ft.merge_topk(cand_v, cand_i),
+                                                    "merge_kernel")
+                case["merge_library_device_ms"] = device_ms(lambda: torch.topk(flat, 10))
+                print(f"    device time alone: merge kernel {case['merge_device_ms']:.4f} ms, "
+                      f"torch.topk {case['merge_library_device_ms']:.4f} ms ({card})",
+                      flush=True)
+            out.setdefault("kernels", []).append(case)
+            print(f"  {kind} Q={nq}: sharded {case['ms_sharded']:.3f} ms (scans "
+                  f"{case['ms_candidates']:.3f}, merge {case['merge_ms']:.4f}; plain merge "
+                  f"{case['merge_plain_ms']:.4f}, torch.topk {case['merge_library_ms']:.4f}, "
+                  f"bound {case['merge_bound_ms']:.2e}) against single-device "
+                  f"{case['ms_single']:.3f} ms ({card})", flush=True)
+
+
+def clustered_queries(centers, nq, gen):
+    qcid = torch.randint(0, N_CLUSTERS, (nq,), generator=gen, device="cuda")
+    q = centers[qcid] + SPREAD * torch.randn(nq, DIM, generator=gen, device="cuda")
+    return q / q.norm(dim=1, keepdim=True)
+
+
+def sharded_ivf_gates(ivfs, ivf_engines, mesh, gen, card, out) -> None:
+    """``ShardedIVF`` (the IVF engines' own layouts) against the single-
+    device IVF: full probe at Q = 32 bitwise; the device plan bitwise the
+    host plan at nprobe 8; recall@10 against the single-device IVF at
+    nprobe 8 reported; times (median of 20 CUDA events, host fetch
+    included on both sides)."""
+    from arxiv_rag_tpu_torch.ops.topk import recall_at_k
+
+    centers = ivfs["corpus"][0]
+    for name, eng in ivf_engines.items():
+        ivf, siv = ivfs["ivf"][name], eng._sharded_ivf(mesh)
+        siv.to_device(mesh)
+        print(f"  IVF {name}: {SH_SHARDS} cluster ranges {siv.cluster_cuts.tolist()}, shard "
+              f"rows {np.diff(siv.row_starts).tolist()}, {siv.blocks_per_shard} blocks a shard",
+              flush=True)
+        q = clustered_queries(centers, 32, gen)
+        full = {plan: siv.search(q, 10, mesh, nprobe=N_CLUSTERS, plan=plan)
+                for plan in ("host", "device")}
+        iv, ir = ivf.search(q, 10, nprobe=N_CLUSTERS, plan="host")
+        for plan, (v, r) in full.items():
+            same = np.array_equal(v, iv) and np.array_equal(r, ir)
+            print(f"    full probe Q=32, {plan} plan: bitwise the single-device IVF: {same}",
+                  flush=True)
+            if not same:
+                fail(f"sharded IVF {name} ({plan} plan) at full probe differs from the "
+                     "single-device IVF")
+        for nq in (32, 512):
+            q = clustered_queries(centers, nq, gen)
+            hv, hr = siv.search(q, 10, mesh, nprobe=NPROBE, plan="host")
+            dv, dr = siv.search(q, 10, mesh, nprobe=NPROBE, plan="device")
+            if not (np.array_equal(dv, hv) and np.array_equal(dr, hr)):
+                fail(f"sharded IVF {name} Q={nq}: the device plan differs from the host plan")
+            iv, ir = ivf.search(q, 10, nprobe=NPROBE, plan="host")
+            case = {"ivf": name, "q": nq, "recall_vs_single": recall_at_k(hr, ir),
+                    "ms_host": median_ms(lambda: siv.search(q, 10, mesh, nprobe=NPROBE,
+                                                            plan="host")),
+                    "ms_device": median_ms(lambda: siv.search(q, 10, mesh, nprobe=NPROBE,
+                                                              plan="device")),
+                    "ms_single_host": median_ms(lambda: ivf.search(q, 10, nprobe=NPROBE,
+                                                                   plan="host")),
+                    "ms_single_device": median_ms(lambda: ivf.search(q, 10, nprobe=NPROBE,
+                                                                     plan="device"))}
+            out.setdefault("ivf", []).append(case)
+            print(f"    nprobe {NPROBE} Q={nq}: device plan bitwise the host plan: True; "
+                  f"recall@10 against the single-device IVF {case['recall_vs_single']:.4f}; "
+                  f"sharded host {case['ms_host']:.3f} / device {case['ms_device']:.3f} ms "
+                  f"against single-device {case['ms_single_host']:.3f} / "
+                  f"{case['ms_single_device']:.3f} ms ({card})", flush=True)
+
+
+def sharded_reload(indexes, embedder, mesh, lc_dir, texts, card) -> None:
+    """A sharded engine over phase 3's int8 index reloads phase 6's grown
+    index onto the same mesh and serves its appended rows."""
+    from arxiv_rag_tpu_torch.index.store import DenseIndex
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    eng = SearchEngine(sharded_copy(indexes["int8"], mesh), embedder=embedder)
+    t0 = time.perf_counter()
+    info = eng.prepare_reload(lc_dir)()
+    dt = time.perf_counter() - t0
+    idx = eng.index
+    kept = (idx._mesh is mesh and idx._device_values is None
+            and [t.device for t in idx._shard_values] == list(mesh.devices))
+    print(f"  reload of phase 6's grown index ({info}) onto the mesh in {dt:.2f} s ({card}): "
+          f"mesh kept, {len(idx._shard_values)} shards of {idx._shard_values[0].shape[0]} rows, "
+          f"no single-device copy: {kept}", flush=True)
+    if not kept or info["rows"] != N_ROWS:
+        fail("the sharded reload lost the mesh")
+    grown = DenseIndex.load(lc_dir)
+    rows = [LC_BASE, (LC_BASE + N_ROWS) // 2, N_ROWS - 1]
+    q = (grown.values[rows].to(torch.float32) * grown.scales[rows][:, None]).cuda()
+    _, top = eng.search_embeddings(q, k=10)
+    fresh = SearchEngine(grown.to_device(), embedder=embedder)
+    got = [[h.row for h in hits] for hits in eng.search(texts[:32], k=10)]
+    want = [[h.row for h in hits] for hits in fresh.search(texts[:32], k=10)]
+    print(f"  appended rows {rows} find themselves first: {top[:, 0].tolist()}; 32 text queries "
+          f"answer the rows of a fresh single-device engine over the grown index: "
+          f"{got == want}", flush=True)
+    if top[:, 0].tolist() != rows or got != want:
+        fail("the reloaded sharded engine does not serve the grown index")
+
+
+def phase_sharded(indexes, ivfs, engines, texts, lc_dir, seed, results, card) -> dict:
+    """Sharded retrieval over a mesh of SH_SHARDS entries on cuda:0: the
+    kernels' gates, the sharded IVF's, the engine's sharded routes
+    (counted: the path's launches), and a reload that keeps the mesh.
+    Returns the path's launches."""
+    from arxiv_rag_tpu_torch.config import RetrievalConfig
+    from arxiv_rag_tpu_torch.index.store import build_index_device
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.parallel import DeviceMesh
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    mesh = DeviceMesh(["cuda:0"] * SH_SHARDS)
+    print(f"== phase 8: sharded retrieval, a mesh of {SH_SHARDS} entries; distinct devices: "
+          f"{len(set(mesh.devices))} ({card})", flush=True)
+    results["sharded"] = out = {}
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)  # phase 2's f32 rows, drawn again
+    host = torch.randn(N_ROWS, DIM, generator=g, device="cuda")[:N_F32].cpu().numpy()
+    single = {"bf16": indexes["bf16"], "int8": indexes["int8"],
+              "f32": build_index_device(host, dtype="float32").to_device()}
+    del host
+    sharded = {name: sharded_copy(idx, mesh) for name, idx in single.items()}
+    torch.cuda.synchronize()
+    print(f"  sharded the bf16 and int8 indexes (2M rows) and a {N_F32}-row f32 index in "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    sharded_kernel_gates(single, sharded, mesh, gen, card, out)
+
+    embedder = engines["bf16"].embedder
+    sh_engines = {name: SearchEngine(sharded[name], embedder=embedder)
+                  for name in ("bf16", "int8")}
+    ivf_engines = {name: SearchEngine(sharded_copy(ivfs["dense"][name], mesh),
+                                      embedder=embedder, ivf=ivfs["ivf"][name],
+                                      cfg=RetrievalConfig(nprobe=NPROBE))
+                   for name in ("int8", "bf16")}
+    sharded_ivf_gates(ivfs, ivf_engines, mesh, gen, card, out)
+
+    # the path: text queries through the sharded engines, counted alone
+    routes = [("bf16", sh_engines["bf16"], None, ("fused_topk",)),
+              ("int8", sh_engines["int8"], None, ("fused_topk_int8",)),
+              ("bf16_filtered", sh_engines["bf16"], FILTER, ("fused_topk_masked",)),
+              ("int8_filtered", sh_engines["int8"], FILTER, ("fused_topk_masked",)),
+              ("ivf_int8_device", ivf_engines["int8"], None,
+               ("ivf_topk_device", "fused_topk_int8_row")),
+              ("ivf_bf16_device", ivf_engines["bf16"], None, ("ivf_topk_device",)),
+              ("ivf_int8_host", ivf_engines["int8"], None, ("ivf_topk", "fused_topk_int8_row"))]
+    got = {}
+    reset_all_launches()  # the sharded path starts here
+    for label, eng, cats, counters in routes:
+        plan = "host" if label.endswith("host") else "device"
+        eng.cfg = RetrievalConfig(nprobe=eng.cfg.nprobe, ivf_plan=plan)
+        for nq in (32, 512):
+            key = f"sharded_{label}_q{nq}"
+            hits = timed_search(eng, texts[:nq], out, key, counters + ("topk_merge",),
+                                card=card, categories=cats)
+            got[(label, nq)] = hits_arrays(hits, nq, key)
+            per = out["launches_per_search"][key]
+            if any(per[c] != SH_SHARDS for c in counters) or per["topk_merge"] != 1:
+                fail(f"{key}: expected {SH_SHARDS} scans and 1 merge a search, got {per}")
+    launches = all_launches()
+    print(f"== sharded path launches: {launches}", flush=True)
+
+    # the answers, against the single-device engines and kernels of phases 3 and 2
+    for label, eng, cats, _ in routes:
+        for nq in (32, 512):
+            v, r = got[(label, nq)]
+            emb, m = embedder.encode_window_device(texts[:nq])
+            emb = emb[:m]
+            if label.startswith("ivf"):
+                plan = "host" if label.endswith("host") else "device"
+                siv = eng._sharded_ivf(mesh)
+                wv, wr = siv.search(emb, 10, mesh, nprobe=NPROBE, plan=plan)
+                check_k2(v, r, torch.from_numpy(wv), torch.from_numpy(wr.astype(np.int32)),
+                         f"sharded engine {label} Q={nq} vs ShardedIVF.search")
+                continue
+            name = label.split("_")[0]
+            want = engines[name].search(texts[:nq], k=10, categories=cats)
+            wv, wr = hits_arrays(want, nq, f"{name} Q={nq}")
+            check_equal(r, wr, f"sharded engine {label} Q={nq}: rows vs phase 3's engine")
+            if name == "bf16":
+                check_equal(v, wv, f"sharded engine {label} Q={nq}: scores vs phase 3's engine")
+            else:  # the sharded route's quotient query scale: the kernel at that scale
+                idx = indexes["int8"]
+                qm = (None if cats is None else
+                      torch.full((m,), 0b111, dtype=torch.int32, device="cuda"))
+                extra = dict(n_valid=idx._n_valid, query_scale="quotient")
+                kv, _ = (ft.fused_topk_int8(idx._device_values, idx._device_scales, emb, 10,
+                                            **extra) if qm is None else
+                         ft.fused_topk_int8_masked(idx._device_values, idx._device_scales,
+                                                   idx._device_masks, qm, emb, 10, **extra))
+                check_equal(v, kv.cpu(), f"sharded engine {label} Q={nq}: scores vs the "
+                            "single-device kernel at the quotient scale")
+                diff = int((v != wv).any(dim=1).sum())
+                print(f"    against phase 3's engine (the product scale): {diff} of {nq} "
+                      "queries' scores differ in their last bits", flush=True)
+    for name in ("int8", "bf16"):  # full probe through both engines: bitwise
+        eng, one = ivf_engines[name], engines[f"ivf_{name}_host"]
+        for e in (eng, one):
+            e.cfg = RetrievalConfig(nprobe=NPROBE, ivf_plan="host")
+        a = hits_arrays(eng.search(texts[:32], k=10, nprobe=N_CLUSTERS), 32, name)
+        b = hits_arrays(one.search(texts[:32], k=10, nprobe=N_CLUSTERS), 32, name)
+        check_equal(a[0], b[0], f"sharded IVF {name} engine, full probe: scores vs phase 3's")
+        check_equal(a[1], b[1], f"sharded IVF {name} engine, full probe: rows vs phase 3's")
+    sharded_reload(indexes, embedder, mesh, lc_dir, texts, card)
+    qps = {k: round(v, 1) for k, v in out["qps"].items()}
+    print(f"  sharded qps ({card}): {qps}", flush=True)
+    del sh_engines, ivf_engines, sharded, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -2553,10 +2877,12 @@ W8A8_KERNELS = (
 
 def kernels_line(results, launches, w8a8_launches) -> dict:
     """``launches``: counted path -> its launches ("main": slices 1-2,
-    "f32": the f32 route)."""
+    "f32": the f32 route, "sharded": phase 8's engine searches, added to
+    the main path's)."""
     out = []
     all_cases = {**results["cases"], **results["ivf_cases"]}
     for key, counter, what, replaces, (dtype, nq, rows), kernel, path in KERNELS:
+        sharded = launches["sharded"][counter] if path == "main" else 0
         # K1's rows: one per index dtype
         cases = [c for c in all_cases[key] if key != "K1" or c["dtype"] == dtype]
         main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10
@@ -2567,7 +2893,7 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
             "source": "arxiv_rag_tpu_torch/csrc/fused_topk.cu",
             "kernel": kernel,
             "replaces": replaces,
-            "launches": launches[path][counter],
+            "launches": launches[path][counter] + sharded,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -2591,6 +2917,23 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
             "library_ms": main["library_ms"],
             "cases": cases,
         })
+    merges = results["sharded"]["kernels"]
+    main = next(c for c in merges if c["kind"] == "bf16" and c["q"] == 512)
+    out.append({
+        "name": f"topk_merge cross-shard merge ({SH_SHARDS} lists, Q=512, k=10)",
+        "route": "cuda",
+        "source": "arxiv_rag_tpu_torch/csrc/fused_topk.cu",
+        "kernel": "merge_kernel (arag_topk_merge, no query scale)",
+        "replaces": "arxiv_rag_tpu/parallel/search.py:207",
+        "note": "the reference merges with lax.all_gather + lax.top_k (XLA, no Pallas kernel)",
+        "launches": launches["sharded"]["topk_merge"],
+        "max_abs_err": 0.0,  # bitwise merge_topk_plain in every case
+        "ms": main["merge_ms"], "plain_ms": main["merge_plain_ms"],
+        "bound_ms": main["merge_bound_ms"], "bound_by": "bytes",
+        "library_ms": main["merge_library_ms"],
+        "cases": [{k: c[k] for k in ("kind", "q", "merge_ms", "merge_plain_ms",
+                                     "merge_library_ms", "merge_bound_ms")} for c in merges],
+    })
     return {"kernels": out}
 
 
@@ -2706,12 +3049,20 @@ def main() -> int:
                                                  card)
     print(f"== flagship path launches: {flagship_launches} (K2 on the hybrid route, K4 "
           "with categories)", flush=True)
-    lifecycle_launches = phase_lifecycle(ivfs, engines, texts, flagship, results, card)
-    print(f"== lifecycle path launches (the reload path, each run counted alone): "
-          f"{lifecycle_launches}", flush=True)
-    train_launches = phase_train(flagship, results, card)
-    print(f"== train path launches (the fine-tuned encoder's round trip, counted alone): "
-          f"{train_launches}", flush=True)
+    with tempfile.TemporaryDirectory() as lc_dir:  # phase 6's index, reloaded in phase 8
+        lifecycle_launches = phase_lifecycle(ivfs, engines, texts, flagship, results, card,
+                                             lc_dir)
+        print(f"== lifecycle path launches (the reload path, each run counted alone): "
+              f"{lifecycle_launches}", flush=True)
+        train_launches = phase_train(flagship, results, card)
+        print(f"== train path launches (the fine-tuned encoder's round trip, counted "
+              f"alone): {train_launches}", flush=True)
+        t8 = time.perf_counter()
+        launches["sharded"] = phase_sharded(indexes, ivfs, engines, texts, lc_dir, args.seed,
+                                            results, card)
+        print(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({card})", flush=True)
+    if launches["sharded"]["topk_merge"] < 1:
+        fail("the sharded path launched no cross-shard merge (topk_merge)")
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
           f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "

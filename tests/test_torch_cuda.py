@@ -1047,3 +1047,86 @@ def test_fp32_train_step_on_the_card_matches_the_cpu(gen):
     assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-5
     for name, want in out["cpu"][1].items():
         assert float((out["cuda"][1][name] - want).abs().max()) <= 1e-5, name
+
+
+# -- sharded retrieval on one card: a mesh that repeats cuda:0 -------------------
+
+
+def _card_mesh(nd=4):
+    from arxiv_rag_tpu_torch.parallel import DeviceMesh
+
+    return DeviceMesh(["cuda:0"] * nd)
+
+
+@pytest.mark.parametrize("kind", ["s8s8", "bf16", "masked s8s8"])
+def test_sharded_equals_single_device_on_the_card(gen, kind):
+    """4 shards on one card launch 4 scans and 1 merge, and give the
+    single-device kernel's values and ids bitwise (s8s8: given the
+    sharded route's query scale, the reference's quotient; against the
+    single-device product the ids are equal)."""
+    from arxiv_rag_tpu_torch.parallel import shard_index_rows, sharded_topk
+
+    n, n_valid = 70_001, 69_964
+    x, q = _unit(n, 768, gen), _unit(37, 768, gen)
+    mesh = _card_mesh()
+    kw, mask = {}, {}
+    if kind.startswith("masked"):
+        codes = torch.randint(0, 8, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        rm = torch.ones_like(codes) << codes
+        qm = torch.full((37,), 0b101, dtype=torch.int32, device="cuda")
+        qm[3] = 0
+        mask = {"row_masks": rm, "query_mask": qm}
+        kw = {"row_masks": shard_index_rows(rm, mesh)[0], "query_mask": qm}
+    if kind.endswith("s8s8"):
+        values, scales = quantize_int8(x)
+        kw["scales"] = shard_index_rows(scales, mesh)[0]
+        counter = "fused_topk_masked" if mask else "fused_topk_int8"
+
+        def single(**extra):
+            if mask:
+                return ft.fused_topk_int8_masked(values, scales, mask["row_masks"],
+                                                 mask["query_mask"], q, 10, n_valid=n_valid,
+                                                 **extra)
+            return ft.fused_topk_int8(values, scales, q, 10, n_valid=n_valid, **extra)
+    else:
+        values, counter = x.to(torch.bfloat16), "fused_topk"
+
+        def single(**extra):
+            return ft.fused_topk(values, q, 10, n_valid=n_valid)
+    shards, _ = shard_index_rows(values, mesh)
+    ft.reset_launches()
+    v, i = sharded_topk(shards, q, 10, mesh, n_valid=n_valid, **kw)
+    assert ft.LAUNCHES[counter] == 4 and ft.LAUNCHES["topk_merge"] == 1
+    sv, si = single(**({"query_scale": "quotient"} if kind.endswith("s8s8") else {}))
+    assert torch.equal(v, sv) and torch.equal(i, si)
+    assert int(i.max()) < n_valid
+    if kind.endswith("s8s8"):
+        pv, pi = single()
+        assert torch.equal(i, pi) and torch.allclose(v, pv, rtol=2.0**-22, atol=0)
+    if mask:
+        assert (i[3] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_sharded_ivf_on_the_card(gen, dtype):
+    """ShardedIVF over 4 shards of one card: the device plan bitwise the
+    host plan (partial and full probe), and at full probe bitwise the
+    single-device IVF; one table scan per shard and one merge a search."""
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import build_index
+    from arxiv_rag_tpu_torch.parallel import ShardedIVF
+
+    dense = build_index(_unit(30_000, 768, gen), dtype=dtype).to_device()
+    ivf = IVFIndex.build(dense, 64, block_rows=1024, iters=3).to_device()
+    q = _unit(32, 768, gen)
+    mesh = _card_mesh()
+    siv = ShardedIVF.build(ivf, mesh.size)
+    for nprobe in (4, 64):
+        ft.reset_launches()
+        hv, hr = siv.search(q, 10, mesh, nprobe=nprobe, plan="host")
+        assert ft.LAUNCHES["ivf_topk"] == 4 and ft.LAUNCHES["topk_merge"] == 1
+        dv, dr = siv.search(q, 10, mesh, nprobe=nprobe, plan="device")
+        assert ft.LAUNCHES["ivf_topk_device"] == 4 and ft.LAUNCHES["topk_merge"] == 2
+        assert (dv == hv).all() and (dr == hr).all()
+    iv, ir = ivf.search(q, 10, nprobe=64, plan="host")
+    assert (hv == iv).all() and (hr == ir).all()

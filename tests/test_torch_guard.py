@@ -18,6 +18,7 @@ import arxiv_rag_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {"arxiv_rag_tpu_torch.parallel." + m for m in ("mesh", "search", "ivf")} <= set(names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "arxiv_rag_tpu"))
 print(len(names), bad)
@@ -101,6 +102,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
         idx.to_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SearchEngine(idx)
+    from arxiv_rag_tpu_torch.parallel import data_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):  # --shard's mesh
+        data_mesh()
     from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -148,6 +153,8 @@ def test_cli_defaults_to_the_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):  # and embed
         main(["embed", "--corpus", str(tmp_path), "--out", str(tmp_path / "e"),
               "--random-init"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):  # and --shard
+        main(["search", "--index", str(tmp_path / "idx"), "--shard", "--query", "q"])
 
 
 def test_kernel_build_is_not_touched_on_import():
