@@ -23,7 +23,12 @@ Verbs of the index lifecycle and the serving path, following
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
 CPU. ``--shard`` (search, eval, serve) row-shards the index over every
-visible card (with ``--device cpu``: the CPU, one shard). Without
+visible card (with ``--device cpu``: the CPU, one shard); launched by
+``torchrun`` (or with ``ARAG_COORDINATOR``, ``WORLD_SIZE`` and ``RANK``
+set), one process per card, every rank on the same arguments, it
+row-shards over the processes (``parallel/distributed.py``) and rank 0
+prints. ``--shard-batches`` (embed, train) splits each batch over every
+visible card of the one process. Without
 ``--checkpoint`` the query encoder is a seeded random bf16
 all-mpnet-base-v2 (smoke runs), as in the reference; ``embed`` asks for
 ``--random-init`` to say so. ``--corpus`` reads the Parquet corpus
@@ -103,6 +108,9 @@ def _add_embed(sub) -> None:
     p.add_argument("--random-init", action="store_true", help="random weights (smoke runs)")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--min-quality", type=float, default=0.9)
+    p.add_argument("--shard-batches", action="store_true",
+                   help="split each batch over every visible card (data parallel; the "
+                        "batch size a multiple of their count)")
     p.add_argument("--device", default="cuda")
 
 
@@ -124,8 +132,13 @@ def cmd_embed(args) -> int:
     else:
         model = random_model(seed=0, device=dev)
         vocab_path = args.vocab
+    mesh = None
+    if args.shard_batches:
+        from arxiv_rag_tpu_torch.parallel import data_mesh
+
+        mesh = data_mesh(device=dev)
     embedder = Embedder(model, _tokenizer_or_toy(vocab_path), batch_size=args.batch_size,
-                        native_tokenizer=_native_tokenizer_or_none(vocab_path))
+                        native_tokenizer=_native_tokenizer_or_none(vocab_path), mesh=mesh)
     batches = ((b.column("chunk_id").to_pylist(), b.column("text").to_pylist())
                for b in CorpusReader(args.corpus).iter_batches(
                    batch_size=8192, columns=["chunk_id", "text"],
@@ -253,12 +266,16 @@ def _add_search(sub) -> None:
     p.add_argument("--nprobe", type=int, default=None,
                    help="probe this many IVF clusters (approximate search; needs an "
                         "index built with --ivf-clusters)")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON line per query: its scores (exact fp32 values) and rows")
 
 
 def build_engine(args):
     """Index (+ its IVF delta when probing) + query embedder (+ corpus,
     BM25, cross-encoder) + engine, as the reference's ``_build_engine``
-    does; ``--shard`` row-shards the index over ``data_mesh()``."""
+    does; ``--shard`` joins the process group when one is configured
+    (``init_distributed``, as the reference's :612-615) and row-shards the
+    index over ``data_mesh()``, every process's shard on its own device."""
     import dataclasses
 
     import torch
@@ -278,7 +295,16 @@ def build_engine(args):
     cascade = getattr(args, "rerank_cascade", None)
     rerank_ck = getattr(args, "rerank_checkpoint", None)
     rerank_random = getattr(args, "rerank_random_init", False)
-    dev = default_device(args.device)
+    shard = getattr(args, "shard", False)
+    mesh = None
+    if shard:
+        from arxiv_rag_tpu_torch.parallel import data_mesh, init_distributed
+        from arxiv_rag_tpu_torch.parallel.distributed import describe
+
+        if init_distributed(device=args.device):
+            print(f"process group: {describe()}", file=sys.stderr)
+        mesh = data_mesh(device=args.device)
+    dev = mesh.home if mesh is not None else default_device(args.device)
     rcfg = load_config().retrieval
     if args.nprobe is not None:
         rcfg = dataclasses.replace(rcfg, nprobe=args.nprobe)
@@ -286,12 +312,9 @@ def build_engine(args):
         rcfg = dataclasses.replace(rcfg, hybrid_alpha=alpha)
     if cascade is not None:
         rcfg = dataclasses.replace(rcfg, rerank_cascade_depth=cascade)
-    shard = getattr(args, "shard", False)
     idx = DenseIndex.load(args.index)
     if shard:
-        from arxiv_rag_tpu_torch.parallel import data_mesh
-
-        idx.to_device(mesh=data_mesh(device=dev))
+        idx.to_device(mesh=mesh)
     else:
         idx.to_device(dev)
     # the delta's layout is a second copy of the values: loaded only when
@@ -358,11 +381,19 @@ def build_engine(args):
 
 
 def cmd_search(args) -> int:
+    from arxiv_rag_tpu_torch.parallel import is_primary
+
     engine = build_engine(args)
     cats = args.categories.split(",") if args.categories else None
     results = engine.search(args.query, k=args.k, categories=cats,
                             hybrid_alpha=args.hybrid_alpha)
+    if not is_primary():  # every rank holds the same results
+        return 0
     for qi, hits in enumerate(results):
+        if args.json:
+            print(json.dumps({"query": args.query[qi], "scores": [h.score for h in hits],
+                              "rows": [h.row for h in hits]}))
+            continue
         print(f"query[{qi}]: {args.query[qi]}")
         for h in hits:
             line = f"  {h.score:.4f} row={h.row}"
@@ -385,6 +416,7 @@ def _add_eval(sub) -> None:
 
 def cmd_eval(args) -> int:
     from arxiv_rag_tpu_torch.evaluate import evaluate_engine, load_paper_titles, title_queries
+    from arxiv_rag_tpu_torch.parallel import is_primary
 
     if not args.corpus:
         print("eval needs --corpus", file=sys.stderr)
@@ -395,7 +427,9 @@ def cmd_eval(args) -> int:
     if not queries:
         print("no usable (title, chunks) pairs in the corpus", file=sys.stderr)
         return 2
-    print(json.dumps(evaluate_engine(engine, queries, relevant, k=args.k).to_dict()))
+    report = evaluate_engine(engine, queries, relevant, k=args.k).to_dict()
+    if is_primary():  # every rank holds the same report
+        print(json.dumps(report))
     return 0
 
 
@@ -500,7 +534,9 @@ def _add_train(sub) -> None:
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--max-pairs", type=int, default=50000)
     p.add_argument("--shard-batches", action="store_true",
-                   help="data-parallel training: not in the port yet (exits 2)")
+                   help="data-parallel training over every visible card of this process "
+                        "(in-batch negatives across the global batch; the batch size a "
+                        "multiple of their count)")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="TrainState snapshot under --out/state every N steps (0=off)")
     p.add_argument("--resume", action="store_true",
@@ -527,12 +563,16 @@ def cmd_train(args, corpus=None) -> int:
     from arxiv_rag_tpu_torch.train import make_train_step
     from arxiv_rag_tpu_torch.train.checkpoint import restore_train_state, save_train_state
 
-    if args.shard_batches:
-        print("--shard-batches: data-parallel training (in-batch negatives across the "
-              "global batch) waits for the port's multi-process parallel/ "
-              "(torch.distributed); run without it to train on one device", file=sys.stderr)
-        return 2
     dev = default_device(args.device)
+    mesh = None
+    if args.shard_batches:
+        from arxiv_rag_tpu_torch.parallel import data_mesh
+
+        mesh = data_mesh(device=dev)
+        if args.batch_size % mesh.size:
+            print(f"--batch-size {args.batch_size} does not split over {mesh.size} devices",
+                  file=sys.stderr)
+            return 2
     if corpus is None:
         from arxiv_rag_tpu_torch.store.corpus import CorpusReader
 
@@ -572,7 +612,7 @@ def cmd_train(args, corpus=None) -> int:
         state_dict = random_model(mcfg, seed=0, param_dtype=torch.float32,
                                   compute_dtype=torch.float32, device=dev).state_dict()
     init_state, train_step = make_train_step(
-        mcfg, learning_rate=args.lr, device=dev,
+        mcfg, learning_rate=args.lr, device=None if mesh else dev, mesh=mesh,
         compute_dtype=torch.float32 if args.small_model else torch.bfloat16,
     )
     state = init_state(state_dict)

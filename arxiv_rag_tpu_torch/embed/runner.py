@@ -5,7 +5,11 @@ Python WordPiece tokenizer, or the C++ core of ``tokenize/native.py``
 when one is given), group rows by length bucket, pad each batch to an
 allowed height (pad rows carry one CLS token so pooling never divides by
 zero), run the encoder on the device, and restore the original order by
-position.
+position. With a mesh (``parallel.DeviceMesh`` of this process's
+devices) each padded batch splits evenly over its entries, each slice
+encoded on its entry's device by a replica of the model, and the slices
+come back in order: the data-parallel embedder of the reference
+(``:98-108``, ``:206-208``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ class Embedder:
         native_tokenizer: a ``NativeWordPieceTokenizer`` over the same
             vocab: one multithreaded C++ pass per call in place of the
             Python loop, with the same padded (ids, mask).
+        mesh: split each batch over these devices (every allowed height
+            must divide by its size); a device that repeats shares one
+            replica, and ``device`` is the mesh's first.
     """
 
     def __init__(
@@ -60,9 +67,23 @@ class Embedder:
         normalize: bool = True,
         quant_int8: bool = False,
         native_tokenizer=None,
+        mesh=None,
     ) -> None:
         if quant_int8:
             model = quantize_params_int8(model)
+        self.mesh = mesh
+        self._replicas = None
+        if mesh is not None:
+            from arxiv_rag_tpu_torch.parallel.mesh import replicate_module
+
+            heights = tuple(batch_sizes) if batch_sizes else (batch_size,)
+            if mesh.spans_processes:
+                raise ValueError("data-parallel embedding runs over this process's devices")
+            if any(h % mesh.size for h in heights):
+                raise ValueError(f"batch heights {heights} over a mesh of {mesh.size}: every "
+                                 "height must divide by its size")
+            self._replicas = replicate_module(model, mesh)
+            model = self._replicas[0]
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer
@@ -156,10 +177,18 @@ class Embedder:
     # -- device side -----------------------------------------------------
 
     def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        dev = self.device
+        if self.mesh is None:
+            return self._encode(self.model, ids, mask)
+        per = ids.shape[0] // self.mesh.size
+        parts = [self._encode(m, ids[s * per:(s + 1) * per], mask[s * per:(s + 1) * per])
+                 for s, m in enumerate(self._replicas)]
+        return torch.cat([p.to(self.device) for p in parts])
+
+    def _encode(self, model: MPNet, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        dev = model.word.weight.device
         x_ids = torch.from_numpy(ids.astype(np.int64)).to(dev, non_blocking=True)
-        x_mask = torch.from_numpy(mask).to(dev, non_blocking=True)
-        return self.model.encode(x_ids, x_mask, normalize=self.normalize)
+        x_mask = torch.from_numpy(np.ascontiguousarray(mask)).to(dev, non_blocking=True)
+        return model.encode(x_ids, x_mask, normalize=self.normalize)
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         """[len(texts), hidden] fp32 embeddings, original order."""

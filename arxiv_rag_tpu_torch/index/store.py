@@ -412,10 +412,11 @@ class DenseIndex:
 
     @property
     def placed_device(self) -> torch.device:
-        """Where scans start: the device of the values, or a mesh's first
-        device (queries are encoded there and merged results land there)."""
+        """Where scans start: the device of the values, or this process's
+        first mesh device (queries are encoded there and merged results
+        land there)."""
         if self._mesh is not None:
-            return self._mesh.devices[0]
+            return self._mesh.home
         if self._device_values is None:
             raise RuntimeError("the index is not placed: call to_device first")
         return self._device_values.device
@@ -427,7 +428,8 @@ class DenseIndex:
 
         With ``mesh`` (a ``parallel.DeviceMesh``), row-shard it instead:
         rows padded to a multiple of ``mesh.size · row_multiple``, values,
-        scales and masks split over the mesh's devices. The full rows stay
+        scales and masks split over the mesh's devices (on a mesh that
+        spans processes, this process's shards only). The full rows stay
         on the host only (a device-resident ``values`` moves there), and
         the single-device tensors are dropped, so a single-device scan of a
         sharded index fails instead of reading stale rows."""

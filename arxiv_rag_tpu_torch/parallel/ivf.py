@@ -1,5 +1,5 @@
-"""Sharded IVF in one process: cluster-partitioned shards and the
-lossless merge of their lists.
+"""Sharded IVF: cluster-partitioned shards and the lossless merge of
+their lists, in one process or across several.
 
 The port of ``arxiv_rag_tpu/parallel/ivf.py`` (``partition_clusters``
 :56, ``ShardedIVF`` :70). An :class:`~arxiv_rag_tpu_torch.index.ivf.IVFIndex`
@@ -13,7 +13,7 @@ into its buffer on its mesh device: no stacked copy of all shards exists.
 Per call (``search``): the queries pad to a ``q_block`` multiple by
 repeating the last one; then either
 
-- ``plan="host"``: the centroid top-nprobe on ``mesh.devices[0]``, one
+- ``plan="host"``: the centroid top-nprobe on ``mesh.home``, one
   block table per shard planned on the host (``plan_blocks``: each query
   tile's probed clusters restricted to the shard's range, in shard-local
   block ids, dead-padded to a width shared by the shards), and per shard
@@ -24,9 +24,13 @@ repeating the last one; then either
 
 Each shard scans with its own ``n_valid`` (its row count), offsets its
 hits by ``row_starts[s]`` into global IVF row ids, and the shards' lists
-merge on ``mesh.devices[0]`` as in ``parallel/search.py``; ids map through
+merge on ``mesh.home`` as in ``parallel/search.py``; ids map through
 ``ivf.perm`` to dense rows. A query tile whose probes all lie on other
 shards visits that shard's dead block only and adds only empty slots.
+On a mesh that spans processes each process places and scans only its
+own shards (the host planner plans every shard, so the table width is
+the same on every process, and keeps its own), and the lists gather
+across processes before the merge.
 
 Shard boundaries fall at cluster edges, not at block edges, so a shard's
 block covers other rows than a block of the single-device layout: below
@@ -146,17 +150,18 @@ class ShardedIVF:
     # -- device -----------------------------------------------------------
 
     def to_device(self, mesh: DeviceMesh) -> None:
-        """Each shard's rows (scales and masks too), its expansion table,
-        row start and row count on its mesh device; the centroids on every
-        device. Placed once per mesh."""
+        """Each local shard's rows (scales and masks too), its expansion
+        table, row start and row count on its mesh device; the centroids on
+        every local device. Placed once per mesh."""
         if mesh.size != self.nd:
             raise ValueError(f"layout built for {self.nd} shards, mesh has {mesh.size}")
         if self._device.get("mesh") == mesh:
             return
         ivf, d = self.ivf, self.ivf.values.shape[1]
         cb = self._shard_cluster_blocks()
-        shards = []
-        for s, dev in enumerate(mesh.devices):
+        shards: list = [None] * mesh.size
+        for s in mesh.local:
+            dev = mesh.devices[s]
             lo, hi = int(self.row_starts[s]), int(self.row_starts[s + 1])
 
             def slab(t, shape, dtype):
@@ -164,7 +169,7 @@ class ShardedIVF:
                 out[: hi - lo].copy_(t[lo:hi])
                 return out
 
-            shards.append({
+            shards[s] = {
                 "values": slab(ivf.values, (self.rows_pad, d), ivf.values.dtype),
                 "scales": None if ivf.scales is None
                 else slab(ivf.scales, (self.rows_pad,), torch.float32),
@@ -172,15 +177,16 @@ class ShardedIVF:
                 else slab(ivf.row_masks, (self.rows_pad,), torch.int32),
                 "cb": torch.from_numpy(cb[s]).to(dev),
                 "start": lo, "n_valid": hi - lo,
-            })
+            }
         cents = replicate(np.asarray(ivf.centroids, np.float32), mesh)
-        for shard, c in zip(shards, cents):
-            shard["centroids"] = c
+        for s in mesh.local:
+            shards[s]["centroids"] = cents[s]
         self._device = {"mesh": mesh, "shards": shards}
 
     def probe(self, queries: torch.Tensor, nprobe: int) -> np.ndarray:
-        """[Q, nprobe] nearest-centroid ids, on the first shard's device."""
-        c = self._device["shards"][0]["centroids"]
+        """[Q, nprobe] nearest-centroid ids, on the first local shard's
+        device."""
+        c = self._device["shards"][self._device["mesh"].local[0]]["centroids"]
         _, cids = flat_search(c, queries.to(c.device, torch.float32),
                               min(nprobe, self.ivf.n_clusters))
         return cids.cpu().numpy()
@@ -197,7 +203,7 @@ class ShardedIVF:
             raise ValueError(f"unknown plan mode {plan!r}")
         self.to_device(mesh)
         qn = queries.shape[0]
-        q, qm = self.ivf._pad(queries, query_mask, q_block, mesh.devices[0])
+        q, qm = self.ivf._pad(queries, query_mask, q_block, mesh.home)
         if qm is not None and self.ivf.row_masks is None:
             raise ValueError("IVF index has no row masks; rebuild with categories")
         tables = None
@@ -205,8 +211,10 @@ class ShardedIVF:
             tables = self.plan_blocks(self.probe(q, nprobe), q_block)
         qs = replicate(q, mesh)
         qms = replicate(qm, mesh) if qm is not None else [None] * mesh.size
-        vals, gids = [], []
-        for s, shard in enumerate(self._device["shards"]):
+        vals: list = [None] * mesh.size
+        gids: list = [None] * mesh.size
+        for s in mesh.local:
+            shard = self._device["shards"][s]
             kw = dict(n_valid=shard["n_valid"], block_rows=self.block_rows, q_block=q_block,
                       scales=shard["scales"])
             if qm is not None:
@@ -216,7 +224,7 @@ class ShardedIVF:
                                        k, nprobe=nprobe, **kw)
             else:
                 v, i = _table_scan(shard["values"], tables[s], qs[s], k, **kw)
-            vals.append(v)
-            gids.append(torch.where(i >= 0, i + shard["start"], torch.full_like(i, -1)))
-        mv, mg = merge_shards(vals, gids, mesh.devices[0])
+            vals[s] = v
+            gids[s] = torch.where(i >= 0, i + shard["start"], torch.full_like(i, -1))
+        mv, mg = merge_shards(vals, gids, mesh)
         return mv[:qn].cpu().numpy(), self.ivf._rows(mg[:qn].cpu().numpy())

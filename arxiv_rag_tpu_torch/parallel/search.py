@@ -1,5 +1,5 @@
-"""Sharded flat search in one process: shard-local top-k, then a lossless
-merge of the shards' lists.
+"""Sharded flat search: shard-local top-k, then a lossless merge of the
+shards' lists, in one process or across several.
 
 The port of ``arxiv_rag_tpu/parallel/search.py`` (``sharded_topk`` :123,
 ``_pallas_local`` :67, ``_local_scan_xla`` :33). The index lies
@@ -12,7 +12,8 @@ masked forms (K4), with its local ``n_valid`` =
 clip(n_valid − offset, 0, shard_rows); local ids are offset to global
 ids (-1 stays -1). All shards are launched before any result is copied,
 so that shards on different cards overlap. The shards' [Q, k] lists are
-then stacked in shard order on ``mesh.devices[0]`` and merged
+then stacked in shard order on ``mesh.home`` (``mesh.devices[0]`` in one
+process) and merged
 (``ops/fused_topk.py::merge_topk``: the scans' own k-way merge kernel on
 the card, a stable sort on the CPU). Per query the global top-k is the
 top-k of the union of the shards' top-ks, among equal scores the lowest
@@ -25,8 +26,13 @@ plain scan that ``_local_scan_xla`` is: fp32 scores of queries cast to
 the index dtype (int8: bf16 queries × int8 rows × row scale), padding
 and filtered rows at -inf.
 
-Multi-process meshes (``torch.distributed``, the cross-process gather)
-are not here.
+On a mesh that spans processes (``parallel/distributed.py``) each
+process scans only its own shards; ``merge_shards`` gathers every
+process's [Q, k] lists (``torch.distributed.all_gather``: on the card
+under NCCL, through host memory under gloo), puts them in global shard
+order, never in arrival order, and merges them on the process's own
+device. Every process returns the same result, as the reference's
+replicated ``lax.top_k`` after its ``all_gather`` (:207-215).
 """
 
 from __future__ import annotations
@@ -75,21 +81,50 @@ def _fused_local(shard, q, k, local_valid, row_masks=None, query_mask=None, scal
     return ft.fused_topk(shard, q, k, n_valid=local_valid)
 
 
-def merge_shards(vals: Sequence[torch.Tensor], gids: Sequence[torch.Tensor],
-                 device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The shards' [Q, k] lists (global ids, in shard order) copied to
-    ``device`` and merged losslessly: (values [Q, k], ids [Q, k])."""
-    cand_v = torch.stack([v.to(device) for v in vals])
-    cand_i = torch.stack([i.to(device) for i in gids])
-    return ft.merge_topk(cand_v, cand_i)
+def gather_shards(vals: Sequence[torch.Tensor | None], gids: Sequence[torch.Tensor | None],
+                  mesh: DeviceMesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every shard's [Q, k] list (global ids), stacked in shard order on
+    ``mesh.home``: ([nd, Q, k] fp32, [nd, Q, k] int32). On a mesh that
+    spans processes, one ``all_gather`` of this process's lists (values
+    viewed as int32 beside the ids) brings the others' in."""
+    home = mesh.home
+    if not mesh.spans_processes:
+        return (torch.stack([v.to(home) for v in vals]),
+                torch.stack([i.to(home) for i in gids]))
+    import torch.distributed as dist
+
+    local = mesh.local
+    mine = torch.stack([torch.stack([vals[s].to(home).view(torch.int32), gids[s].to(home)])
+                        for s in local])  # [n_local, 2, Q, k]
+    if dist.get_backend() == "gloo":  # gloo gathers host tensors: the copy is explicit
+        mine = mine.cpu()
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine.contiguous())
+    seen: dict[int, int] = {}
+    order = []
+    for r in mesh.ranks:  # entry s is its owner's next list
+        order.append(parts[r][seen.get(r, 0)])
+        seen[r] = seen.get(r, 0) + 1
+    cand = torch.stack(order).to(home)
+    return cand[:, 0].view(torch.float32), cand[:, 1]
+
+
+def merge_shards(vals: Sequence[torch.Tensor | None], gids: Sequence[torch.Tensor | None],
+                 mesh: DeviceMesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shards' [Q, k] lists (global ids, in shard order; None for
+    another process's shard) gathered to ``mesh.home`` and merged
+    losslessly: (values [Q, k], ids [Q, k])."""
+    return ft.merge_topk(*gather_shards(vals, gids, mesh))
 
 
 def _check_shards(name: str, shards, mesh: DeviceMesh, rows: int) -> None:
     if len(shards) != mesh.size:
         raise ValueError(f"{name}: {len(shards)} shards for a mesh of {mesh.size}")
-    for s, (t, dev) in enumerate(zip(shards, mesh.devices)):
-        if t.device != dev:
-            raise ValueError(f"{name}: shard {s} lies on {t.device}, its mesh entry is {dev}")
+    for s in mesh.local:
+        t, dev = shards[s], mesh.devices[s]
+        if t is None or t.device != dev:
+            raise ValueError(f"{name}: shard {s} lies on {t if t is None else t.device}, its "
+                             f"mesh entry is {dev}")
         if t.shape[0] != rows:
             raise ValueError(f"{name}: shard {s} has {t.shape[0]} rows, shard 0 {rows}")
 
@@ -106,13 +141,13 @@ def shard_candidates(
     scales: Sequence[torch.Tensor] | None = None,
     int8_variant: str = "s8s8",
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Each shard's top-k, launched on its device before any result moves:
-    (values, global ids), lists of [Q, k] in shard order (the arguments
-    of :func:`sharded_topk`)."""
+    """Each local shard's top-k, launched on its device before any result
+    moves: (values, global ids), lists of [Q, k] in shard order, None for
+    another process's shards (the arguments of :func:`sharded_topk`)."""
     ft._check_variant(int8_variant)
     if len(index_shards) != mesh.size:
         raise ValueError(f"{len(index_shards)} index shards for a mesh of {mesh.size}")
-    shard_rows = index_shards[0].shape[0]
+    shard_rows = index_shards[mesh.local[0]].shape[0]
     masked = row_masks is not None and query_mask is not None
     for name, side in (("index", index_shards), ("scales", scales),
                        ("row_masks", row_masks if masked else None)):
@@ -124,8 +159,9 @@ def shard_candidates(
         raise ValueError(f"n_valid {n_valid} outside [0, {total}]")
     qs = replicate(queries, mesh)
     qms = replicate(query_mask, mesh) if masked else [None] * mesh.size
-    vals, gids = [], []
-    for s in range(mesh.size):
+    vals: list = [None] * mesh.size
+    gids: list = [None] * mesh.size
+    for s in mesh.local:
         offset = s * shard_rows
         rm = row_masks[s] if masked else None
         sc = None if scales is None else scales[s]
@@ -137,8 +173,7 @@ def shard_candidates(
             v, i = _fused_local(index_shards[s], qs[s], k, local_valid, row_masks=rm,
                                 query_mask=qms[s], scales=sc, int8_variant=int8_variant)
             g = torch.where(i >= 0, i + offset, torch.full_like(i, -1))
-        vals.append(v)
-        gids.append(g)
+        vals[s], gids[s] = v, g
     return vals, gids
 
 
@@ -150,14 +185,15 @@ def sharded_topk(
     **kw,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Global top-k over a row-sharded index: (values [Q, k] fp32, global
-    ids [Q, k] int32) on ``mesh.devices[0]``.
+    ids [Q, k] int32) on ``mesh.home``, the same on every process.
 
     ``index_shards``: equal [shard_rows, D] shards, shard s on
-    ``mesh.devices[s]`` (``shard_index_rows``). Keywords: rows ≥
+    ``mesh.devices[s]`` (``shard_index_rows``; this process's only, on a
+    mesh that spans processes). Keywords: rows ≥
     ``n_valid`` (all by default) never return; ``row_masks`` (int32
     [shard_rows] per shard) with ``query_mask`` (int32 [Q]) filters by
     category; ``scales`` (fp32 [shard_rows] per shard) marks an int8
     index, scored s8s8 by default or in the "row" mode
     (``int8_variant``)."""
     vals, gids = shard_candidates(index_shards, queries, k, mesh, **kw)
-    return merge_shards(vals, gids, mesh.devices[0])
+    return merge_shards(vals, gids, mesh)

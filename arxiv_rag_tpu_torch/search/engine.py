@@ -18,12 +18,15 @@ merge) → hydrate (→ rerank). Routing follows the reference:
 - ``categories=[]`` matches no row and returns empty lists;
 - an index row-sharded over a mesh (``DenseIndex.to_device(mesh=...)``)
   takes the sharded routes (``:349-358``, ``:394-411``): the queries on
-  the mesh's first device, ``parallel.sharded_topk`` (every kind, masked
-  or not; k > 128 a plain scan per shard), or with an IVF index and
-  ``nprobe > 0`` the cluster-partitioned ``parallel.ShardedIVF`` (built
-  once per mesh, ``_sharded_ivf`` :443-452; either plan), whose results
-  return at once rather than from ``finish``; the single-device routes
-  raise for a sharded index;
+  this process's first mesh device, ``parallel.sharded_topk`` (every
+  kind, masked or not; k > 128 a plain scan per shard), or with an IVF
+  index and ``nprobe > 0`` the cluster-partitioned
+  ``parallel.ShardedIVF`` (built once per mesh, ``_sharded_ivf``
+  :443-452; either plan), whose results return at once rather than from
+  ``finish``; the single-device routes raise for a sharded index. On a
+  mesh that spans processes each process scans its own shards and the
+  lists gather across processes, so every rank must run the same
+  searches in the same order;
 - hybrid (a BM25 index attached and ``hybrid_alpha < 1``): the dense
   candidates and the BM25 candidates of the whole window (one native
   call), each min-max normalized per query, merged as
@@ -39,7 +42,8 @@ Every mode dispatches the dense scan before ``finish``; the host stages
 (BM25, merge, hydration, rerank) run inside ``finish``.
 
 Live reload (``prepare_reload``, ``:123-270``): a grown or rebuilt index
-is loaded, placed (on this engine's device, or sharded over its mesh)
+is loaded, placed (on this engine's device, or sharded over its mesh:
+on a mesh that spans processes each process re-places its own shards)
 and warmed on a shadow engine while this one serves; the returned
 ``swap`` re-points the engine with no IO. Unlike the reference, a failed
 warm raises: on the card it is a kernel that failed on the new shapes,

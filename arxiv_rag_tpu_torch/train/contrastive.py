@@ -22,8 +22,14 @@ Numerics follow the reference on one device:
   (``AdamW``) rather than ``torch.optim.AdamW``, which applies the decay
   to the parameters first and folds the bias corrections elsewhere.
 
-The reference's data-parallel step (a mesh, in-batch negatives across
-the global batch) waits for the port's ``parallel/``.
+Data parallel (``make_train_step(mesh=)``, the reference's :67-99): the
+fp32 master weights replicate over the mesh's devices (a device that
+repeats shares one replica, the master on the first), each entry encodes
+its slice of the query and positive batch, and the embeddings gather to
+the first device, so the loss and its in-batch negatives span the
+global batch. Each replica's gradients are summed onto the master, in
+mesh order, one AdamW step updates it, and the replicas take its
+weights before the next forward.
 """
 
 from __future__ import annotations
@@ -135,8 +141,23 @@ def loss_and_accuracy(model: MPNet, q_ids, q_mask, p_ids, p_mask,
                       temperature: float = 0.05) -> tuple[torch.Tensor, torch.Tensor]:
     """The step's forward: both encodes, the loss (autograd on) and the
     in-batch accuracy."""
-    q_emb = model.embed(q_ids, q_mask)
-    p_emb = model.embed(p_ids, p_mask)
+    return _loss_acc(model.embed(q_ids, q_mask), model.embed(p_ids, p_mask), temperature)
+
+
+def _mesh_embeds(replicas: list[MPNet], home: torch.device, q_ids, q_mask, p_ids, p_mask):
+    """Each replica's slice of both batches encoded on its device, the
+    embeddings gathered to ``home`` in mesh order: ([B, H], [B, H])."""
+    per = q_ids.shape[0] // len(replicas)
+    q_parts, p_parts = [], []
+    for s, model in enumerate(replicas):
+        dev = model.word.weight.device
+        rows = slice(s * per, (s + 1) * per)
+        q_parts.append(model.embed(q_ids[rows].to(dev), q_mask[rows].to(dev)).to(home))
+        p_parts.append(model.embed(p_ids[rows].to(dev), p_mask[rows].to(dev)).to(home))
+    return torch.cat(q_parts), torch.cat(p_parts)
+
+
+def _loss_acc(q_emb, p_emb, temperature):
     loss = contrastive_loss(q_emb, p_emb, temperature)
     with torch.no_grad():
         acc = in_batch_accuracy(q_emb, p_emb)
@@ -149,18 +170,24 @@ def make_train_step(
     temperature: float = 0.05,
     compute_dtype: str | torch.dtype = torch.bfloat16,
     device=None,
+    mesh=None,
 ) -> tuple[Callable, Callable]:
     """Returns ``(init_state, train_step)`` on ``device`` (the card by
-    default).
+    default), or data parallel over ``mesh`` (a ``parallel.DeviceMesh``
+    of this process's devices; the master weights on its first device,
+    the batch a multiple of its size).
 
     ``init_state(params)`` takes an ``MPNet`` state dict (any dtype and
     device; copied to fp32 master weights). ``train_step(state, q_ids,
     q_mask, p_ids, p_mask)`` (numpy or tensors) updates ``state`` in
     place and returns ``(state, {"loss", "in_batch_acc"})`` as 0-d fp32
     tensors on the device."""
-    dev = default_device(device)
+    if mesh is not None and (device is not None or mesh.spans_processes):
+        raise ValueError("pass a device or a mesh of this process's devices, not both")
+    dev = mesh.devices[0] if mesh is not None else default_device(device)
     dtype = compute_dtype_of(compute_dtype)
     opt = AdamW(learning_rate)
+    replicas: list = []  # [master model, its replicas one per mesh entry]
 
     def init_state(params: Mapping[str, torch.Tensor]) -> TrainState:
         with torch.device("meta"):
@@ -170,12 +197,37 @@ def make_train_step(
         model.train()
         return TrainState(model, AdamWState.zeros(dict(model.named_parameters())))
 
+    def mesh_forward(state: TrainState, batch):
+        from arxiv_rag_tpu_torch.parallel.mesh import replicate_module
+
+        if batch[0].shape[0] % mesh.size:
+            raise ValueError(f"batch {batch[0].shape[0]} does not split over a mesh of "
+                             f"{mesh.size}")
+        if not replicas or replicas[0] is not state.model:
+            replicas[:] = [state.model, replicate_module(state.model, mesh)]
+        entries = replicas[1]
+        others = list({id(m): m for m in entries if m is not state.model}.values())
+        with torch.no_grad():  # the replicas take the master's weights
+            for m in others:
+                for r, p in zip(m.parameters(), state.params.values()):
+                    r.copy_(p)
+        q_emb, p_emb = _mesh_embeds(entries, dev, *batch)
+        return _loss_acc(q_emb, p_emb, temperature), others
+
     def train_step(state: TrainState, q_ids, q_mask, p_ids, p_mask):
         batch = _batch(dev, q_ids, q_mask, p_ids, p_mask)
         params = list(state.params.values())
-        loss, acc = loss_and_accuracy(state.model, *batch, temperature=temperature)
+        others = []
+        if mesh is None:
+            loss, acc = loss_and_accuracy(state.model, *batch, temperature=temperature)
+        else:
+            (loss, acc), others = mesh_forward(state, batch)
         loss.backward()
         with torch.no_grad():
+            for m in others:  # each other device's replica, in mesh order
+                for p, r in zip(params, m.parameters()):
+                    p.grad += r.grad.to(dev)
+                    r.grad = None
             opt.update(params, [p.grad for p in params], state.opt_state)
         for p in params:
             p.grad = None

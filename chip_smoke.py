@@ -89,19 +89,35 @@ its first failure:
    merge kernel bitwise its plain version, each route's time and the
    merge's alone; ``ShardedIVF`` (int8, bf16) at full probe bitwise the
    single-device IVF, its device plan bitwise its host plan, recall@10
-   against the single-device IVF at nprobe 8; text queries through
+   against the single-device IVF at nprobe 8 (Q = 32); text queries through
    sharded engines (dense, filtered, IVF device and host plans) against
    phase 3's engines, their qps and launches per search (4 scans and 1
    merge); a reload of phase 6's grown index that keeps the mesh;
-9. the kernels line (phase 8's launches added to the main path's, and
-   the cross-shard merge's own entry), then the result line.
+9. several processes on the one card (``parallel/distributed.py``):
+   ``search --shard`` through the CLI in an NCCL group of one (dense,
+   filtered, IVF device plan; three processes at once) bitwise the
+   same verb's in-process engine at mesh size 1; 2 and 4 gloo processes
+   on cuda:0, each placing only its shards of phase 6's int8 index, a
+   bf16 copy of phase 3's index and phase 6's IVF, every kind at Q = 32
+   and 512 and both IVF plans at nprobe 8 and full probe, every rank
+   bitwise the in-process mesh of its size, with rank 0's times and the
+   gather's alone; the reference's two-process embed → index → search
+   at full width (4,096 of phase 5's chunks, fp32, by ``host_shard``):
+   each half within 1e-5 of one process's embed, the search bitwise a
+   single-device scan of the assembled rows, every query's own chunk
+   first; data parallel over a mesh of 2 entries on the card (the
+   embedder, an fp32 step, ``train --shard-batches`` whose loss falls,
+   the mesh step's time beside phase 7's);
+10. the kernels line (phases 8 and 9's launches added to the main
+   path's, and the cross-shard merge's own entry), then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
 slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
 path, before the flagship path's run and before each run of the
 lifecycle's reload path (each HTTP server's traffic and reload, the
-hybrid engine's reload), before the fine-tuned encoder's search and
-before phase 8's sharded engine searches, read just after each.
+hybrid engine's reload), before the fine-tuned encoder's search,
+before phase 8's sharded engine searches and, in each phase-9 worker,
+before its searches, read just after each (the workers report theirs).
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -114,6 +130,7 @@ import copy
 import gc
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2171,6 +2188,72 @@ class PairCorpus:
             yield types.SimpleNamespace(to_pylist=lambda part=part: part)
 
 
+def train_corpus(chunks, tmp: Path) -> tuple[list[str], list[dict]]:
+    """TR_PAPERS papers of TR_CHUNKS of phase 5's chunks, each chunk headed
+    by its paper's title (learnable pairs); the titles written to
+    ``tmp/papers.jsonl``. Returns (titles, rows)."""
+    rng = np.random.default_rng(8)
+    titles = [" ".join(chunks[int(i)].split()[:6]) for i in rng.integers(0, len(chunks),
+                                                                         TR_PAPERS)]
+    rows = [{"paper_id": f"p{i:05d}", "chunk_id": f"p{i:05d}#{c}",
+             "text": f"{titles[i]}. {chunks[i * TR_CHUNKS + c]}"}
+            for i in range(TR_PAPERS) for c in range(TR_CHUNKS)]
+    with open(tmp / "papers.jsonl", "w") as f:
+        for i, t in enumerate(titles):
+            f.write(json.dumps({"paper_id": f"p{i:05d}", "title": t}) + "\n")
+    return titles, rows
+
+
+def verb_batches(titles, rows, n: int) -> list:
+    """The train verb's first ``n`` batches (its pairs, its order),
+    tokenized as it does, on the card."""
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+    from arxiv_rag_tpu_torch.train.contrastive import _batch
+
+    tok = WordPieceTokenizer.toy()
+    pairs = [(titles[i // TR_CHUNKS], r["text"]) for i, r in enumerate(rows)
+             if len(r["text"]) > 100]  # the verb's filter; every title is > 10 chars
+    order = np.random.default_rng(0).permutation(len(pairs))
+    batches = []
+    for s in range(n):
+        sel = [pairs[i] for i in order[s * TR_BATCH:(s + 1) * TR_BATCH]]
+        q_ids, q_mask = tok.encode_batch([p[0] for p in sel], max_len=TR_SEQ)
+        p_ids, p_mask = tok.encode_batch([p[1] for p in sel], max_len=TR_SEQ)
+        batches.append(_batch(torch.device("cuda"), q_ids, q_mask, p_ids, p_mask))
+    return batches
+
+
+def loss_falls(ckpt, batches, report_line, what: str) -> dict:
+    """The loss on the verb's first 5 batches under its starting weights
+    (the first is the verb's own first loss) and under the fine-tuned
+    ones; fails unless it falls."""
+    from arxiv_rag_tpu_torch.models.convert import load_checkpoint
+    from arxiv_rag_tpu_torch.models.mpnet import random_model
+    from arxiv_rag_tpu_torch.train import make_train_step
+    from arxiv_rag_tpu_torch.train.contrastive import loss_and_accuracy
+
+    def batch_losses(model) -> list[float]:
+        with torch.no_grad():
+            return [float(loss_and_accuracy(model, *b)[0]) for b in batches[:5]]
+
+    state_dict, cfg = load_checkpoint(ckpt)
+    before = batch_losses(random_model(cfg, seed=0, param_dtype=torch.float32,
+                                       compute_dtype=torch.bfloat16, device="cuda"))
+    init_state, train_step = make_train_step(cfg, learning_rate=TR_LR, device="cuda")
+    state = init_state(state_dict)
+    after = batch_losses(state.model)
+    print(f"  {what}: loss on the verb's first 5 batches: starting weights "
+          f"{np.round(before, 4)} (mean {np.mean(before):.4f}; the verb's first loss "
+          f"{report_line['first_loss']}), fine-tuned {np.round(after, 4)} (mean "
+          f"{np.mean(after):.4f})", flush=True)
+    if not (np.isfinite(after).all() and np.mean(after) < np.mean(before)):
+        fail(f"{what}: the training loss did not fall: {np.mean(before)} -> {np.mean(after)}")
+    if abs(before[0] - report_line["first_loss"]) > 1e-4:
+        fail(f"{what}: the verb's first batch is not the one replayed here")
+    return {"before": before, "after": after, "state": state, "init_state": init_state,
+            "train_step": train_step, "state_dict": state_dict, "cfg": cfg}
+
+
 def train_flops(cfg, batch: int, seq: int) -> float:
     """FLOPs of one training step from its shapes: both encodes' products
     (q/k/v/o, the FFN's two, both attention products), forward and the
@@ -2316,12 +2399,11 @@ def phase_train(flagship, results, card) -> dict:
     checkpoint through embed → index → search (K2). Returns the round
     trip's launches, counted alone."""
     from arxiv_rag_tpu_torch.cli.main import build_parser, cmd_train
-    from arxiv_rag_tpu_torch.models.convert import load_checkpoint, load_model
+    from arxiv_rag_tpu_torch.models.convert import load_model
     from arxiv_rag_tpu_torch.models.mpnet import random_model
-    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
-    from arxiv_rag_tpu_torch.train import AdamW, make_train_step
+    from arxiv_rag_tpu_torch.train import AdamW
     from arxiv_rag_tpu_torch.train.checkpoint import restore_train_state, save_train_state
-    from arxiv_rag_tpu_torch.train.contrastive import _batch, loss_and_accuracy
+    from arxiv_rag_tpu_torch.train.contrastive import loss_and_accuracy
 
     print(f"== phase 7: contrastive fine-tuning on {card}", flush=True)
     results["train"] = out = {}
@@ -2329,20 +2411,9 @@ def phase_train(flagship, results, card) -> dict:
     train_backward_check(gen, out)
     train_step_card_vs_cpu(out)
 
-    # the corpus: TR_PAPERS papers of TR_CHUNKS of phase 5's chunks, each
-    # chunk headed by its paper's title (learnable pairs); titles in papers.jsonl
-    chunks = flagship["chunks"]
-    rng = np.random.default_rng(8)
-    titles = [" ".join(chunks[int(i)].split()[:6]) for i in rng.integers(0, len(chunks),
-                                                                         TR_PAPERS)]
-    rows = [{"paper_id": f"p{i:05d}", "chunk_id": f"p{i:05d}#{c}",
-             "text": f"{titles[i]}. {chunks[i * TR_CHUNKS + c]}"}
-            for i in range(TR_PAPERS) for c in range(TR_CHUNKS)]
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        with open(tmp / "papers.jsonl", "w") as f:
-            for i, t in enumerate(titles):
-                f.write(json.dumps({"paper_id": f"p{i:05d}", "title": t}) + "\n")
+        titles, rows = train_corpus(flagship["chunks"], tmp)
         ckpt = tmp / "ft"
         args = build_parser().parse_args([
             "train", "--corpus", str(tmp), "--out", str(ckpt), "--steps", str(TR_STEPS),
@@ -2369,38 +2440,12 @@ def phase_train(flagship, results, card) -> dict:
                                                       TR_SNAPSHOT_EVERY)]:
             fail(f"unexpected snapshots {snaps}")
 
-        # the verb's first batches (its pairs, its order), tokenized as it does
-        state_dict, cfg = load_checkpoint(ckpt)
-        tok = WordPieceTokenizer.toy()
-        pairs = [(titles[i // TR_CHUNKS], r["text"]) for i, r in enumerate(rows)
-                 if len(r["text"]) > 100]  # the verb's filter; every title is > 10 chars
-        order = np.random.default_rng(0).permutation(len(pairs))
-        batches = []
-        for s in range(TR_TIMED + 1):
-            sel = [pairs[i] for i in order[s * TR_BATCH:(s + 1) * TR_BATCH]]
-            q_ids, q_mask = tok.encode_batch([p[0] for p in sel], max_len=TR_SEQ)
-            p_ids, p_mask = tok.encode_batch([p[1] for p in sel], max_len=TR_SEQ)
-            batches.append(_batch(torch.device("cuda"), q_ids, q_mask, p_ids, p_mask))
-
-        # the loss falls: the verb's first 5 batches under its starting weights
-        # and under the fine-tuned ones (the first is the verb's own first loss)
-        def batch_losses(model) -> list[float]:
-            with torch.no_grad():
-                return [float(loss_and_accuracy(model, *b)[0]) for b in batches[:5]]
-
-        before = batch_losses(random_model(cfg, seed=0, param_dtype=torch.float32,
-                                           compute_dtype=torch.bfloat16))
-        init_state, train_step = make_train_step(cfg, learning_rate=TR_LR)
-        state = init_state(state_dict)
-        after = batch_losses(state.model)
-        out["loss_before_after"] = {"before": before, "after": after}
-        print(f"  loss on the verb's first 5 batches: starting weights {np.round(before, 4)} "
-              f"(mean {np.mean(before):.4f}; the verb's first loss {report_line['first_loss']}), "
-              f"fine-tuned {np.round(after, 4)} (mean {np.mean(after):.4f})", flush=True)
-        if not (np.isfinite(after).all() and np.mean(after) < np.mean(before)):
-            fail(f"the training loss did not fall: {np.mean(before)} -> {np.mean(after)}")
-        if abs(before[0] - report_line["first_loss"]) > 1e-4:
-            fail("the verb's first batch is not the one replayed here")
+        batches = verb_batches(titles, rows, TR_TIMED + 1)
+        fell = loss_falls(ckpt, batches, report_line, "train")
+        out["loss_before_after"] = {"before": fell["before"], "after": fell["after"]}
+        state, init_state, train_step = fell["state"], fell["init_state"], fell["train_step"]
+        state_dict, cfg = fell["state_dict"], fell["cfg"]
+        del fell
 
         # each step timed piece by piece (CUDA events), from the fine-tuned weights
         opt = AdamW(TR_LR)
@@ -2580,7 +2625,7 @@ def sharded_kernel_gates(single, sharded, mesh, gen, card, out) -> None:
 
             def run_sharded():
                 return merge_shards(*shard_candidates(sh._shard_values, q, 10, mesh, **kw),
-                                    mesh.devices[0])
+                                    mesh)
 
             def run_single(query_scale="quotient"):
                 if base in ("s8s8", "row"):
@@ -2652,7 +2697,8 @@ def sharded_ivf_gates(ivfs, ivf_engines, mesh, gen, card, out) -> None:
     device IVF: full probe at Q = 32 bitwise; the device plan bitwise the
     host plan at nprobe 8; recall@10 against the single-device IVF at
     nprobe 8 reported; times (median of 20 CUDA events, host fetch
-    included on both sides)."""
+    included on both sides). Q = 32 only: Q = 512 was cut when phase 9
+    took the script past 480 s."""
     from arxiv_rag_tpu_torch.ops.topk import recall_at_k
 
     centers = ivfs["corpus"][0]
@@ -2673,7 +2719,7 @@ def sharded_ivf_gates(ivfs, ivf_engines, mesh, gen, card, out) -> None:
             if not same:
                 fail(f"sharded IVF {name} ({plan} plan) at full probe differs from the "
                      "single-device IVF")
-        for nq in (32, 512):
+        for nq in (32,):
             q = clustered_queries(centers, nq, gen)
             hv, hr = siv.search(q, 10, mesh, nprobe=NPROBE, plan="host")
             dv, dr = siv.search(q, 10, mesh, nprobe=NPROBE, plan="device")
@@ -2841,6 +2887,453 @@ def phase_sharded(indexes, ivfs, engines, texts, lc_dir, seed, results, card) ->
     return launches
 
 
+# phase 9: several processes on the one card
+DP_WORLDS = (2, 4)  # gloo processes sharing cuda:0
+DP_KINDS = ("bf16", "s8s8", "row", "masked bf16", "masked s8s8")
+DP_IVF = ((NPROBE, "host"), (NPROBE, "device"), (N_CLUSTERS, "host"), (N_CLUSTERS, "device"))
+E2E_CHUNKS = 4096  # tests/test_distributed_multiprocess.py:182 at full width
+E2E_QUERIES = (5, 17, 40, 63, 1000, 2047, 3001, 4095)
+E2E_TOL = 1e-5  # the reference's own tolerance for two ways of one fp32 encode
+DP_EMBED = 512
+DP_VERB_STEPS = 10
+WORKER_TIMEOUT_S = 300
+
+
+def dp_queries(seed: int) -> dict:
+    """The searches' queries, the same in every worker and the parent."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    return {nq: unit_rows(nq, gen) for nq in (32, 512)}
+
+
+def dp_search(idx, kind, q, mesh):
+    """``sharded_topk`` of one kind (k = 10) over a DenseIndex sharded on
+    ``mesh``: (values, global ids) on the mesh's home device."""
+    from arxiv_rag_tpu_torch.parallel import sharded_topk
+
+    base, masked = kind.removeprefix("masked "), kind.startswith("masked")
+    one = idx["bf16" if base == "bf16" else "int8"]
+    kw = {"n_valid": one._n_valid}
+    if base != "bf16":
+        kw.update(scales=one._shard_scales, int8_variant=base)
+    if masked:
+        kw.update(row_masks=one._shard_masks,
+                  query_mask=torch.full((q.shape[0],), 0b111, dtype=torch.int32,
+                                        device=q.device))
+    return sharded_topk(one._shard_values, q, 10, mesh, **kw)
+
+
+def dp_ivf_search(siv, q, mesh, nprobe, plan):
+    v, r = siv.search(q, 10, mesh, nprobe=nprobe, plan=plan)
+    return torch.from_numpy(v), torch.from_numpy(r)
+
+
+def worker_search(spec, mesh) -> dict:
+    """Each rank places its shard of both indexes and of the IVF, runs
+    every kind at Q = 32 and 512 and the IVF plans at Q = 32 (counted
+    once each), then times them on every rank (the collectives need all)."""
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import DenseIndex
+    from arxiv_rag_tpu_torch.parallel import ShardedIVF
+    from arxiv_rag_tpu_torch.parallel.search import gather_shards, shard_candidates
+
+    t0 = time.perf_counter()
+    idx = {"bf16": DenseIndex.load(spec["bf16_dir"]).to_device(mesh=mesh),
+           "int8": DenseIndex.load(spec["lc_dir"]).to_device(mesh=mesh)}
+    siv = ShardedIVF.build(IVFIndex.load(spec["lc_dir"], idx["int8"], device="cpu"), mesh.size)
+    siv.to_device(mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    qs = dp_queries(spec["seed"])
+    res, ms = {}, {}
+    reset_all_launches()  # the path: each search once
+    for kind in DP_KINDS:
+        for nq, q in qs.items():
+            res[f"{kind} Q={nq}"] = [t.cpu() for t in dp_search(idx, kind, q, mesh)]
+    for nprobe, plan in DP_IVF:
+        res[f"ivf {plan} nprobe={nprobe}"] = dp_ivf_search(siv, qs[32], mesh, nprobe, plan)
+    launches = all_launches()
+    for kind in DP_KINDS:
+        for nq, q in qs.items():
+            ms[f"{kind} Q={nq}"] = median_ms(lambda: dp_search(idx, kind, q, mesh))
+    for nprobe, plan in DP_IVF[:2]:
+        ms[f"ivf {plan} nprobe={nprobe}"] = median_ms(
+            lambda: dp_ivf_search(siv, qs[32], mesh, nprobe, plan))
+    one = idx["bf16"]
+    for nq, q in qs.items():  # the cross-process gather alone (through host memory)
+        vals, gids = shard_candidates(one._shard_values, q, 10, mesh, n_valid=one._n_valid)
+        ms[f"gather Q={nq}"] = median_ms(lambda: gather_shards(vals, gids, mesh))
+    return {"results": res, "ms": ms, "launches": launches, "load_s": load_s}
+
+
+def worker_e2e(spec, mesh) -> dict:
+    """The reference's two-process slice at full width: this rank embeds
+    its ``host_shard`` of the chunks (fp32, 12 × 768), the index is
+    assembled from the process-local rows, and the sharded search is held
+    against a single-device scan of the same rows gathered here."""
+    import torch.distributed as dist
+
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.parallel import host_shard, shard_process_rows, sharded_topk
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+    chunks = json.loads(Path(spec["chunks"]).read_text())
+    mine = host_shard(list(range(len(chunks))))
+    model = random_model(ModelConfig(), seed=spec["seed"], param_dtype=torch.float32,
+                         compute_dtype=torch.float32, device="cuda")
+    emb = Embedder(model, WordPieceTokenizer.toy(), batch_sizes=(64, 512))
+    t0 = time.perf_counter()
+    local = emb.encode_texts([chunks[i] for i in mine])
+    embed_s = time.perf_counter() - t0
+    q = torch.from_numpy(emb.encode_texts([chunks[i] for i in E2E_QUERIES])).cuda()
+    shards, n = shard_process_rows(local, mesh)
+    reset_all_launches()
+    v, g = sharded_topk(shards, q, 10, mesh, n_valid=n)
+    launches = all_launches()
+    world = dist.get_world_size()
+    parts = [torch.empty_like(torch.from_numpy(local)) for _ in range(world)]
+    dist.all_gather(parts, torch.from_numpy(local))  # the assembled rows, on this process
+    sv, si = ft.fused_topk(torch.cat(parts).cuda(), q, 10, n_valid=n)
+    perm = [r for rank in range(world) for r in range(rank, len(chunks), world)]
+    return {"local": local, "mine": mine, "v": v.cpu(), "g": g.cpu(), "sv": sv.cpu(),
+            "si": si.cpu(), "top1": [perm[int(x)] for x in g[:, 0]], "launches": launches,
+            "embed_s": embed_s}
+
+
+def phase9_worker(spec_path: str) -> int:
+    """One rank of phase 9 (``chip_smoke.py --phase9-worker SPEC``): joins
+    a gloo group on the one card, runs its role and leaves its result in
+    ``SPEC.pt``."""
+    import torch.distributed as dist
+
+    from arxiv_rag_tpu_torch.parallel import global_mesh, init_distributed
+
+    spec = json.loads(Path(spec_path).read_text())
+    if not init_distributed(init_method=f"file://{spec['store']}",
+                            num_processes=spec["world"], process_id=spec["rank"],
+                            backend="gloo", device="cuda:0"):
+        raise RuntimeError("no process group")
+    mesh = global_mesh()
+    out = (worker_search if spec["role"] == "search" else worker_e2e)(spec, mesh)
+    out["backend"], out["world"] = dist.get_backend(), dist.get_world_size()
+    torch.save(out, f"{spec_path}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(spec: dict, tmp: Path) -> list[dict]:
+    """``spec["world"]`` workers of this script, each told its rank;
+    waits for all (a timeout each), kills any left behind, fails the
+    phase with a worker's stderr if one exits non-zero."""
+    name = f"{spec['role']}-{spec['world']}"
+    paths = [tmp / f"{name}-rank{r}.json" for r in range(spec["world"])]
+    procs = []
+    try:
+        for r, path in enumerate(paths):
+            path.write_text(json.dumps({**spec, "rank": r, "store": str(tmp / f"store-{name}")}))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--phase9-worker", str(path)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                print(err[-4000:], flush=True)
+                fail(f"phase 9 {name}: rank {r} exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [torch.load(f"{path}.pt", weights_only=False) for path in paths]
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cli_nccl_group_of_one(lc_dir, texts, card, out) -> None:
+    """``search --shard`` under an NCCL group of one (``ARAG_COORDINATOR``,
+    ``WORLD_SIZE=1``, ``RANK=0``, ``LOCAL_RANK=0``), dense, filtered and
+    IVF device plan at once in three processes, against the same verb's
+    engine built in this process (no group: the one-card mesh)."""
+    import socket
+
+    from arxiv_rag_tpu_torch.cli.main import build_engine, build_parser
+
+    queries = texts[:32]
+    routes = {"dense": [], "filtered": ["--categories", ",".join(LC_FILTER)],
+              "ivf device": ["--nprobe", str(NPROBE)]}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, extra in routes.items():
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            env = {**os.environ, "ARAG_COORDINATOR": f"127.0.0.1:{port}", "WORLD_SIZE": "1",
+                   "RANK": "0", "LOCAL_RANK": "0", "ARAG__RETRIEVAL__IVF_PLAN": "device"}
+            argv = ["search", "--index", str(lc_dir), "--shard", "--json", "--k", "10",
+                    "--device", "cuda", *extra]
+            for qt in queries:
+                argv += ["--query", qt]
+            procs[name] = (argv, subprocess.Popen(
+                [sys.executable, "-m", "arxiv_rag_tpu_torch.cli.main", *argv],
+                cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = {}
+        for name, (argv, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                print(stderr[-4000:], flush=True)
+                fail(f"search --shard ({name}) under an NCCL group of one exited "
+                     f"{p.returncode}")
+            group = [ln for ln in stderr.splitlines() if ln.startswith("process group:")]
+            outs[name] = ([json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")],
+                          group)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    cli_s = time.perf_counter() - t0
+    for name, (argv, _) in procs.items():
+        hits, group = outs[name]
+        print(f"  search --shard ({name}), its own process: {group} ({card})", flush=True)
+        if not group or "backend nccl" not in group[0] or "rank 0 of 1" not in group[0]:
+            fail(f"search --shard ({name}) did not run in an NCCL group of one")
+        args = build_parser().parse_args(argv)
+        with contextlib.redirect_stderr(io.StringIO()):
+            engine = build_engine(args)  # no group here: the one-card mesh
+        cats = args.categories.split(",") if args.categories else None
+        want = engine.search(queries, k=10, categories=cats)
+        wv, wr = hits_arrays(want, len(queries), f"in-process {name}")
+        gv = torch.tensor([h["scores"] for h in hits], dtype=torch.float32)
+        gr = torch.tensor([h["rows"] for h in hits], dtype=torch.int32)
+        check_equal(gv, wv, f"search --shard ({name}) in an NCCL group of one: scores vs the "
+                    "in-process sharded engine at mesh size 1")
+        check_equal(gr, wr, f"search --shard ({name}): rows")
+        del engine
+    out["cli_s"] = cli_s
+    print(f"  three CLI processes (load, encode, search, print) in {cli_s:.1f} s ({card})",
+          flush=True)
+
+
+def dp_on_the_card(engines, fp32_model, chunks, flagship, results, card, out) -> None:
+    """Data parallel over ``DeviceMesh([cuda:0] * 2)``: the embedder (fp32
+    within 1e-5 of one device; bf16 reported), one fp32 step at
+    all-mpnet-base-v2 widths cut to 2 layers within 1e-5 of one device,
+    ``train --shard-batches`` for DP_VERB_STEPS steps at full depth (the
+    loss falls) and the mesh step's time beside phase 7's."""
+    from arxiv_rag_tpu_torch.cli.main import build_parser, cmd_train
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.models.mpnet import MPNet, ModelConfig
+    from arxiv_rag_tpu_torch.parallel import DeviceMesh
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+    from arxiv_rag_tpu_torch.train import make_train_step
+
+    mesh = DeviceMesh(["cuda:0"] * 2)
+    tok = WordPieceTokenizer.toy()
+    sub = chunks[:DP_EMBED]
+    one = Embedder(fp32_model, tok, batch_sizes=(64, 512)).encode_texts(sub)
+    two = Embedder(fp32_model, tok, batch_sizes=(64, 512), mesh=mesh).encode_texts(sub)
+    bf_one = engines["bf16"].embedder.encode_texts(sub)
+    bf_two = Embedder(engines["bf16"].embedder.model, tok, batch_sizes=(64, 512),
+                      mesh=mesh).encode_texts(sub)
+    out["embed"] = {"fp32_max_abs": float(np.abs(two - one).max()),
+                    "bf16_max_abs": float(np.abs(bf_two - bf_one).max()),
+                    "bf16_min_cos": float((bf_two * bf_one).sum(1).min())}
+    print(f"  Embedder over a mesh of 2 ({DP_EMBED} chunks) against one device: fp32 max "
+          f"|diff| {out['embed']['fp32_max_abs']:.3g} (tolerance {E2E_TOL}); bf16 max |diff| "
+          f"{out['embed']['bf16_max_abs']:.3g}, min cos {out['embed']['bf16_min_cos']:.6f} "
+          f"({card})", flush=True)
+    if out["embed"]["fp32_max_abs"] > E2E_TOL:
+        fail("the data-parallel embedder disagrees with one device")
+
+    cfg = ModelConfig(num_hidden_layers=TR_CHECK_LAYERS)
+    weights = MPNet(cfg).reset_parameters(torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(7)
+    q = rng.integers(5, cfg.vocab_size, (TR_CHECK_BATCH, TR_CHECK_SEQ))
+    p = np.where(rng.random(q.shape) < 0.15, rng.integers(5, cfg.vocab_size, q.shape), q)
+    mask = np.ones_like(q)
+    mask[:, 50:] = 0
+    mask[0, 20:] = 0
+    res = {}
+    for name, kw in (("one", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
+        init_state, train_step = make_train_step(cfg, learning_rate=TR_LR,
+                                                 compute_dtype=torch.float32, **kw)
+        state, m = train_step(init_state(weights), q, mask, p, mask)
+        res[name] = float(m["loss"]), {k: v.detach() for k, v in state.params.items()}
+    loss_err = abs(res["mesh"][0] - res["one"][0])
+    param_err = max(float((res["mesh"][1][k] - v).abs().max()) for k, v in res["one"][1].items())
+    out["fp32_step"] = {"loss_err": loss_err, "max_param_err": param_err}
+    print(f"  fp32 step over a mesh of 2 ({TR_CHECK_LAYERS} layers x 768, batch "
+          f"{TR_CHECK_BATCH}, seq {TR_CHECK_SEQ}) against one device: loss |diff| "
+          f"{loss_err:.3g}, largest parameter difference {param_err:.3g} (tolerance "
+          f"{TR_STEP_TOL}; {card})", flush=True)
+    if loss_err > TR_STEP_TOL or param_err > TR_STEP_TOL:
+        fail("the data-parallel training step disagrees with one device")
+    del res, state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        titles, rows = train_corpus(flagship["chunks"], tmp)
+        ckpt = tmp / "ft"
+        args = build_parser().parse_args(["train", "--corpus", str(tmp), "--out", str(ckpt),
+                                          "--steps", str(DP_VERB_STEPS), "--shard-batches"])
+        t0 = time.perf_counter()
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = cmd_train(args, corpus=PairCorpus(rows))
+        verb_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"train --shard-batches exited {rc}")
+        report_line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        print(f"  train --shard-batches (data_mesh(): 1 card; 12 layers x 768, bf16, batch "
+              f"{TR_BATCH}, seq {TR_SEQ}, {DP_VERB_STEPS} steps): {report_line} in "
+              f"{verb_s:.1f} s ({card})", flush=True)
+        batches = verb_batches(titles, rows, 5)
+        fell = loss_falls(ckpt, batches, report_line, "train --shard-batches")
+        out["verb"] = {**report_line, "seconds": verb_s, "before": fell["before"],
+                       "after": fell["after"]}
+        # the step over a mesh of 2 on the card, timed as phase 7 times its step
+        init_state, train_step = make_train_step(fell["cfg"], learning_rate=TR_LR, mesh=mesh)
+        state = init_state(fell["state_dict"])
+        del fell
+        train_step(state, *batches[0])  # warm
+        times = []
+        for b in batches[1:]:
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = train_step(state, *b)
+            e.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(e))
+        out["mesh_step_ms"] = statistics.median(times)
+        phase7 = results["train"]["step"]["ms"]["step"]
+        print(f"  a 12 x 768 bf16 step over a mesh of 2 entries on the card: "
+              f"{out['mesh_step_ms']:.2f} ms (median of {len(times)}; phase 7's single-device "
+              f"step {phase7:.2f} ms; {card})", flush=True)
+        del state, batches
+
+
+def phase_distributed(indexes, engines, texts, flagship, lc_dir, seed, results, card) -> dict:
+    """Several processes on the one card: ``search --shard`` in an NCCL
+    group of one through the CLI; 2 and 4 gloo processes on cuda:0
+    searching their own shards, bitwise the in-process mesh; the
+    reference's embed → index → search slice at full width in 2 gloo
+    processes; data parallel over a mesh of 2. Returns the workers'
+    launches, counted in each worker and summed."""
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.index.ivf import IVFIndex
+    from arxiv_rag_tpu_torch.index.store import DenseIndex
+    from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
+    from arxiv_rag_tpu_torch.parallel import DeviceMesh, ShardedIVF
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+    print(f"== phase 9: several processes on the one card ({card})", flush=True)
+    results["distributed"] = out = {}
+    launches: dict = {}
+    t9 = time.perf_counter()
+    cli_nccl_group_of_one(lc_dir, texts, card, out)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        indexes["bf16"].save(tmp / "bf16")  # the bf16 copy of phase 3's index the workers load
+        print(f"  saved phase 3's bf16 index for the workers in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        lc = DenseIndex.load(lc_dir)
+        lc_ivf = IVFIndex.load(lc_dir, lc, device="cpu")
+        qs = dp_queries(seed)
+        for world in DP_WORLDS:
+            t0 = time.perf_counter()
+            ranks = run_ranks({"role": "search", "world": world, "seed": seed,
+                               "bf16_dir": str(tmp / "bf16"), "lc_dir": str(lc_dir)}, tmp)
+            wall = time.perf_counter() - t0
+            mesh = DeviceMesh(["cuda:0"] * world)
+            idx = {"bf16": sharded_copy(indexes["bf16"], mesh), "int8": sharded_copy(lc, mesh)}
+            siv = ShardedIVF.build(lc_ivf, world)
+            for key in ranks[0]["results"]:
+                if key.startswith("ivf"):
+                    _, plan, np_ = key.split()
+                    want = dp_ivf_search(siv, qs[32], mesh, int(np_.split("=")[1]), plan)
+                else:
+                    kind, nq = key.rsplit(" Q=", 1)
+                    want = [t.cpu() for t in dp_search(idx, kind, qs[int(nq)], mesh)]
+                same = all(torch.equal(r["results"][key][j], want[j]) for r in ranks
+                           for j in (0, 1))
+                print(f"  {world} gloo processes, {key}: every rank bitwise the in-process "
+                      f"mesh of {world} (and so each other): {same}", flush=True)
+                if not same:
+                    fail(f"{world} processes, {key}: a rank differs from the in-process mesh")
+            for r in ranks:
+                add_launches(launches, r["launches"])
+            out[f"search_{world}"] = {"ms": ranks[0]["ms"], "load_s": ranks[0]["load_s"],
+                                      "wall_s": wall, "backend": ranks[0]["backend"],
+                                      "launches": [r["launches"] for r in ranks]}
+            print(f"  {world} processes ({ranks[0]['backend']}, world {ranks[0]['world']}; "
+                  f"{wall:.1f} s with start-up, each rank's loads {ranks[0]['load_s']:.1f} s); "
+                  f"rank 0's ms, median of {TIMING_RUNS}: "
+                  f"{ {k: round(v, 3) for k, v in ranks[0]['ms'].items()} } ({card})",
+                  flush=True)
+            del idx, siv
+            gc.collect()
+            torch.cuda.empty_cache()
+        del lc, lc_ivf
+
+        # the reference's two-process slice at full width
+        chunks = flagship["chunks"][:E2E_CHUNKS]
+        (tmp / "chunks.json").write_text(json.dumps(chunks))
+        t0 = time.perf_counter()
+        ranks = run_ranks({"role": "e2e", "world": 2, "seed": seed,
+                           "chunks": str(tmp / "chunks.json")}, tmp)
+        wall = time.perf_counter() - t0
+        tok = WordPieceTokenizer.toy()
+        fp32_model = random_model(ModelConfig(), seed=seed, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32, device="cuda")
+        t0 = time.perf_counter()
+        full = Embedder(fp32_model, tok, batch_sizes=(64, 512)).encode_texts(chunks)
+        one_s = time.perf_counter() - t0
+        bf16 = engines["bf16"].embedder.encode_texts(chunks)
+        err = max(float(np.abs(r["local"] - full[r["mine"]]).max()) for r in ranks)
+        cos = float((bf16 * full).sum(1).min())
+        routes = all(torch.equal(r["v"], r["sv"]) and torch.equal(r["g"], r["si"])
+                     for r in ranks)
+        agree = torch.equal(ranks[0]["v"], ranks[1]["v"]) and torch.equal(ranks[0]["g"],
+                                                                            ranks[1]["g"])
+        top1 = [r["top1"] for r in ranks]
+        out["e2e"] = {"max_abs_vs_one_process": err, "bf16_min_cos": cos,
+                      "embed_s": [r["embed_s"] for r in ranks], "one_process_s": one_s,
+                      "wall_s": wall, "self_top1": top1[0] == list(E2E_QUERIES)}
+        print(f"  2 gloo processes embed {E2E_CHUNKS} of phase 5's chunks (fp32, 12 x 768) "
+              f"by host_shard in {[round(s, 1) for s in out['e2e']['embed_s']]} s (one "
+              f"process, all of them: {one_s:.1f} s; {wall:.1f} s with start-up; {card}): "
+              f"each half within {err:.3g} of one process's fp32 embed (tolerance {E2E_TOL}); "
+              f"bf16 min cos {cos:.6f}; the sharded search over the assembled index bitwise a "
+              f"single-device scan of the same rows: {routes}; ranks equal: {agree}; "
+              f"top hits {top1[0]} for queries {list(E2E_QUERIES)}", flush=True)
+        if err > E2E_TOL:
+            fail("the two processes' embeddings disagree with one process's")
+        if not routes or not agree:
+            fail("the two-process search is not the single-device scan of its rows")
+        if any(t != list(E2E_QUERIES) for t in top1):
+            fail("a query's own chunk is not its top hit")
+        for r in ranks:
+            add_launches(launches, r["launches"])
+
+        dp_on_the_card(engines, fp32_model, chunks, flagship, results, card, out)
+        del fp32_model
+    out["seconds"] = time.perf_counter() - t9
+    print(f"== distributed path launches (the workers', each counted in its process and "
+          f"summed): {launches}; phase 9 took {out['seconds']:.1f} s ({card})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -2877,12 +3370,13 @@ W8A8_KERNELS = (
 
 def kernels_line(results, launches, w8a8_launches) -> dict:
     """``launches``: counted path -> its launches ("main": slices 1-2,
-    "f32": the f32 route, "sharded": phase 8's engine searches, added to
-    the main path's)."""
+    "f32": the f32 route, "sharded": phase 8's engine searches and
+    "distributed": phase 9's workers, both added to the main path's)."""
     out = []
     all_cases = {**results["cases"], **results["ivf_cases"]}
     for key, counter, what, replaces, (dtype, nq, rows), kernel, path in KERNELS:
-        sharded = launches["sharded"][counter] if path == "main" else 0
+        sharded = (launches["sharded"][counter] + launches["distributed"].get(counter, 0)
+                   if path == "main" else 0)
         # K1's rows: one per index dtype
         cases = [c for c in all_cases[key] if key != "K1" or c["dtype"] == dtype]
         main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10
@@ -2926,7 +3420,8 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
         "kernel": "merge_kernel (arag_topk_merge, no query scale)",
         "replaces": "arxiv_rag_tpu/parallel/search.py:207",
         "note": "the reference merges with lax.all_gather + lax.top_k (XLA, no Pallas kernel)",
-        "launches": launches["sharded"]["topk_merge"],
+        "launches": (launches["sharded"]["topk_merge"]
+                     + launches["distributed"].get("topk_merge", 0)),
         "max_abs_err": 0.0,  # bitwise merge_topk_plain in every case
         "ms": main["merge_ms"], "plain_ms": main["merge_plain_ms"],
         "bound_ms": main["merge_bound_ms"], "bound_by": "bytes",
@@ -2991,12 +3486,15 @@ def tb_ptxas(log: str) -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase9-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a "
               "CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if args.phase9_worker:
+        return phase9_worker(args.phase9_worker)
     from arxiv_rag_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -3061,8 +3559,16 @@ def main() -> int:
         launches["sharded"] = phase_sharded(indexes, ivfs, engines, texts, lc_dir, args.seed,
                                             results, card)
         print(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({card})", flush=True)
+        launches["distributed"] = phase_distributed(indexes, engines, texts, flagship, lc_dir,
+                                                    args.seed, results, card)
     if launches["sharded"]["topk_merge"] < 1:
         fail("the sharded path launched no cross-shard merge (topk_merge)")
+    for counter, key in (("fused_topk", "K1"), ("fused_topk_int8", "K2"),
+                         ("fused_topk_int8_row", "K3"), ("fused_topk_masked", "K4"),
+                         ("ivf_topk", "K5"), ("ivf_topk_device", "K6"),
+                         ("topk_merge", "the cross-shard merge")):
+        if launches["distributed"].get(counter, 0) < 1:
+            fail(f"phase 9's workers launched no {key} ({counter})")
     print(f"  per engine.search: {results['launches_per_search']}", flush=True)
     print(f"  encoder {results['encoder_chunks_per_s']:.1f} chunks/s (phase 3); W8A8 vs bf16 "
           f"side by side {results['w8a8_encoder_chunks_per_s']}; qps "

@@ -1130,3 +1130,101 @@ def test_sharded_ivf_on_the_card(gen, dtype):
         assert (dv == hv).all() and (dr == hr).all()
     iv, ir = ivf.search(q, 10, nprobe=64, plan="host")
     assert (hv == iv).all() and (hr == ir).all()
+
+
+# -- several processes on the one card (parallel/distributed.py) --------------------
+
+_DIST_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from arxiv_rag_tpu_torch.ops import fused_topk as ft
+from arxiv_rag_tpu_torch.ops.quant import quantize_int8
+from arxiv_rag_tpu_torch.parallel import (
+    global_mesh, init_distributed, shard_index_rows, sharded_topk)
+
+rank, world, store, backend = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+kw = {"backend": backend, "device": "cuda:0"} if backend == "gloo" else {}
+assert init_distributed(init_method=f"file://{store}", num_processes=world, process_id=rank,
+                        **kw)
+gen = torch.Generator(device="cuda").manual_seed(0)
+x = torch.randn(70_001, 768, generator=gen, device="cuda")
+x = x / x.norm(dim=1, keepdim=True)
+q = torch.randn(37, 768, generator=gen, device="cuda")
+q = q / q.norm(dim=1, keepdim=True)
+values, scales = quantize_int8(x)
+mesh = global_mesh()
+ft.reset_launches()
+bv, bi = sharded_topk(shard_index_rows(x.to(torch.bfloat16), mesh)[0], q, 10, mesh,
+                      n_valid=69_964)
+sv, si = sharded_topk(shard_index_rows(values, mesh)[0], q, 10, mesh, n_valid=69_964,
+                      scales=shard_index_rows(scales, mesh)[0])
+torch.save({"bf16": (bv.cpu(), bi.cpu()), "s8s8": (sv.cpu(), si.cpu()),
+            "launches": dict(ft.LAUNCHES), "backend": dist.get_backend(),
+            "home": str(mesh.home)}, f"{store}.rank{rank}.pt")
+dist.destroy_process_group()
+print(json.dumps({"rank": rank}))
+"""
+
+
+def _dist_run(tmp_path, world, backend):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    store = tmp_path / f"store-{backend}-{world}"
+    procs = [subprocess.Popen([sys.executable, "-c", _DIST_WORKER,
+                               str(Path(__file__).resolve().parents[1]), str(r), str(world),
+                               str(store), backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [torch.load(f"{store}.rank{r}.pt") for r in range(world)]
+
+
+def _in_process(gen_seed, world):
+    from arxiv_rag_tpu_torch.parallel import shard_index_rows, sharded_topk
+
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    x, q = _unit(70_001, 768, gen), _unit(37, 768, gen)
+    values, scales = quantize_int8(x)
+    mesh = _card_mesh(world)
+    bv, bi = sharded_topk(shard_index_rows(x.to(torch.bfloat16), mesh)[0], q, 10, mesh,
+                          n_valid=69_964)
+    sv, si = sharded_topk(shard_index_rows(values, mesh)[0], q, 10, mesh, n_valid=69_964,
+                          scales=shard_index_rows(scales, mesh)[0])
+    return {"bf16": (bv.cpu(), bi.cpu()), "s8s8": (sv.cpu(), si.cpu())}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_distributed_gloo_processes_on_the_card(gen, tmp_path, world):
+    """2 and 4 gloo processes sharing cuda:0, each scanning its own shard:
+    bf16 and s8s8 bitwise the in-process mesh of the same size on every
+    rank; each rank launched one scan of each kind and two merges."""
+    ranks = _dist_run(tmp_path, world, "gloo")
+    want = _in_process(0, world)
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["home"] == "cuda:0"
+        assert r["launches"]["fused_topk"] == 1 and r["launches"]["fused_topk_int8"] == 1
+        assert r["launches"]["topk_merge"] == 2
+        for kind in ("bf16", "s8s8"):
+            assert all(torch.equal(a, b) for a, b in zip(r[kind], want[kind])), kind
+
+
+def test_distributed_nccl_group_of_one(gen, tmp_path):
+    """A group of one on the card takes NCCL by default, and its gather
+    (an NCCL all_gather) gives the in-process one-entry mesh bitwise."""
+    (r,) = _dist_run(tmp_path, 1, "nccl")
+    assert r["backend"] == "nccl"
+    want = _in_process(0, 1)
+    for kind in ("bf16", "s8s8"):
+        assert all(torch.equal(a, b) for a, b in zip(r[kind], want[kind])), kind

@@ -18,7 +18,8 @@ import arxiv_rag_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert {"arxiv_rag_tpu_torch.parallel." + m for m in ("mesh", "search", "ivf")} <= set(names)
+assert {"arxiv_rag_tpu_torch.parallel." + m
+        for m in ("mesh", "search", "ivf", "distributed")} <= set(names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "arxiv_rag_tpu"))
 print(len(names), bad)

@@ -1,8 +1,8 @@
 """The port's ``train`` verb on the CPU: (title -> chunk) pairs mined
 from a corpus store, a native checkpoint that the JAX package loads and
 encodes with as the port does (a drop-in: within 1e-5, fp32), TrainState
-snapshots with ``--checkpoint-every`` and ``--resume``, and the refusal
-of ``--shard-batches``."""
+snapshots with ``--checkpoint-every`` and ``--resume``, and what the verb
+refuses (``--shard-batches`` itself trains: tests/test_torch_data_parallel.py)."""
 
 import json
 from pathlib import Path
@@ -101,17 +101,15 @@ def test_train_snapshots_and_resume(corpus, tmp_path, capsys):
 
 
 def test_train_refuses_what_it_cannot_do(corpus, tmp_path, capsys):
-    """``--shard-batches`` exits 2 (sharded training needs the port's
-    ``parallel/``) before any training; too few pairs for a batch exits
-    2 as the reference does."""
+    """Too few pairs for a batch exits 2 before any training, as the
+    reference does, with ``--shard-batches`` (which trains since the
+    port has ``parallel/``) or without."""
     out = tmp_path / "o"
-    assert cli.main(["train", "--corpus", str(corpus), "--out", str(out), "--shard-batches",
-                     *SMALL]) == 2
-    assert "parallel/" in capsys.readouterr().err
-    assert not out.exists()
-    assert cli.main(["train", "--corpus", str(corpus), "--out", str(out), *SMALL[:1],
-                     "--batch-size", "64", "--device", "cpu"]) == 2
-    assert "not enough pairs" in capsys.readouterr().err
+    for extra in ([], ["--shard-batches"]):
+        assert cli.main(["train", "--corpus", str(corpus), "--out", str(out), *SMALL[:1],
+                         "--batch-size", "64", "--device", "cpu", *extra]) == 2
+        assert "not enough pairs" in capsys.readouterr().err
+        assert not out.exists()
 
 
 def test_train_defaults_to_the_card(corpus, tmp_path):
