@@ -1,8 +1,15 @@
 """`python -m arxiv_rag_tpu_torch.cli.main` — the port's CLI.
 
-Verbs of the index lifecycle and the serving path, following
-``arxiv_rag_tpu/cli/main.py``:
+Verbs of the corpus pipeline, the index lifecycle and the serving path,
+following ``arxiv_rag_tpu/cli/main.py``:
 
+  chunk    extract, clean and chunk a tree of PDFs ({cat}/{ym}/{id}.pdf)
+           into the corpus store (Parquet shards, ``papers.jsonl``,
+           ``progress.db``); resumable, with a process pool
+           (``--workers``); semantic chunking (``chunking.method:
+           semantic`` with ``semantic_model`` a converted checkpoint)
+           embeds sentences on ``--device``
+  status   the chunk stage's progress, failed papers and corpus summary
   convert  an HF MPNet checkpoint (``model.safetensors`` + ``config.json``)
            into the reference's native checkpoint, tokenizer files copied
   embed    embed the corpus store's chunks into batch files (resumable)
@@ -22,7 +29,7 @@ Verbs of the index lifecycle and the serving path, following
            TrainState snapshots under ``--out/state``)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
-CPU. ``--shard`` (search, eval, serve) row-shards the index over every
+CPU (``chunk`` resolves it only when it builds the semantic encoder). ``--shard`` (search, eval, serve) row-shards the index over every
 visible card (with ``--device cpu``: the CPU, one shard); launched by
 ``torchrun`` (or with ``ARAG_COORDINATOR``, ``WORLD_SIZE`` and ``RANK``
 set), one process per card, every rank on the same arguments, it
@@ -69,6 +76,85 @@ def _tokenizer_or_toy(vocab_path):
           "(fine for random-init smoke runs, wrong for real checkpoints)",
           file=sys.stderr)
     return WordPieceTokenizer.toy()
+
+
+def _add_chunk(sub) -> None:
+    p = sub.add_parser("chunk", help="extract+chunk PDFs into the corpus store")
+    p.add_argument("--pdfs", required=True, help="PDF root ({cat}/{ym}/{id}.pdf)")
+    p.add_argument("--corpus", required=True, help="output corpus dir")
+    p.add_argument("--config", default=None, help="YAML config path")
+    p.add_argument("--workers", type=int, default=None)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--paper-id", default=None)
+    p.add_argument("--no-skip", action="store_true")
+    p.add_argument("--device", default="cuda", help="the semantic chunker's encoder device")
+
+
+def cmd_chunk(args) -> int:
+    from arxiv_rag_tpu_torch.config import load_config
+    from arxiv_rag_tpu_torch.pipeline.runner import PipelineRunner
+
+    cfg = load_config(args.config)
+    root = Path(args.pdfs)
+    papers = []
+    for pdf in sorted(root.rglob("*.pdf")):
+        rel = pdf.relative_to(root)
+        if pdf.name.startswith("._"):  # macOS junk filter, pipeline.py:599
+            continue
+        cat = rel.parts[0] if len(rel.parts) >= 3 else ""
+        pid = pdf.stem.replace("_", "/")
+        if args.paper_id and pid != args.paper_id:
+            continue
+        papers.append((pid, str(pdf), cat))
+    if args.limit:
+        papers = papers[: args.limit]
+    runner = PipelineRunner(cfg, corpus_dir=args.corpus, device=args.device)
+    try:
+        stats = runner.run(papers, skip_processed=not args.no_skip, max_workers=args.workers)
+    finally:
+        runner.close()
+    print(json.dumps(stats))
+    return 0 if stats["failed"] == 0 else 1
+
+
+def _add_status(sub) -> None:
+    p = sub.add_parser("status", help="pipeline progress + corpus summary")
+    p.add_argument("--corpus", required=True)
+
+
+def cmd_status(args) -> int:
+    from arxiv_rag_tpu_torch.store.progress import ProgressDB
+
+    out = {}
+    db_path = Path(args.corpus) / "progress.db"
+    if db_path.exists():
+        with ProgressDB(db_path) as db:
+            out["chunk_stage"] = db.stats("chunk")
+            fails = db.failures("chunk")
+            if fails:
+                # the error ledger (capped), so operators see why
+                out["failed_papers"] = [
+                    {"paper_id": pid, "error": (err or "")[:200]}
+                    for pid, err in fails[:50]
+                ]
+                if len(fails) > 50:
+                    out["failed_papers_truncated"] = len(fails) - 50
+    for name in ("corpus.json", "manifest.json"):
+        mp = Path(args.corpus) / name
+        if mp.exists():
+            m = json.loads(mp.read_text())
+            out["corpus"] = {
+                "num_rows": m.get("num_rows"),
+                "categories": m.get("categories"),
+                "shards": len(m.get("shards", [])),
+            }
+            break
+    papers = Path(args.corpus) / "papers.jsonl"
+    if papers.exists():
+        with papers.open() as f:
+            out["papers"] = sum(1 for _ in f)
+    print(json.dumps(out, indent=1))
+    return 0
 
 
 def _add_convert(sub) -> None:
@@ -653,15 +739,16 @@ def cmd_train(args, corpus=None) -> int:
     return 0
 
 
-COMMANDS = {"convert": cmd_convert, "embed": cmd_embed, "index": cmd_index,
-            "search": cmd_search, "eval": cmd_eval, "serve": cmd_serve, "train": cmd_train}
+COMMANDS = {"chunk": cmd_chunk, "status": cmd_status, "convert": cmd_convert,
+            "embed": cmd_embed, "index": cmd_index, "search": cmd_search, "eval": cmd_eval,
+            "serve": cmd_serve, "train": cmd_train}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="arag-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="command", required=True)
-    for adder in (_add_convert, _add_embed, _add_index, _add_search, _add_eval, _add_serve,
-                  _add_train):
+    for adder in (_add_chunk, _add_status, _add_convert, _add_embed, _add_index, _add_search,
+                  _add_eval, _add_serve, _add_train):
         adder(sub)
     return ap
 

@@ -1,3 +1,4 @@
 from arxiv_rag_tpu_torch.store.corpus import ChunkRecord, CorpusReader, CorpusWriter
+from arxiv_rag_tpu_torch.store.progress import ProgressDB
 
-__all__ = ["ChunkRecord", "CorpusReader", "CorpusWriter"]
+__all__ = ["ChunkRecord", "CorpusReader", "CorpusWriter", "ProgressDB"]

@@ -28,7 +28,7 @@ import json
 import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Iterator, Sequence
+from typing import Iterable, Iterator, Sequence
 
 MANIFEST_NAME = "corpus.json"
 
@@ -95,6 +95,10 @@ class CorpusWriter:
         self._pending.append(record.to_row())
         if len(self._pending) >= self.rows_per_shard:
             self.flush()
+
+    def add_all(self, records: Iterable[ChunkRecord]) -> None:
+        for r in records:
+            self.add(r)
 
     def flush(self) -> None:
         if not self._pending:
@@ -168,6 +172,10 @@ class CorpusReader:
 
     def shard_paths(self) -> list[Path]:
         return [self.directory / s["file"] for s in self.manifest["shards"]]
+
+    @property
+    def categories(self) -> dict[str, int]:
+        return dict(self.manifest.get("categories", {}))
 
     def read_all(self, columns: Sequence[str] | None = None) -> pa.Table:
         import pyarrow as pa

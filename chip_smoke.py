@@ -108,7 +108,20 @@ its first failure:
    first; data parallel over a mesh of 2 entries on the card (the
    embedder, an fp32 step, ``train --shard-batches`` whose loss falls,
    the mesh step's time beside phase 7's);
-10. the kernels line (phases 8 and 9's launches added to the main
+10. the chunk path (``pipeline/``): 64 synthetic PDFs of 17 pages
+   (``tests/pdfgen.py``) through ``PipelineRunner`` with semantic
+   chunking on a seeded random all-mpnet-base-v2 checkpoint (bf16, on
+   the card), in process and in a spawn pool of 4 (the same records, no
+   fallback, every split sentence encoded), the card's sentence
+   embeddings against the port's fp32 run on the CPU (min cos > 0.99,
+   the chunks equal up to the first pair within the card-CPU margin of
+   the threshold), fixed chunking in process and in a fork pool of 4
+   (the same records), with papers/s, pages/s, sentences/s, the pool's
+   start-up and the card's memory; then the new chunks through phase 3's
+   embedder, ``append_index`` onto phase 6's 2M int8 index and
+   ``engine.search`` on 32 of their texts (each finds its own chunk
+   first; K2 bitwise its plain version);
+11. the kernels line (phases 8, 9 and 10's launches added to the main
    path's, and the cross-shard merge's own entry), then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
@@ -116,8 +129,9 @@ slices 1–2 (phases 3–4), again before the f32 route, before the W8A8
 path, before the flagship path's run and before each run of the
 lifecycle's reload path (each HTTP server's traffic and reload, the
 hybrid engine's reload), before the fine-tuned encoder's search,
-before phase 8's sharded engine searches and, in each phase-9 worker,
-before its searches, read just after each (the workers report theirs).
+before phase 8's sharded engine searches, in each phase-9 worker
+before its searches, and before phase 10's search, read just after each
+(the workers report theirs).
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -3334,6 +3348,337 @@ def phase_distributed(indexes, engines, texts, flagship, lc_dir, seed, results, 
     return launches
 
 
+# phase 10: the chunk path (PDFs → extraction → cleaning → semantic chunking on the card)
+CH_PAPERS = 64  # of the ~105k-paper corpus: the count is cut, not the papers' shape
+CH_PAGES = 17  # ~51,000 characters and ~500 sentences a paper, like a real arXiv CS paper
+CH_SENTENCES_PER_PAGE = 30
+CH_WORKERS = 4
+CH_QUERIES = 32
+CH_COS_MIN = 0.99  # tests/test_mpnet_parity.py:284: the reference's bound between encoder forms
+CH_COUNTERS = ("chunk.sentences", "chunk.sentences_encoded", "chunk.encode_s",
+               "chunk.semantic_fallback")
+
+
+def chunk_paper_pdfs(root: Path, seed: int) -> list[tuple[str, str, str]]:
+    """CH_PAPERS PDFs of CH_PAGES pages written by ``tests/pdfgen.py``'s
+    ``simple_text_pdf``: sentences of 8-15 words of phase 3's English word
+    list (phase 5's ``w0``..``w49999`` words score 0.11 with the
+    extractor's quality scorer, below its 0.25 floor, and every paper
+    would fail), first word capitalized; categories from phase 6's
+    vocabulary, so the new chunks append onto its index."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from pdfgen import simple_text_pdf
+
+    rng = np.random.default_rng(seed)
+    papers = []
+    for p in range(CH_PAPERS):
+        pages = []
+        for _ in range(CH_PAGES):
+            sents = []
+            for _ in range(CH_SENTENCES_PER_PAGE):
+                words = rng.choice(WORDS, int(rng.integers(8, 16))).tolist()
+                sents.append(words[0].capitalize() + " " + " ".join(words[1:]) + ".")
+            pages.append(" ".join(sents))
+        pid, cat = f"2410.{p:05d}", LC_CATS[p % len(LC_CATS)]
+        path = root / cat / "2410" / f"{pid}.pdf"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(simple_text_pdf(pages))
+        papers.append((pid, str(path), cat))
+    return papers
+
+
+class MemoryCorpusWriter:
+    """The runner's writer contract (a context manager with ``add_all``)
+    over a list, with the time its first rows arrived: the card's machine
+    has no pyarrow for the Parquet store, as phases 5 and 7 say of the
+    reader. Phase 10 puts it in place of ``CorpusWriter`` in
+    ``pipeline/runner.py``; the CPU tests use the Parquet writer."""
+
+    runs: list = []
+
+    def __init__(self, directory) -> None:
+        self.rows: list[dict] = []
+        self.first_rows_at = None
+        MemoryCorpusWriter.runs.append(self)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def add_all(self, records) -> None:
+        if self.first_rows_at is None:
+            self.first_rows_at = time.perf_counter()
+        self.rows.extend(r.to_row() for r in records)
+
+
+class MemorySampler:
+    """The card's used memory (``nvidia-smi``, every process on it) sampled
+    on a thread: the pool's workers hold CUDA contexts of their own, which
+    the parent's allocator does not see."""
+
+    def __init__(self, every_s: float = 0.25) -> None:
+        self.every_s, self.samples, self._stop = every_s, [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def used_mib() -> int:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, check=True, timeout=60)
+        return int(out.stdout.strip().splitlines()[0])
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.samples.append(self.used_mib())
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def chunk_counters() -> dict:
+    from arxiv_rag_tpu_torch.logging_utils import METRICS
+
+    c = METRICS.snapshot()["counters"]
+    return {k: c.get(k, 0.0) for k in CH_COUNTERS}
+
+
+def run_chunk_path(cfg, papers, corpus_dir, workers, label) -> dict:
+    """One ``PipelineRunner.run`` over ``papers`` into a memory writer:
+    its stats, rows keyed by chunk id, chunk counters and timings."""
+    from arxiv_rag_tpu_torch.pipeline import runner as runner_mod
+
+    before = chunk_counters()
+    MemoryCorpusWriter.runs.clear()
+    real, runner_mod.CorpusWriter = runner_mod.CorpusWriter, MemoryCorpusWriter
+    try:
+        runner = runner_mod.PipelineRunner(cfg, corpus_dir=corpus_dir, device="cuda")
+        t0 = time.perf_counter()
+        stats = runner.run(papers, max_workers=workers)
+        seconds = time.perf_counter() - t0
+        runner.close()
+    finally:
+        runner_mod.CorpusWriter = real
+    writer = MemoryCorpusWriter.runs[-1]
+    after = chunk_counters()
+    rows = {r["chunk_id"]: r for r in writer.rows}
+    out = {"stats": stats, "rows": rows, "seconds": seconds,
+           "first_rows_s": writer.first_rows_at - t0,
+           "counters": {k: after[k] - before[k] for k in CH_COUNTERS}}
+    if stats["ok"] != len(papers) or stats["failed"] or len(rows) != len(writer.rows):
+        fail(f"chunk path ({label}): {stats}, {len(writer.rows)} rows, {len(rows)} ids")
+    return out
+
+
+def chunk_card_vs_cpu(cfg, ckpt, paper, card) -> dict:
+    """The card's bf16 sentence encoder (the one the in-process run built)
+    against the port's fp32 encoder of the same checkpoint on the CPU, on
+    every sentence of one paper as the chunker split it (~510, one batch):
+    the least cosine, the largest adjacent-similarity difference, the
+    pairs within that margin of the threshold, and the paper's chunks,
+    equal up to the first such pair."""
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.models.convert import load_model
+    from arxiv_rag_tpu_torch.pipeline import runner as runner_mod
+    from arxiv_rag_tpu_torch.pipeline.chunk import Chunker, split_sentences
+    from arxiv_rag_tpu_torch.pipeline.extract import improve_pages
+    from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
+
+    extractor, cleaner, chunker = runner_mod._components(cfg, "cuda")
+    pages = improve_pages(extractor.extract(paper[1]).pages).pages
+    text = "\n\n".join(cleaner.clean(p) for p in pages).strip()
+    spans = split_sentences(text)
+    sentences = [text[a:b] for a, b in spans]
+    t0 = time.perf_counter()
+    model, _ = load_model(ckpt, compute_dtype=torch.float32, device="cpu")
+    # heights in powers of two: a bucket's few sentences are not padded to 512 rows
+    cpu_enc = Embedder(model, WordPieceTokenizer.toy(),
+                       batch_sizes=[2 ** i for i in range(10)]).encode_texts
+    want = cpu_enc(sentences)
+    cpu_s = time.perf_counter() - t0
+    got = chunker.sentence_encoder(sentences)
+    cos = float(((got * want).sum(1) / np.linalg.norm(got, axis=1)
+                 / np.linalg.norm(want, axis=1)).min())
+
+    def sims(e):
+        e = e / np.linalg.norm(e, axis=1, keepdims=True)
+        return (e[:-1] * e[1:]).sum(1)
+
+    margin = float(np.abs(sims(got) - sims(want)).max())
+    thr = cfg.chunking.semantic_threshold
+    inside = np.flatnonzero(np.abs(sims(want) - thr) <= margin)
+    # the chunkers ask for the same sentences: each side's embeddings once
+    a = Chunker(chunker.cfg, sentence_encoder=lambda s: got if list(s) == sentences else
+                chunker.sentence_encoder(s)).chunk(text)
+    b = Chunker(chunker.cfg, sentence_encoder=lambda s: want if list(s) == sentences else
+                cpu_enc(s)).chunk(text)
+    end = spans[inside[0]][1] if len(inside) else len(text) + 1
+    same = ([(c.start, c.end) for c in a if c.end < end] ==
+            [(c.start, c.end) for c in b if c.end < end]) and (len(inside) or len(a) == len(b))
+    out = {"min_cos": cos, "sim_margin": margin, "pairs_inside_margin": int(len(inside)),
+           "pairs": len(sentences) - 1, "pairs_below_threshold": int((sims(want) < thr).sum()),
+           "chunks": len(a), "cpu_s": cpu_s}
+    print(f"  card bf16 vs CPU fp32 sentence embeddings ({len(sentences)} sentences of paper "
+          f"{paper[0]}): min cosine {cos:.6f} (bound > {CH_COS_MIN}); largest adjacent-"
+          f"similarity difference {margin:.3e}; {out['pairs_inside_margin']} of "
+          f"{out['pairs']} pairs within it of the threshold {thr} ({out['pairs_below_threshold']}"
+          f" below it); {len(a)} chunks, equal up to the first such pair: {same}; the CPU's "
+          f"fp32 run took {cpu_s:.1f} s ({card})", flush=True)
+    if not cos > CH_COS_MIN or not same:
+        fail("the card's semantic chunking disagrees with the CPU's")
+    return out
+
+
+def phase_chunk(engines, lc_dir, seed, results, card) -> dict:
+    """PDFs → extraction → cleaning → semantic chunking with the
+    all-mpnet-base-v2 sentence encoder on the card (``PipelineRunner``,
+    in process and in a spawn pool of CH_WORKERS), fixed chunking (the
+    reference's default) in and out of its pool, then the new chunks
+    through phase 3's bf16 embedder, ``append_index`` onto phase 6's 2M
+    int8 index and ``engine.search`` on their own texts (K2). Returns the
+    search's launches, counted alone."""
+    from arxiv_rag_tpu_torch.config import load_config
+    from arxiv_rag_tpu_torch.index.store import DenseIndex, append_index
+    from arxiv_rag_tpu_torch.models.convert import save_checkpoint
+    from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
+    from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.pipeline import runner as runner_mod
+    from arxiv_rag_tpu_torch.search.engine import SearchEngine
+
+    t_phase = time.perf_counter()
+    print(f"== phase 10: the chunk path on {card}", flush=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        papers = chunk_paper_pdfs(tmp / "pdfs", seed)
+        mcfg = ModelConfig()
+        model = random_model(mcfg, seed=seed + 10)
+        save_checkpoint(tmp / "ckpt", model.state_dict(), mcfg)
+        del model
+        pages = CH_PAPERS * CH_PAGES
+        print(f"  {CH_PAPERS} PDFs of {CH_PAGES} pages written and a seeded random "
+              f"all-mpnet-base-v2 checkpoint ({mcfg.num_hidden_layers} x {mcfg.hidden_size}, "
+              f"bf16) saved in {time.perf_counter() - t0:.1f} s", flush=True)
+        base = {"paths.root": str(tmp / "data"), "extraction.cache_enabled": False}
+        sem_cfg = load_config(overrides={**base, "chunking.method": "semantic",
+                                         "chunking.semantic_model": str(tmp / "ckpt")},
+                              environ={})
+        fixed_cfg = load_config(overrides=base, environ={})  # the reference's default: fixed
+
+        runs = {}
+        runs["semantic_0"] = run_chunk_path(sem_cfg, papers, tmp / "s0", 0, "semantic, in process")
+        out["card_vs_cpu"] = chunk_card_vs_cpu(sem_cfg, tmp / "ckpt", papers[0], card)
+        runner_mod._WORKER_STATE.clear()  # the parent's encoder goes before the pools fork
+        torch.cuda.empty_cache()
+        base_mib = MemorySampler.used_mib()
+        with MemorySampler() as mem:
+            runs["semantic_pool"] = run_chunk_path(sem_cfg, papers, tmp / "s4", CH_WORKERS,
+                                                   f"semantic, spawn pool of {CH_WORKERS}")
+        out["pool_memory_mib"] = {"before": base_mib, "peak": max(mem.samples)}
+        runs["fixed_0"] = run_chunk_path(fixed_cfg, papers, tmp / "f0", 0, "fixed, in process")
+        runs["fixed_pool"] = run_chunk_path(fixed_cfg, papers, tmp / "f4", CH_WORKERS,
+                                            f"fixed, pool of {CH_WORKERS}")
+        for name, r in runs.items():
+            r["papers_per_s"] = CH_PAPERS / r["seconds"]
+            r["pages_per_s"] = pages / r["seconds"]
+            c = r["counters"]
+            print(f"  {name}: {r['stats']['ok']} papers, {len(r['rows'])} chunks in "
+                  f"{r['seconds']:.2f} s = {r['papers_per_s']:.2f} papers/s, "
+                  f"{r['pages_per_s']:.1f} pages/s; first rows after {r['first_rows_s']:.2f} s;"
+                  f" sentences split {int(c['chunk.sentences'])}, encoded "
+                  f"{int(c['chunk.sentences_encoded'])}, fallbacks "
+                  f"{int(c['chunk.semantic_fallback'])} ({card})", flush=True)
+        for name in ("semantic_0", "semantic_pool"):
+            c = runs[name]["counters"]
+            if c["chunk.semantic_fallback"] or not c["chunk.sentences"] or \
+                    c["chunk.sentences_encoded"] != c["chunk.sentences"]:
+                fail(f"{name}: semantic chunking fell back or skipped sentences: {c}")
+        for a, b in (("semantic_0", "semantic_pool"), ("fixed_0", "fixed_pool")):
+            same = runs[a]["rows"] == runs[b]["rows"]
+            print(f"  {b} records equal {a}'s as a set keyed by chunk id: {same} "
+                  f"({len(runs[a]['rows'])} chunks)", flush=True)
+            if not same:
+                fail(f"the pool's records differ from the in-process run's ({a}, {b})")
+        s0 = runs["semantic_0"]
+        enc = s0["counters"]
+        per_paper = s0["seconds"] / CH_PAPERS
+        out.update({
+            "papers": CH_PAPERS, "pages": pages, "chunks": len(s0["rows"]),
+            "sentences": int(enc["chunk.sentences"]),
+            "sentences_per_s": enc["chunk.sentences_encoded"] / enc["chunk.encode_s"],
+            "encoder_share": enc["chunk.encode_s"] / s0["seconds"],
+            "spawn_start_s": runs["semantic_pool"]["first_rows_s"] - per_paper,
+            "runs": {k: {"seconds": r["seconds"], "papers_per_s": r["papers_per_s"],
+                         "pages_per_s": r["pages_per_s"], "chunks": len(r["rows"])}
+                     for k, r in runs.items()}})
+        print(f"  encoder: {out['sentences']} sentences at {out['sentences_per_s']:.0f} "
+              f"sentences/s ({enc['chunk.encode_s']:.2f} s, {100 * out['encoder_share']:.1f}% "
+              f"of the in-process run); spawn pool start-up ~{out['spawn_start_s']:.2f} s (its "
+              f"first rows after {runs['semantic_pool']['first_rows_s']:.2f} s less one paper's "
+              f"in-process {per_paper:.2f} s); card memory with {CH_WORKERS} workers "
+              f"{out['pool_memory_mib']['peak']} MiB used at peak against "
+              f"{base_mib} MiB before the pool ({card})", flush=True)
+
+        # the new papers' chunks through phase 3's embedder onto phase 6's index
+        rows = sorted(s0["rows"].values(), key=lambda r: (r["paper_id"], r["chunk_index"]))
+        texts = [r["text"] for r in rows]
+        embedder = engines["bf16"].embedder
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = embedder.encode_texts(texts)
+        embed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grown = append_index(lc_dir, emb, categories=[r["category"] for r in rows],
+                             chunk_ids=[r["chunk_id"] for r in rows])
+        out["append_s"] = time.perf_counter() - t0
+        idx = DenseIndex.load(lc_dir).to_device()
+        engine = SearchEngine(idx, embedder=embedder)
+        pick = np.linspace(0, len(rows) - 1, CH_QUERIES).astype(int).tolist()
+        queries = [texts[i] for i in pick]
+        engine.search(queries, k=10)  # warm
+        gc.collect()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        hits = engine.search(queries, k=10)
+        search_ms = (time.perf_counter() - t0) * 1e3
+        launches = all_launches()
+        got_v, got_i = hits_arrays(hits, CH_QUERIES, "chunk path search")
+        qemb, n = embedder.encode_window_device(queries)
+        pv, pi = ft.fused_topk_int8_plain(idx._device_values, idx._device_scales, qemb[:n], 10,
+                                          n_valid=idx._n_valid)
+        check_k2(got_v, got_i, pv.cpu(), pi.cpu(), f"chunk path: engine.search over the "
+                 f"{idx.num_rows}-row index vs the plain int8 scan")
+        own = [idx.chunk_ids[int(r)] == rows[i]["chunk_id"]
+               for i, r in zip(pick, got_i[:, 0].tolist())]
+        out.update({"embed_s": embed_s, "search_ms": search_ms, "own_first": sum(own),
+                    "index_rows": idx.num_rows, "launches": launches})
+        print(f"  {len(rows)} new chunks embedded in {embed_s:.2f} s (phase 3's bf16 "
+              f"embedder) and appended onto phase 6's index in {out['append_s']:.2f} s "
+              f"({grown.num_rows} rows); {CH_QUERIES} of their texts searched in "
+              f"{search_ms:.1f} ms: own chunk first {sum(own)}/{CH_QUERIES}; launches "
+              f"{launches} ({card})", flush=True)
+        if not all(own):
+            fail("a new chunk's own text did not find it first")
+        if launches["fused_topk_int8"] < 1:
+            fail("the chunk path's search launched no K2 (fused_topk_int8)")
+        del idx, engine, grown, emb
+    out["seconds"] = time.perf_counter() - t_phase
+    results["chunk"] = out
+    print(f"  phase 10 took {out['seconds']:.1f} s ({card})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -3370,13 +3715,14 @@ W8A8_KERNELS = (
 
 def kernels_line(results, launches, w8a8_launches) -> dict:
     """``launches``: counted path -> its launches ("main": slices 1-2,
-    "f32": the f32 route, "sharded": phase 8's engine searches and
-    "distributed": phase 9's workers, both added to the main path's)."""
+    "f32": the f32 route, "sharded": phase 8's engine searches,
+    "distributed": phase 9's workers and "chunk": phase 10's search, all
+    three added to the main path's)."""
     out = []
     all_cases = {**results["cases"], **results["ivf_cases"]}
     for key, counter, what, replaces, (dtype, nq, rows), kernel, path in KERNELS:
         sharded = (launches["sharded"][counter] + launches["distributed"].get(counter, 0)
-                   if path == "main" else 0)
+                   + launches["chunk"].get(counter, 0) if path == "main" else 0)
         # K1's rows: one per index dtype
         cases = [c for c in all_cases[key] if key != "K1" or c["dtype"] == dtype]
         main = next(c for c in cases if c["dtype"] == dtype and c["q"] == nq and c["k"] == 10
@@ -3561,6 +3907,9 @@ def main() -> int:
         print(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({card})", flush=True)
         launches["distributed"] = phase_distributed(indexes, engines, texts, flagship, lc_dir,
                                                     args.seed, results, card)
+        launches["chunk"] = phase_chunk(engines, lc_dir, args.seed, results, card)
+        print(f"== chunk path launches (the new chunks' search, counted alone): "
+              f"{launches['chunk']}", flush=True)
     if launches["sharded"]["topk_merge"] < 1:
         fail("the sharded path launched no cross-shard merge (topk_merge)")
     for counter, key in (("fused_topk", "K1"), ("fused_topk_int8", "K2"),
@@ -3591,6 +3940,13 @@ def main() -> int:
           f"of bf16 peak); peak {tr['step']['peak_bytes'] / 2**30:.2f} GiB; loss "
           f"{tr['verb']['first_loss']} -> {tr['verb']['last_loss']}; index build "
           f"{json.dumps(results['index_build'])}", flush=True)
+    ch = results["chunk"]
+    print(f"  chunk ({card}): {ch['papers']} papers, {ch['pages']} pages, {ch['chunks']} "
+          f"semantic chunks; papers/s "
+          f"{ {k: round(v['papers_per_s'], 2) for k, v in ch['runs'].items()} }; encoder "
+          f"{ch['sentences_per_s']:.0f} sentences/s, {100 * ch['encoder_share']:.1f}% of a "
+          f"paper's time; spawn start-up ~{ch['spawn_start_s']:.2f} s; card memory "
+          f"{ch['pool_memory_mib']}; phase {ch['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card, flush=True)

@@ -1228,3 +1228,130 @@ def test_distributed_nccl_group_of_one(gen, tmp_path):
     want = _in_process(0, 1)
     for kind in ("bf16", "s8s8"):
         assert all(torch.equal(a, b) for a, b in zip(r[kind], want[kind])), kind
+
+
+def _semantic_cfg(root, ckpt, threshold=0.7):
+    from arxiv_rag_tpu_torch.config import load_config
+
+    return load_config(overrides={"paths.root": str(root), "extraction.cache_enabled": False,
+                                  "chunking.method": "semantic",
+                                  "chunking.semantic_model": str(ckpt),
+                                  "chunking.semantic_threshold": threshold}, environ={})
+
+
+def _sentence_checkpoint(path):
+    """A seeded random 2-layer, 768-wide encoder (the toy char vocab)."""
+    from arxiv_rag_tpu_torch.models.convert import save_checkpoint
+    from arxiv_rag_tpu_torch.models.mpnet import ModelConfig, random_model
+
+    cfg = ModelConfig(vocab_size=193, num_hidden_layers=2)
+    model = random_model(cfg, seed=0, param_dtype=torch.float32, device="cpu")
+    save_checkpoint(path, model.state_dict(), cfg)
+    return cfg
+
+
+def _paper_text(seed, n=120):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = "dense retrieval encoder index kernel latency corpus token shard query".split()
+    return " ".join(" ".join(words[i] for i in rng.integers(0, len(words), 10)).capitalize()
+                    + "." for _ in range(n))
+
+
+def test_semantic_chunking_on_the_card_matches_the_cpu(gen, tmp_path):
+    """The runner's bf16 sentence encoder on the card against the port's
+    fp32 encoder of the same checkpoint on the CPU: cosine > 0.99 (the
+    reference's bound between encoder forms), and the same chunks
+    wherever every adjacent similarity lies farther from the threshold
+    than the largest card-CPU similarity difference."""
+    import numpy as np
+
+    from arxiv_rag_tpu_torch.embed import Embedder
+    from arxiv_rag_tpu_torch.models.convert import load_model
+    from arxiv_rag_tpu_torch.pipeline import runner
+    from arxiv_rag_tpu_torch.pipeline.chunk import Chunker, ChunkerConfig, split_sentences
+    from arxiv_rag_tpu_torch.tokenize.wordpiece import WordPieceTokenizer
+
+    _sentence_checkpoint(tmp_path / "ckpt")
+    text = _paper_text(0)
+    sentences = [text[a:b] for a, b in split_sentences(text)]
+    card = runner._make_sentence_encoder(_semantic_cfg(tmp_path, tmp_path / "ckpt"), "cuda")
+    model, _ = load_model(tmp_path / "ckpt", compute_dtype=torch.float32, device="cpu")
+    cpu = Embedder(model, WordPieceTokenizer.toy(), batch_size=512).encode_texts
+    a, b = card(sentences), cpu(sentences)
+    assert card.__self__.device.type == "cuda"
+    assert ((a * b).sum(1)).min() > 0.99  # both L2-normalized
+
+    def sims(e):
+        return (e[:-1] * e[1:]).sum(1)
+
+    margin = np.abs(sims(a) - sims(b)).max()
+    thr = float(np.median(sims(b)))
+    kw = dict(method="semantic", target_chars=900, min_chars=60, max_chars=900,
+              semantic_threshold=thr)
+    got = Chunker(ChunkerConfig(**kw), sentence_encoder=card).chunk(text)
+    want = Chunker(ChunkerConfig(**kw), sentence_encoder=cpu).chunk(text)
+    spans = split_sentences(text)
+    inside = np.flatnonzero(np.abs(sims(b) - thr) <= margin)
+    # every split decision before the first pair inside the margin is the
+    # same on both sides, so is every chunk that ends before that pair's
+    # second sentence
+    end = spans[inside[0]][1] if len(inside) else len(text) + 1
+    assert [(c.start, c.end) for c in got if c.end < end] == \
+        [(c.start, c.end) for c in want if c.end < end]
+    assert len(inside) or len(got) == len(want)
+    runner._WORKER_STATE.clear()
+
+
+def test_spawn_pool_on_the_card(gen, tmp_path):
+    """workers=2 on the card starts its workers with spawn, each building
+    its encoder on the card: the same records as the in-process run, and
+    the workers' counters come back (no fallback, every sentence encoded)."""
+    from pdfgen import simple_text_pdf
+
+    from arxiv_rag_tpu_torch.logging_utils import METRICS
+    from arxiv_rag_tpu_torch.pipeline import runner as rmod
+
+    _sentence_checkpoint(tmp_path / "ckpt")
+    papers = []
+    for i in range(4):
+        path = tmp_path / "pdfs" / f"2401.{i:05d}.pdf"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        text = _paper_text(i, 60)
+        path.write_bytes(simple_text_pdf([text[:3000], text[3000:]]))
+        papers.append((f"2401.{i:05d}", str(path), "cs.IR"))
+    cfg = _semantic_cfg(tmp_path, tmp_path / "ckpt")
+    rows = {}
+    for workers in (0, 2):
+        before = dict(METRICS.snapshot()["counters"])
+        run = rmod.PipelineRunner(cfg, corpus_dir=tmp_path / f"c{workers}")
+        written = []
+
+        class Mem:  # the Parquet writer needs pyarrow; keep the rows instead
+            def __init__(self, d):
+                pass
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def add_all(self, recs):
+                written.extend(r.to_row() for r in recs)
+
+        real, rmod.CorpusWriter = rmod.CorpusWriter, Mem
+        try:
+            stats = run.run(papers, max_workers=workers)
+        finally:
+            rmod.CorpusWriter = real
+            run.close()
+        after = METRICS.snapshot()["counters"]
+        d = {k: after.get(k, 0.0) - before.get(k, 0.0)
+             for k in ("chunk.sentences", "chunk.sentences_encoded", "chunk.semantic_fallback")}
+        assert stats["ok"] == 4 and d["chunk.semantic_fallback"] == 0
+        assert d["chunk.sentences"] == d["chunk.sentences_encoded"] > 0
+        rows[workers] = {r["chunk_id"]: r for r in written}
+    assert rows[0] == rows[2]
+    rmod._WORKER_STATE.clear()

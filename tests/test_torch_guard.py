@@ -76,6 +76,28 @@ def test_port_imports_without_pyarrow_or_safetensors():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_pipeline_modules_import_without_pyarrow_yaml_or_pil():
+    """The chunk path's modules (config, progress DB, text pipeline, PDF
+    reader, runner, the chunk and status verbs) import with pyarrow,
+    PyYAML and PIL blocked, as on the card's machine, and load no JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys\nfor m in ('pyarrow', 'yaml', 'PIL'):\n    sys.modules[m] = None\n"
+            + _IMPORT_ALL.replace("sys.exit(", "\n".join(
+                f"assert 'arxiv_rag_tpu_torch.{m}' in names, {m!r}" for m in (
+                    "config", "store.progress", "pipeline.runner", "pipeline.chunk",
+                    "pipeline.clean", "pipeline.formulas", "pipeline.sections",
+                    "pipeline.metadata", "pipeline.citations", "pipeline.crossref",
+                    "pipeline.extract.extractor", "pipeline.extract.pdfcore",
+                    "pipeline.extract.pdftext", "pipeline.extract.ocr",
+                    "pipeline.extract.tables")) + "\nfrom arxiv_rag_tpu_torch.config import "
+                "load_config\nassert load_config(environ={}).to_dict()['chunking']\n"
+                "sys.exit(", 1))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 40
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
