@@ -1,14 +1,25 @@
 """`python -m arxiv_rag_tpu_torch.cli.main` — the port's CLI.
 
 Verbs of the corpus pipeline, the index lifecycle and the serving path,
-following ``arxiv_rag_tpu/cli/main.py``:
+following ``arxiv_rag_tpu/cli/main.py`` (every verb of it but ``bench``):
 
+  download fetch arXiv PDFs from GCS into {cat}/{ym}/{id}.pdf with the
+           download ledgers (``gsutil`` and the network; resumable)
+  dedup    remove cross-listed duplicate PDFs (dry run unless ``--execute``)
+  extract  extract PDFs to one JSON per paper (no chunking; ``--improve``,
+           ``--tables``, ``--report``), failures in ``_extraction_errors.jsonl``
   chunk    extract, clean and chunk a tree of PDFs ({cat}/{ym}/{id}.pdf)
            into the corpus store (Parquet shards, ``papers.jsonl``,
            ``progress.db``); resumable, with a process pool
            (``--workers``); semantic chunking (``chunking.method:
            semantic`` with ``semantic_model`` a converted checkpoint)
            embeds sentences on ``--device``
+  repair   enforce the chunk contract on a corpus store into a new one
+           (drop short, low-quality and duplicate chunks, strip HTML, add
+           context headers, split oversized chunks)
+  augment  per-paper light payloads (keywords, summary, citations) as JSONL
+  audit    corpus census and embedding readiness (``--corpus``), or a
+           report over ``extract`` output (``--extractions``)
   status   the chunk stage's progress, failed papers and corpus summary
   convert  an HF MPNet checkpoint (``model.safetensors`` + ``config.json``)
            into the reference's native checkpoint, tokenizer files copied
@@ -29,17 +40,21 @@ following ``arxiv_rag_tpu/cli/main.py``:
            TrainState snapshots under ``--out/state``)
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
-CPU (``chunk`` resolves it only when it builds the semantic encoder). ``--shard`` (search, eval, serve) row-shards the index over every
-visible card (with ``--device cpu``: the CPU, one shard); launched by
+CPU (``chunk`` resolves it only when it builds the semantic encoder;
+``download``, ``dedup``, ``extract``, ``repair``, ``augment``, ``audit``,
+``status`` and ``convert`` touch no device and take none). ``--shard``
+(search, eval, serve) row-shards the index over every visible card (with ``--device cpu``: the CPU, one shard); launched by
 ``torchrun`` (or with ``ARAG_COORDINATOR``, ``WORLD_SIZE`` and ``RANK``
 set), one process per card, every rank on the same arguments, it
 row-shards over the processes (``parallel/distributed.py``) and rank 0
 prints. ``--shard-batches`` (embed, train) splits each batch over every
 visible card of the one process. Without
 ``--checkpoint`` the query encoder is a seeded random bf16
-all-mpnet-base-v2 (smoke runs), as in the reference; ``embed`` asks for
-``--random-init`` to say so. ``--corpus`` reads the Parquet corpus
-store, which needs pyarrow.
+all-mpnet-base-v2 (smoke runs), as in the reference (``--random-init``
+says so, and ``embed`` asks for it); ``index --device-build`` is
+accepted and keeps the build on ``--device``. ``--corpus`` reads the
+Parquet corpus store, which needs pyarrow (so do ``repair`` and
+``augment``).
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import argparse
 import json
 import signal
 import sys
+import threading
 from pathlib import Path
 
 
@@ -76,6 +92,227 @@ def _tokenizer_or_toy(vocab_path):
           "(fine for random-init smoke runs, wrong for real checkpoints)",
           file=sys.stderr)
     return WordPieceTokenizer.toy()
+
+
+def _add_download(sub) -> None:
+    p = sub.add_parser("download", help="fetch arXiv PDFs from GCS")
+    p.add_argument("--ids", required=True, help="file of category|paper_id lines")
+    p.add_argument("--output", required=True)
+    p.add_argument("--max-workers", type=int, default=12)
+    p.add_argument("--max-versions", type=int, default=4)
+    p.add_argument("--min-free-gb", type=float, default=5.0)
+    p.add_argument("--limit", type=int, default=0)
+
+
+def cmd_download(args) -> int:
+    from arxiv_rag_tpu_torch.ingest import Downloader, DownloaderConfig
+    from arxiv_rag_tpu_torch.ingest.downloader import parse_papers_file
+
+    papers = parse_papers_file(args.ids)
+    if args.limit:
+        papers = papers[: args.limit]
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    dl = Downloader(
+        DownloaderConfig(
+            output_dir=Path(args.output),
+            max_workers=args.max_workers,
+            max_versions=args.max_versions,
+            min_free_gb=args.min_free_gb,
+        ),
+        stop_event=stop,
+    )
+    res = dl.download(papers)
+    print(json.dumps(res.__dict__, default=str))
+    return 0 if res.failed == 0 else 1
+
+
+def _add_dedup(sub) -> None:
+    p = sub.add_parser("dedup", help="remove cross-listed duplicate PDFs")
+    p.add_argument("root")
+    p.add_argument("--execute", action="store_true", help="actually delete (default dry-run)")
+
+
+def cmd_dedup(args) -> int:
+    from arxiv_rag_tpu_torch.ingest import deduplicate
+
+    rep = deduplicate(args.root, execute=args.execute)
+    print(json.dumps({k: v for k, v in rep.__dict__.items() if k != "kept"}))
+    return 0
+
+
+def _add_extract(sub) -> None:
+    p = sub.add_parser("extract", help="extract PDFs to JSON (no chunking)")
+    p.add_argument("--pdfs", required=True)
+    p.add_argument("--out", required=True, help="output dir (mirrors layout)")
+    p.add_argument("--cache", default=None)
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--seed", type=int, default=None, help="random sample seed")
+    p.add_argument("--improve", action="store_true", help="run the improver pass")
+    p.add_argument("--tables", action="store_true", help="geometric table extraction")
+    p.add_argument("--report", default=None, help="write run stats JSON here")
+
+
+def cmd_extract(args) -> int:
+    """Standalone extract-everything verb (reference:
+    save_extractions.py, extract_pdfs_to_disk.py). Writes one JSON per
+    paper + error/run ledgers; memory-aware batching."""
+    import random
+
+    from arxiv_rag_tpu_torch.pipeline.extract import PDFExtractor, improve_pages
+    from arxiv_rag_tpu_torch.pipeline.extract.extractor import extract_tables_bytes
+    from arxiv_rag_tpu_torch.utils import MemoryManager, ProgressReporter
+
+    root = Path(args.pdfs)
+    out_root = Path(args.out)
+    pdfs = sorted(p for p in root.rglob("*.pdf") if not p.name.startswith("._"))
+    if args.seed is not None:
+        random.Random(args.seed).shuffle(pdfs)
+    if args.limit:
+        pdfs = pdfs[: args.limit]
+
+    extractor = PDFExtractor(cache_dir=args.cache)
+    mm = MemoryManager()
+    reporter = ProgressReporter(len(pdfs), every=25, phase="extract")
+    stats = {"total": len(pdfs), "ok": 0, "failed": 0, "by_method": {}}
+    errors_path = out_root / "_extraction_errors.jsonl"
+    out_root.mkdir(parents=True, exist_ok=True)
+    with open(errors_path, "a") as errf:
+        for pdf in pdfs:
+            res = extractor.extract(pdf)
+            rel = pdf.relative_to(root).with_suffix(".json")
+            if res.success:
+                pages = res.pages
+                if args.improve:
+                    pages = improve_pages(pages).pages
+                dest = out_root / rel
+                dest.parent.mkdir(parents=True, exist_ok=True)
+                tables = extract_tables_bytes(pdf.read_bytes()) if args.tables else []
+                dest.write_text(json.dumps({
+                    "paper_id": pdf.stem.replace("_", "/"),
+                    "tables": tables,
+                    "text": "\n\n".join(pages),
+                    "pages": pages,
+                    "method_used": res.method_used,
+                    "quality_score": res.quality_score,
+                    "pdf_type": res.pdf_type,
+                    "metadata": res.metadata,
+                }))
+                stats["ok"] += 1
+                stats["by_method"][res.method_used] = (
+                    stats["by_method"].get(res.method_used, 0) + 1
+                )
+                reporter.update(1)
+            else:
+                errf.write(json.dumps({"pdf": str(pdf), "error": res.error}) + "\n")
+                stats["failed"] += 1
+                reporter.update(0, failed=1)
+            mm.maybe_gc()
+    state = reporter.finish()
+    stats["seconds"] = round(state.elapsed, 2)
+    stats["pdfs_per_sec"] = round(state.rate, 3)
+    if args.report:
+        Path(args.report).write_text(json.dumps(stats, indent=1))
+    print(json.dumps(stats))
+    return 0 if stats["failed"] == 0 else 1
+
+
+def _add_repair(sub) -> None:
+    p = sub.add_parser("repair", help="enforce the chunk contract (split/drop/clean)")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--min-chars", type=int, default=50)
+    p.add_argument("--max-chars", type=int, default=2000)
+    p.add_argument("--min-quality", type=float, default=0.7)
+    p.add_argument("--no-headers", action="store_true")
+    p.add_argument("--keep-duplicates", action="store_true")
+    p.add_argument("--dry-run", action="store_true")
+
+
+def cmd_repair(args) -> int:
+    from arxiv_rag_tpu_torch.pipeline.repair import repair_corpus
+
+    stats = repair_corpus(
+        args.corpus,
+        args.out,
+        min_chars=args.min_chars,
+        max_chars=args.max_chars,
+        min_quality=args.min_quality,
+        add_context_headers=not args.no_headers,
+        drop_duplicates=not args.keep_duplicates,
+        dry_run=args.dry_run,
+    )
+    print(json.dumps(stats.__dict__))
+    return 0
+
+
+def _add_augment(sub) -> None:
+    p = sub.add_parser("augment", help="build per-paper light payloads")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--out", required=True, help="output JSONL")
+    p.add_argument("--min-readability", type=float, default=None)
+    p.add_argument("--min-citations", type=int, default=None)
+
+
+def cmd_augment(args) -> int:
+    from collections import defaultdict
+
+    from arxiv_rag_tpu_torch.pipeline.augment import build_light_payload, passes_filters
+    from arxiv_rag_tpu_torch.pipeline.repair import load_paper_titles
+    from arxiv_rag_tpu_torch.store.corpus import CorpusReader
+
+    reader = CorpusReader(args.corpus)
+    titles = load_paper_titles(args.corpus)
+    texts: dict[str, list[tuple[int, str]]] = defaultdict(list)
+    for batch in reader.iter_batches(columns=["paper_id", "chunk_index", "text"]):
+        for row in batch.to_pylist():
+            texts[row["paper_id"]].append((row["chunk_index"], row["text"]))
+    kept = 0
+    with open(args.out, "w") as f:
+        for pid, chunks in texts.items():
+            body = "\n\n".join(t for _, t in sorted(chunks))
+            payload = build_light_payload(pid, body, title=titles.get(pid, ""))
+            if passes_filters(payload, args.min_readability, args.min_citations):
+                f.write(json.dumps(payload.to_dict()) + "\n")
+                kept += 1
+    print(json.dumps({"papers": len(texts), "kept": kept}))
+    return 0
+
+
+def _add_audit(sub) -> None:
+    p = sub.add_parser("audit", help="corpus census + readiness report")
+    p.add_argument("--corpus", default=None)
+    p.add_argument("--extractions", default=None,
+                   help="audit an `arag extract` output dir instead")
+    p.add_argument("--embed-model", default="mpnet",
+                   help="token-band profile (mpnet/sentence_transformers/"
+                        "minilm/openai/cohere)")
+    p.add_argument("--json-out", default=None)
+
+
+def cmd_audit(args) -> int:
+    from arxiv_rag_tpu_torch.audit import (
+        audit_corpus,
+        audit_extractions,
+        format_report,
+        save_report,
+    )
+
+    if args.extractions:
+        rep = audit_extractions(args.extractions)
+        print(json.dumps(rep, indent=1))
+        if args.json_out:
+            Path(args.json_out).write_text(json.dumps(rep, indent=1))
+        return 0
+    if not args.corpus:
+        print("need --corpus or --extractions", file=sys.stderr)
+        return 2
+    rep = audit_corpus(args.corpus, model=args.embed_model)
+    print(format_report(rep))
+    if args.json_out:
+        save_report(rep, args.json_out)
+    return 0
 
 
 def _add_chunk(sub) -> None:
@@ -242,6 +479,9 @@ def _add_index(sub) -> None:
     p.add_argument("--out", required=True)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"])
     p.add_argument("--device", default="cuda", help="where the index is built")
+    p.add_argument("--device-build", action="store_true",
+                   help="normalize/quantize on --device (the reference's device build); "
+                        "the port always builds there, with row norms from the host")
     p.add_argument("--append", action="store_true",
                    help="append these embeddings to the existing index at --out (new "
                         "shards; dtype and normalization follow its manifest) and refresh "
@@ -325,6 +565,9 @@ def _add_common(p) -> None:
                    help="corpus store dir: hydrates chunk metadata and text (needs pyarrow)")
     p.add_argument("--checkpoint", default=None, help="native checkpoint dir")
     p.add_argument("--vocab", default=None)
+    p.add_argument("--random-init", action="store_true",
+                   help="random query-encoder weights (smoke runs): what no --checkpoint "
+                        "already gives, as in the reference")
     p.add_argument("--device", default="cuda")
     p.add_argument("--shard", action="store_true",
                    help="row-shard the index over every visible card (an IVF delta: "
@@ -501,7 +744,8 @@ def _add_eval(sub) -> None:
 
 
 def cmd_eval(args) -> int:
-    from arxiv_rag_tpu_torch.evaluate import evaluate_engine, load_paper_titles, title_queries
+    from arxiv_rag_tpu_torch.evaluate import evaluate_engine, title_queries
+    from arxiv_rag_tpu_torch.pipeline.repair import load_paper_titles
     from arxiv_rag_tpu_torch.parallel import is_primary
 
     if not args.corpus:
@@ -739,7 +983,9 @@ def cmd_train(args, corpus=None) -> int:
     return 0
 
 
-COMMANDS = {"chunk": cmd_chunk, "status": cmd_status, "convert": cmd_convert,
+COMMANDS = {"download": cmd_download, "dedup": cmd_dedup, "extract": cmd_extract,
+            "chunk": cmd_chunk, "repair": cmd_repair, "augment": cmd_augment,
+            "audit": cmd_audit, "status": cmd_status, "convert": cmd_convert,
             "embed": cmd_embed, "index": cmd_index, "search": cmd_search, "eval": cmd_eval,
             "serve": cmd_serve, "train": cmd_train}
 
@@ -747,8 +993,9 @@ COMMANDS = {"chunk": cmd_chunk, "status": cmd_status, "convert": cmd_convert,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="arag-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="command", required=True)
-    for adder in (_add_chunk, _add_status, _add_convert, _add_embed, _add_index, _add_search,
-                  _add_eval, _add_serve, _add_train):
+    for adder in (_add_download, _add_dedup, _add_extract, _add_chunk, _add_repair,
+                  _add_augment, _add_audit, _add_status, _add_convert, _add_embed, _add_index,
+                  _add_search, _add_eval, _add_serve, _add_train):
         adder(sub)
     return ap
 

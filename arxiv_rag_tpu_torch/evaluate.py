@@ -1,6 +1,6 @@
 """Retrieval-quality evaluation: the port's own copy of
-``arxiv_rag_tpu/evaluate.py`` (:27-101) and of the titles ledger reader
-``load_paper_titles`` (``pipeline/repair.py:92-103``).
+``arxiv_rag_tpu/evaluate.py`` (:27-101). Paper titles come from
+``pipeline.repair.load_paper_titles``, as in the reference.
 
 Self-supervised protocol over any built corpus: each paper's title
 becomes a query and the paper's own chunks are the relevant set.
@@ -11,9 +11,7 @@ without labelled data.
 
 from __future__ import annotations
 
-import json
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -37,21 +35,6 @@ class EvalResult:
             "hit_at_1": round(self.hit_at_1, 4),
             **({"by_variant": self.by_variant} if self.by_variant else {}),
         }
-
-
-def load_paper_titles(corpus_dir: str | Path) -> dict[str, str]:
-    """paper_id → title from the corpus's ``papers.jsonl`` ledger (empty
-    when there is none; unreadable lines are skipped)."""
-    path = Path(corpus_dir) / "papers.jsonl"
-    titles: dict[str, str] = {}
-    if path.exists():
-        for line in path.read_text().splitlines():
-            try:
-                rec = json.loads(line)
-                titles[rec["paper_id"]] = rec.get("title", "")
-            except (json.JSONDecodeError, KeyError):
-                continue
-    return titles
 
 
 def title_queries(

@@ -298,8 +298,8 @@ class CorpusReader:
         combined = pa.concat_tables(parts)
         return combined.take(perm)
 
-    def texts(self) -> list[str]:
+    def texts(self, min_quality: float | None = None) -> list[str]:
         out: list[str] = []
-        for batch in self.iter_batches(columns=["text"]):
+        for batch in self.iter_batches(columns=["text"], min_quality=min_quality):
             out.extend(batch.column("text").to_pylist())
         return out

@@ -20,6 +20,10 @@ for name in names:
     importlib.import_module(name)
 assert {"arxiv_rag_tpu_torch.parallel." + m
         for m in ("mesh", "search", "ivf", "distributed")} <= set(names)
+assert {"arxiv_rag_tpu_torch." + m
+        for m in ("audit", "ingest", "ingest.downloader", "ingest.dedup", "utils",
+                  "utils.cache", "utils.memory", "utils.progress", "pipeline.augment",
+                  "pipeline.repair", "pipeline.extract.streaming")} <= set(names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "arxiv_rag_tpu"))
 print(len(names), bad)
@@ -78,10 +82,13 @@ def test_port_imports_without_pyarrow_or_safetensors():
 
 def test_pipeline_modules_import_without_pyarrow_yaml_or_pil():
     """The chunk path's modules (config, progress DB, text pipeline, PDF
-    reader, runner, the chunk and status verbs) import with pyarrow,
-    PyYAML and PIL blocked, as on the card's machine, and load no JAX."""
+    reader, runner, the chunk and status verbs) and the host pipeline's
+    (ingest, utils, the streaming extractor, repair, augment, audit and
+    their verbs) import with pyarrow, PyYAML, PIL and psutil blocked, as
+    on the card's machine, and load no JAX."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    code = ("import sys\nfor m in ('pyarrow', 'yaml', 'PIL'):\n    sys.modules[m] = None\n"
+    code = ("import sys\nfor m in ('pyarrow', 'yaml', 'PIL', 'psutil'):\n"
+            "    sys.modules[m] = None\n"
             + _IMPORT_ALL.replace("sys.exit(", "\n".join(
                 f"assert 'arxiv_rag_tpu_torch.{m}' in names, {m!r}" for m in (
                     "config", "store.progress", "pipeline.runner", "pipeline.chunk",
@@ -89,7 +96,11 @@ def test_pipeline_modules_import_without_pyarrow_yaml_or_pil():
                     "pipeline.metadata", "pipeline.citations", "pipeline.crossref",
                     "pipeline.extract.extractor", "pipeline.extract.pdfcore",
                     "pipeline.extract.pdftext", "pipeline.extract.ocr",
-                    "pipeline.extract.tables")) + "\nfrom arxiv_rag_tpu_torch.config import "
+                    "pipeline.extract.tables", "pipeline.extract.streaming", "audit",
+                    "ingest.downloader", "ingest.dedup", "utils.memory", "pipeline.augment",
+                    "pipeline.repair")) + "\nfrom arxiv_rag_tpu_torch.utils import MemoryManager\n"
+                "assert MemoryManager().snapshot().level == 'ok'  # psutil's fallback\n"
+                "from arxiv_rag_tpu_torch.config import "
                 "load_config\nassert load_config(environ={}).to_dict()['chunking']\n"
                 "sys.exit(", 1))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
