@@ -1,7 +1,7 @@
 """`python -m arxiv_rag_tpu_torch.cli.main` — the port's CLI.
 
 Verbs of the corpus pipeline, the index lifecycle and the serving path,
-following ``arxiv_rag_tpu/cli/main.py`` (every verb of it but ``bench``):
+following ``arxiv_rag_tpu/cli/main.py`` (every verb of it):
 
   download fetch arXiv PDFs from GCS into {cat}/{ym}/{id}.pdf with the
            download ledgers (``gsutil`` and the network; resumable)
@@ -38,6 +38,10 @@ following ``arxiv_rag_tpu/cli/main.py`` (every verb of it but ``bench``):
   train    contrastive fine-tune of the encoder on (title -> chunk) pairs
            from the corpus store (``--checkpoint-every``/``--resume``:
            TrainState snapshots under ``--out/state``)
+  bench    the benchmark harness (``arxiv_rag_tpu_torch/bench.py``): one
+           JSON line of flat, filtered, int8, IVF and encoder speeds at
+           recall parity (``--rows``; ``--profile DIR``: a torch.profiler
+           Chrome trace); exits non-zero when a phase failed
 
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
 CPU (``chunk`` resolves it only when it builds the semantic encoder;
@@ -983,11 +987,27 @@ def cmd_train(args, corpus=None) -> int:
     return 0
 
 
+def _add_bench(sub) -> None:
+    p = sub.add_parser("bench", help="run the benchmark harness")
+    p.add_argument("--rows", type=int, default=None)
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace (Chrome trace format) here")
+    p.add_argument("--device", default="cuda")
+
+
+def cmd_bench(args) -> int:
+    """The port's harness: its one JSON line on stdout, non-zero when a
+    phase failed (``arxiv_rag_tpu_torch/bench.py``)."""
+    from arxiv_rag_tpu_torch import bench
+
+    return bench.main(device=args.device, rows=args.rows, profile=args.profile)
+
+
 COMMANDS = {"download": cmd_download, "dedup": cmd_dedup, "extract": cmd_extract,
             "chunk": cmd_chunk, "repair": cmd_repair, "augment": cmd_augment,
             "audit": cmd_audit, "status": cmd_status, "convert": cmd_convert,
             "embed": cmd_embed, "index": cmd_index, "search": cmd_search, "eval": cmd_eval,
-            "serve": cmd_serve, "train": cmd_train}
+            "serve": cmd_serve, "train": cmd_train, "bench": cmd_bench}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -995,7 +1015,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
     for adder in (_add_download, _add_dedup, _add_extract, _add_chunk, _add_repair,
                   _add_augment, _add_audit, _add_status, _add_convert, _add_embed, _add_index,
-                  _add_search, _add_eval, _add_serve, _add_train):
+                  _add_search, _add_eval, _add_serve, _add_train, _add_bench):
         adder(sub)
     return ap
 

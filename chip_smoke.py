@@ -121,7 +121,16 @@ its first failure:
    embedder, ``append_index`` onto phase 6's 2M int8 index and
    ``engine.search`` on 32 of their texts (each finds its own chunk
    first; K2 bitwise its plain version);
-11. the kernels line (phases 8, 9 and 10's launches added to the main
+11. the bench verb (``python -m arxiv_rag_tpu_torch.cli.main bench``, the
+   port of the reference's ``bench.py``) in a process of its own at its
+   default 2,000,000 rows, once this process has freed the card: its
+   JSON line must hold no error and every field of the reference's TPU
+   line (BENCH_r05.json; ``qps_at_q512_xla`` is ``qps_at_q512_library``),
+   backend ``cuda``, every recall field at least 0.99, W8A8 cos against
+   bf16 above 0.99, and launches of K1, K2, K4 bf16, K4 s8s8, K6 and K8
+   in the bench phases that drive them; its numbers are printed with the
+   card;
+12. the kernels line (phases 8, 9 and 10's launches added to the main
    path's, and the cross-shard merge's own entry), then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
@@ -131,7 +140,8 @@ lifecycle's reload path (each HTTP server's traffic and reload, the
 hybrid engine's reload), before the fine-tuned encoder's search,
 before phase 8's sharded engine searches, in each phase-9 worker
 before its searches, and before phase 10's search, read just after each
-(the workers report theirs).
+(the workers report theirs); the bench process (phase 11) counts its
+own, by bench phase.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -3679,6 +3689,82 @@ def phase_chunk(engines, lc_dir, seed, results, card) -> dict:
     return launches
 
 
+BENCH_TIMEOUT_S = 420
+BENCH_RECALL_MIN = 0.99  # BENCH_r05.json reads 1.0 in every recall field: a property of the data
+BENCH_COS_MIN = 0.99  # the reference's bound between encoder forms
+BENCH_KERNELS = (  # key, the bench phase that launches it, its counter
+    ("K1 bf16", "headline", "fused_topk"),
+    ("K2", "int8", "fused_topk_int8"),
+    ("K4 bf16", "masked", "fused_topk_masked"),
+    ("K4 s8s8", "int8_masked", "fused_topk_masked"),
+    ("K6", "ivf", "ivf_topk_device"),
+    ("K8", "w8a8", "w8a8_matmul_fused_quant"),
+)
+
+
+def phase_bench(results, card) -> dict:
+    """The ``bench`` verb (``arxiv_rag_tpu_torch/bench.py``) in a process of
+    its own at its default 2,000,000 rows, no ARAG_BENCH_* knob set: its
+    one JSON line must carry no error and every field of the reference's
+    TPU line (renames aside) on ``cuda``, every recall at least 0.99, the
+    W8A8 cosine above 0.99, and launches of K1, K2, K4 (bf16 and s8s8),
+    K6 and K8 in the bench phases that drive them."""
+    from arxiv_rag_tpu_torch.bench import RECALL_FIELDS, REFERENCE_FIELDS
+
+    print(f"== phase 11: the bench verb on {card} ({torch.cuda.memory_allocated() / 2**20:.0f} "
+          "MiB still allocated here)", flush=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ARAG_BENCH_")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "arxiv_rag_tpu_torch.cli.main", "bench"],
+                            cwd=str(Path(__file__).resolve().parent), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    seconds = time.perf_counter() - t0
+    for log in err.splitlines():
+        if log.startswith("[bench"):
+            print(f"    {log}", flush=True)
+    lines = out.strip().splitlines()
+    if not lines:
+        print(err[-4000:], flush=True)
+        fail(f"the bench verb printed no line (exit {proc.returncode})")
+    line = json.loads(lines[-1])
+    print(f"  bench line ({card}, {seconds:.1f} s, exit {proc.returncode}): "
+          f"{json.dumps(line)}", flush=True)
+    if "error" in line or proc.returncode != 0:
+        fail(f"the bench verb failed (exit {proc.returncode}): {line.get('error')}")
+    missing = [f for f in REFERENCE_FIELDS if f not in line]
+    if missing:
+        fail(f"the bench line lacks the reference's fields {missing}")
+    if line["backend"] != "cuda":
+        fail(f"the bench ran on {line['backend']}, not cuda")
+    low = {f: line[f] for f in RECALL_FIELDS if not line[f] >= BENCH_RECALL_MIN}
+    if low:
+        fail(f"bench recall under {BENCH_RECALL_MIN}: {low}")
+    if not line["w8a8_cos_vs_bf16"] > BENCH_COS_MIN:
+        fail(f"bench W8A8 cos vs bf16 {line['w8a8_cos_vs_bf16']} <= {BENCH_COS_MIN}")
+    by_phase = line["launches_by_phase"]
+    for key, phase, counter in BENCH_KERNELS:
+        if by_phase.get(phase, {}).get(counter, 0) < 1:
+            fail(f"the bench's {phase} phase launched no {key} ({counter})")
+    print(f"  bench ({card}): Q=32 {line['value']} qps (pipelined "
+          f"{line['qps_at_q32_pipelined']}), recall@10 {line['recall_at_10']}; Q=512 library "
+          f"{line['qps_at_q512_library']}, fused {line['qps_at_q512_fused']} (pipelined "
+          f"{line['qps_at_q512_fused_pipelined']}); masked {line['masked_qps']}; int8 "
+          f"{line['int8_qps']} (Q=512 {line['qps_at_q512_int8']}); int8 masked "
+          f"{line['int8_masked_qps']}; vs CPU {line['vs_baseline']}x; encoder "
+          f"{line['embed_chunks_per_sec']} chunks/s (MFU {line['encoder_mfu']}), W8A8 "
+          f"{line['embed_w8a8_chunks_per_sec']} (cos {line['w8a8_cos_vs_bf16']}); IVF "
+          f"{line['ivf_qps_at_q32_pipelined']} qps, {line['ivf_speedup_vs_flat']}x flat; "
+          f"launches {line['launches']}; phase {seconds:.1f} s", flush=True)
+    results["bench"] = {**line, "seconds": seconds}
+    return line
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -3910,6 +3996,10 @@ def main() -> int:
         launches["chunk"] = phase_chunk(engines, lc_dir, args.seed, results, card)
         print(f"== chunk path launches (the new chunks' search, counted alone): "
               f"{launches['chunk']}", flush=True)
+    del indexes, ivfs, engines, flagship  # the card to the bench's process
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bench(results, card)
     if launches["sharded"]["topk_merge"] < 1:
         fail("the sharded path launched no cross-shard merge (topk_merge)")
     for counter, key in (("fused_topk", "K1"), ("fused_topk_int8", "K2"),

@@ -21,7 +21,7 @@ for name in names:
 assert {"arxiv_rag_tpu_torch.parallel." + m
         for m in ("mesh", "search", "ivf", "distributed")} <= set(names)
 assert {"arxiv_rag_tpu_torch." + m
-        for m in ("audit", "ingest", "ingest.downloader", "ingest.dedup", "utils",
+        for m in ("bench", "audit", "ingest", "ingest.downloader", "ingest.dedup", "utils",
                   "utils.cache", "utils.memory", "utils.progress", "pipeline.augment",
                   "pipeline.repair", "pipeline.extract.streaming")} <= set(names)
 bad = sorted(m for m in sys.modules
@@ -50,6 +50,22 @@ def test_training_modules_import_no_jax():
             "import arxiv_rag_tpu_torch.pipeline.repair, arxiv_rag_tpu_torch.cli.main\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'arxiv_rag_tpu'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_bench_imports_no_jax_and_no_transformers():
+    """The port's harness, its verb and the root script load neither JAX,
+    the JAX package nor ``transformers`` (the reference's CPU encoder
+    baseline used it; the card's machine lacks it)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import runpy, sys\n"
+            "import arxiv_rag_tpu_torch.bench, arxiv_rag_tpu_torch.cli.main\n"
+            "runpy.run_path('bench_torch.py', run_name='bench_torch')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'arxiv_rag_tpu', 'transformers'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
