@@ -50,6 +50,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -117,27 +118,58 @@ def ivf_layout(n_rows: int) -> tuple[int, int, int, np.ndarray]:
     return padded, n_cl, dead, cb
 
 
-def ivf_corpus(n_rows: int, n_clusters: int, padded: int, n_queries: int, dim: int = DIM):
-    """The IVF phase's host corpus (``bench.py:758-787``): unit blobs
-    around ``n_clusters`` random centers (seed 11, spread 0.025), rows in
-    cluster order, quantized to int8 per row, generated in the flat
-    phase's 8 slices; queries are blob members (centers drawn with seed
-    5). Returns (int8 values [padded, dim], scales [padded], centers
-    [C, dim], queries [n_queries, dim] fp32), padding rows zero."""
-    step = -(-n_rows // N_SLICES)
+def blob_corpus(n_rows: int, n_clusters: int, step: int, dim: int = DIM):
+    """The reference's clustered host corpus (``bench.py:758-787``,
+    ``tools/serve_bench.py:130-144``): unit blobs around ``n_clusters``
+    random unit centers (seed 11, spread 0.025), row i in cluster
+    ``uniform_cluster_ids``. Returns (rng, centers [C, dim], slices):
+    ``slices`` yields (start, unit rows fp32 [rows, dim], cluster ids) in
+    ``step``-row slices; ``rng`` goes on with the stream after the last.
+    The next slice's noise is drawn on a thread while this one is built
+    (numpy's generator releases the GIL; the draws stay in stream order)."""
     rng = np.random.default_rng(11)
     centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    starts = list(range(0, n_rows, step))
+
+    def noise(s: int) -> np.ndarray:
+        return rng.standard_normal((min(step, n_rows - s), dim)).astype(np.float32)
+
+    def slices():
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(noise, starts[0]) if starts else None
+            for i, s in enumerate(starts):
+                z = pending.result()
+                if i + 1 < len(starts):
+                    pending = pool.submit(noise, starts[i + 1])
+                cid = uniform_cluster_ids(s, len(z), n_rows, n_clusters)
+                x = centers[cid]
+                x += SPREAD * z
+                del z
+                x /= np.linalg.norm(x, axis=1, keepdims=True)
+                yield s, x, cid
+
+    return rng, centers, slices()
+
+
+def host_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 of host rows, as the reference's harnesses
+    quantize them: (values [N, D] int8, scales [N] fp32)."""
+    sc = np.maximum(np.abs(x).max(axis=1), 1e-12) / 127.0
+    return np.clip(np.round(x / sc[:, None]), -127, 127).astype(np.int8), sc
+
+
+def ivf_corpus(n_rows: int, n_clusters: int, padded: int, n_queries: int, dim: int = DIM):
+    """The IVF phase's host corpus (``bench.py:758-787``): ``blob_corpus``
+    in the flat phase's 8 slices, quantized to int8 per row; queries are
+    blob members (centers drawn with seed 5). Returns (int8 values
+    [padded, dim], scales [padded], centers [C, dim], queries [n_queries,
+    dim] fp32), padding rows zero."""
+    rng, centers, slices = blob_corpus(n_rows, n_clusters, -(-n_rows // N_SLICES), dim)
     vals8 = np.zeros((padded, dim), np.int8)
     scales = np.zeros((padded,), np.float32)
-    for s in range(0, n_rows, step):
-        rows = min(step, n_rows - s)
-        x = centers[uniform_cluster_ids(s, rows, n_rows, n_clusters)]
-        x += SPREAD * rng.standard_normal((rows, dim)).astype(np.float32)
-        x /= np.linalg.norm(x, axis=1, keepdims=True)
-        sc = np.maximum(np.abs(x).max(axis=1), 1e-12) / 127.0
-        vals8[s:s + rows] = np.clip(np.round(x / sc[:, None]), -127, 127).astype(np.int8)
-        scales[s:s + rows] = sc
+    for s, x, _ in slices:
+        vals8[s:s + len(x)], scales[s:s + len(x)] = host_int8(x)
     qcid = np.random.default_rng(5).integers(0, n_clusters, n_queries)
     q = centers[qcid] + SPREAD * rng.standard_normal((n_queries, dim)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -200,22 +232,32 @@ def card_line() -> str | None:
 
 
 class Run:
-    """One bench run: the result dict, the failed phases, the clock, and
-    the single emit of the JSON line."""
+    """One harness run: the result dict, the failed phases, the clock, and
+    the single emit of the JSON line. ``tag`` prefixes the log lines;
+    ``result`` is the line's starting fields (the bench's by default);
+    ``deadline`` is the soft deadline in seconds (ARAG_BENCH_DEADLINE by
+    default). ``launches``, when a caller sets it, is the line's
+    ``launches`` field in place of every launch of the process."""
 
-    def __init__(self) -> None:
+    per_phase = True  # the line carries ``launches_by_phase``
+
+    def __init__(self, tag: str = "bench", result: dict | None = None,
+                 deadline: float | None = None) -> None:
         self.t0 = time.perf_counter()
-        self.result: dict = {"metric": "flat_scan_qps_per_chip_bf16_recall_parity",
-                             "value": 0.0, "unit": "qps", "vs_baseline": 0.0,
-                             "kernel": "none", "backend": "unknown"}
+        self.tag = tag
+        self.result: dict = result if result is not None else {
+            "metric": "flat_scan_qps_per_chip_bf16_recall_parity", "value": 0.0,
+            "unit": "qps", "vs_baseline": 0.0, "kernel": "none", "backend": "unknown"}
         self.errors: list[str] = []
         self.by_phase: dict[str, dict] = {}
-        self.deadline = float(os.environ.get("ARAG_BENCH_DEADLINE", 700.0))
+        self.launches: dict | None = None
+        self.deadline = (float(os.environ.get("ARAG_BENCH_DEADLINE", 700.0))
+                         if deadline is None else deadline)
         self._emitted = False
         self._lock = threading.Lock()
 
     def log(self, msg: str) -> None:
-        print(f"[bench +{time.perf_counter() - self.t0:7.1f}s] {msg}", file=sys.stderr,
+        print(f"[{self.tag} +{time.perf_counter() - self.t0:7.1f}s] {msg}", file=sys.stderr,
               flush=True)
 
     def phase(self, name: str, fn) -> None:
@@ -241,8 +283,10 @@ class Run:
             if self._emitted:
                 return
             self._emitted = True
-        self.result["launches"] = {n: c for n, c in launch_counts().items() if c}
-        self.result["launches_by_phase"] = self.by_phase
+        self.result["launches"] = (self.launches if self.launches is not None else
+                                   {n: c for n, c in launch_counts().items() if c})
+        if self.per_phase:
+            self.result["launches_by_phase"] = self.by_phase
         if self.errors:
             self.result["error"] = "; ".join(self.errors)[:1200]
         print(json.dumps(self.result), flush=True)

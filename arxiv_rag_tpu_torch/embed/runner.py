@@ -209,6 +209,28 @@ class Embedder:
         METRICS.inc("embed.texts", len(texts))
         return out
 
+    def encode_texts_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """[len(texts), hidden] fp32 embeddings in the original order, on
+        the model's device, never fetched: for callers that feed them
+        straight into another device op. The order is restored on the
+        device (one ``index_select``)."""
+        if not len(texts):
+            return torch.zeros((0, self.cfg.hidden_size), dtype=torch.float32,
+                               device=self.device)
+        parts: list[torch.Tensor] = []
+        pos_all: list[int] = []
+        with METRICS.timer("embed.device"):
+            for bucket, (positions, ids, mask) in self.tokenize_bucketed(texts).items():
+                for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
+                    parts.append(self._run_batch(bids, bmask)[:n])
+                    pos_all.extend(bpos)
+        emb = parts[0] if len(parts) == 1 else torch.cat(parts)
+        inv = np.empty(len(texts), np.int64)
+        inv[np.asarray(pos_all)] = np.arange(len(texts))
+        self.stats.texts += len(texts)
+        METRICS.inc("embed.texts", len(texts))
+        return emb.index_select(0, torch.from_numpy(inv).to(emb.device))
+
     def encode_window_device(self, texts: Sequence[str]):
         """(embeddings [H, hidden] on the device, real row count) for one
         serving window: every text tokenizes at one bucket (the largest

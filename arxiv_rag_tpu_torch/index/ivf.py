@@ -256,12 +256,17 @@ class IVFIndex:
 
     # -- probe planning --------------------------------------------------
 
-    def probe(self, queries, nprobe: int) -> np.ndarray:
-        """[Q, nprobe] nearest-centroid ids (fp32 scores, stable top-k)."""
+    def _probe_dispatch(self, queries, nprobe: int) -> torch.Tensor:
+        """The centroid top-nprobe on the device, not fetched: [Q, nprobe]
+        ids (fp32 scores, stable top-k)."""
         dev = self._placed()
         q = torch.as_tensor(queries, dtype=torch.float32).to(dev)
         _, cids = flat_search(self._device_centroids, q, min(nprobe, self.n_clusters))
-        return cids.cpu().numpy()
+        return cids
+
+    def probe(self, queries, nprobe: int) -> np.ndarray:
+        """[Q, nprobe] nearest-centroid ids on the host."""
+        return self._probe_dispatch(queries, nprobe).cpu().numpy()
 
     def plan_blocks(self, cluster_ids: np.ndarray, q_block: int) -> np.ndarray:
         """Per-tile block table: the union of the tile's probed clusters'

@@ -107,6 +107,14 @@ def from_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig) -> dict[str, 
     return out
 
 
+def from_torch_module(module, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """A live HF-shaped ``MPNetModel`` (``nn.Module``) → this package's
+    ``MPNet`` state dict, through ``from_hf_state_dict`` (the offline
+    parity path of the reference)."""
+    return from_hf_state_dict({k: v.detach().cpu() for k, v in module.state_dict().items()},
+                              cfg)
+
+
 def from_safetensors(path: str | Path, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """An HF checkpoint's ``model.safetensors`` (the file or its
     directory) → this package's ``MPNet`` state dict, in the file's

@@ -13,8 +13,6 @@ host once per window.
 
 from __future__ import annotations
 
-import os
-import tempfile
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -89,32 +87,14 @@ class CrossEncoderReranker:
         self._native = False  # lazily resolved to NativeWordPieceTokenizer | None
 
     def _native_tokenizer(self):
-        """The C++ WordPiece core for the pair stream, built from this
-        tokenizer's vocab (written to a temporary file: the Python
-        tokenizer holds only the dict). None when the vocab has id gaps
-        (a file's line number is its id), the one case that keeps the
-        Python path; a failed build of the library raises."""
-        if self._native is not False:
-            return self._native
-        from arxiv_rag_tpu_torch.tokenize import native as native_mod
+        """The C++ WordPiece core for the pair stream, over this
+        tokenizer's vocab (``tokenize/native.py::for_tokenizer``). None when
+        the vocab has id gaps, the one case that keeps the Python path; a
+        failed build of the library raises."""
+        if self._native is False:
+            from arxiv_rag_tpu_torch.tokenize import native as native_mod
 
-        tk = self.tokenizer
-        size = max(tk.vocab.values()) + 1
-        toks: list[str | None] = [None] * size
-        for t, i in tk.vocab.items():
-            toks[i] = t
-        if any(t is None for t in toks):
-            self._native = None  # sparse vocab
-            return None
-        fd, path = tempfile.mkstemp(suffix=".vocab.txt")
-        try:
-            with os.fdopen(fd, "w", encoding="utf-8") as f:
-                f.write("\n".join(toks) + "\n")
-            # the C++ core reads the whole vocab while it is created
-            self._native = native_mod.NativeWordPieceTokenizer(
-                path, specials=tk.specials, do_lower_case=tk.do_lower_case)
-        finally:
-            os.unlink(path)
+            self._native = native_mod.for_tokenizer(self.tokenizer)
         return self._native
 
     def _raw_ids(self, texts: Sequence[str]) -> list[list[int]]:

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import json
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable, Iterator, Sequence
 
@@ -64,7 +64,7 @@ class ChunkRecord:
         return f"{self.paper_id}#{self.chunk_index}"
 
     def to_row(self) -> dict:
-        row = asdict(self)
+        row = dict(vars(self))  # the fields are flat: asdict's result, without its deep copy
         row["chunk_id"] = self.chunk_id
         row["char_count"] = len(self.text)
         return row

@@ -28,6 +28,7 @@ import os
 import platform
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Sequence
@@ -196,3 +197,25 @@ class NativeWordPieceTokenizer:
             mask.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         )
         return ids, mask
+
+
+def for_tokenizer(tokenizer) -> NativeWordPieceTokenizer | None:
+    """The C++ core over a Python ``WordPieceTokenizer``'s vocab, written
+    to a temporary file (the Python tokenizer holds only the dict; the core
+    reads the whole file while it is created). None when the vocab has id
+    gaps, since a file's line number is its id; a failed build of the
+    library raises."""
+    size = max(tokenizer.vocab.values()) + 1
+    toks: list[str | None] = [None] * size
+    for t, i in tokenizer.vocab.items():
+        toks[i] = t
+    if any(t is None for t in toks):
+        return None
+    fd, path = tempfile.mkstemp(suffix=".vocab.txt")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            f.write("\n".join(toks) + "\n")
+        return NativeWordPieceTokenizer(path, specials=tokenizer.specials,
+                                        do_lower_case=tokenizer.do_lower_case)
+    finally:
+        os.unlink(path)

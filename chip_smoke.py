@@ -130,7 +130,18 @@ its first failure:
    bf16 above 0.99, and launches of K1, K2, K4 bf16, K4 s8s8, K6 and K8
    in the bench phases that drive them; its numbers are printed with the
    card;
-12. the kernels line (phases 8, 9 and 10's launches added to the main
+12. the reference's service and scale harnesses (``arxiv_rag_tpu_torch/
+   tools/``), each in processes of its own: ``run_serve_suite``'s dense,
+   ivf, rerank_cascade and dense_reload modes (HTTP server + micro-batcher
+   over 2M rows, 16 clients x 8 requests x 24 queries, one corpus
+   directory), ``recall_real`` at 100,000 rows, ``ivf_scale`` at 1M rows
+   and ``scale_proof`` part A at 500,000: no error, the reference's
+   fields, every request answered with no retry, backend ``cuda``, a
+   reload without error, tie-tolerant recalls at least 0.99, the device
+   plan equal to the host plan, and their kernels launched in each timed
+   run (K2 in dense, K6 in ivf, K1 and K3 in recall_real, K5 and K6 in
+   ivf_scale, K1 in scale_proof);
+13. the kernels line (phases 8, 9 and 10's launches added to the main
    path's, and the cross-shard merge's own entry), then the result line.
 
 The launch counts are read per path: set to 0 just before the path of
@@ -141,7 +152,8 @@ hybrid engine's reload), before the fine-tuned encoder's search,
 before phase 8's sharded engine searches, in each phase-9 worker
 before its searches, and before phase 10's search, read just after each
 (the workers report theirs); the bench process (phase 11) counts its
-own, by bench phase.
+own, by bench phase, and each harness of phase 12 its own, in its timed
+part.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -3765,6 +3777,162 @@ def phase_bench(results, card) -> dict:
     return line
 
 
+TOOLS_SUITE_MODES = ("dense", "ivf", "rerank_cascade", "dense_reload")
+TOOLS_MODE_KERNELS = {"dense": ("K2", "fused_topk_int8"), "ivf": ("K6", "ivf_topk_device"),
+                      "dense_reload": ("K2", "fused_topk_int8")}
+TOOLS_RECALL_ROWS = 100_000  # recall_real's default
+TOOLS_IVF_ROWS = 1_000_000  # ivf_scale's 4M default cut to fit the script's time
+TOOLS_SCALE_ROWS = 500_000  # scale_proof's 2M cut: 1.5 GB of embed output, not 6
+TOOLS_RECALL_MIN = 0.99  # tie-tolerant recall, as phase 11's
+TOOLS_ENV_KNOBS = {"ROWS", "CLUSTERS", "NPROBES", "Q", "QBLOCK", "BLOCK_ROWS", "CHAIN", "GROUPS",
+                   "CENTERS", "SPREAD", "ITERS"}  # ivf_scale's and bm25_scale's
+TOOLS_TIMEOUT_S = {"suite": 600, "recall_real": 300, "ivf_scale": 300, "scale_proof": 300}
+
+
+def start_tool(name: str, argv: list[str], env: dict) -> tuple[subprocess.Popen, float]:
+    """``python -m arxiv_rag_tpu_torch.tools.<name>`` in a process of its own."""
+    proc = subprocess.Popen([sys.executable, "-m", f"arxiv_rag_tpu_torch.tools.{name}", *argv],
+                            cwd=str(Path(__file__).resolve().parent), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_tool(name: str, started: tuple[subprocess.Popen, float],
+                timeout: float) -> tuple[int, dict, float]:
+    """(exit code, the tool's JSON line, seconds); its log lines are printed."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    seconds = time.perf_counter() - t0
+    for log in err.splitlines():
+        if log.startswith("["):
+            print(f"    {log}", flush=True)
+    lines = out.strip().splitlines()
+    if not lines:
+        print(err[-4000:], flush=True)
+        fail(f"{name} printed no line (exit {proc.returncode})")
+    return proc.returncode, json.loads(lines[-1]), seconds
+
+
+def run_tool(name: str, argv: list[str], env: dict, timeout: float) -> tuple[int, dict, float]:
+    return finish_tool(name, start_tool(name, argv, env), timeout)
+
+
+def tool_launched(name: str, line: dict, kernels) -> None:
+    for key, counter in kernels:
+        if line["launches"].get(counter, 0) < 1:
+            fail(f"{name} launched no {key} ({counter}) in its timed part: {line['launches']}")
+
+
+def phase_tools(results, card) -> dict:
+    """The reference's service and scale harnesses (``arxiv_rag_tpu_torch/
+    tools/``), each in processes of its own once this process has freed
+    the card: the suite's dense, ivf, rerank_cascade and dense_reload modes
+    at 2M rows over one corpus directory, ``recall_real`` at 100,000 rows,
+    ``ivf_scale`` at 1M rows and ``scale_proof`` part A at 500,000, the
+    last two while ``recall_real`` runs. Each
+    line must carry no error and the reference's fields; the service lines
+    every request answered with no retry, on ``cuda``, a reload without
+    error and their kernels launched in the timed run; tie-tolerant
+    recalls at least 0.99 and the device plan equal to the host plan."""
+    print(f"== phase 12: the service and scale harnesses on {card}", flush=True)
+    ref_serve = json.loads((Path(__file__).resolve().parent / "SERVE_r05.json").read_text())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ARAG_") and k not in TOOLS_ENV_KNOBS}
+    out: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        suite_file = Path(tmp) / "serve_suite.json"
+        rc, line, seconds = run_tool(
+            "run_serve_suite", ["--round", "18", "--rows", str(N_ROWS), "--modes",
+                                ",".join(TOOLS_SUITE_MODES), "--out", str(suite_file),
+                                "--corpus-dir", str(Path(tmp) / "corpus"),
+                                "--timeout", str(TOOLS_TIMEOUT_S["suite"] - 60)],
+            env, TOOLS_TIMEOUT_S["suite"] * len(TOOLS_SUITE_MODES))
+        suite = json.loads(suite_file.read_text()) if suite_file.exists() else {"results": {}}
+        for mode in TOOLS_SUITE_MODES:
+            rec = suite["results"].get(mode)
+            if rec is None or rec["result"] is None:
+                fail(f"suite mode {mode} has no line: {rec}")
+            got = rec["result"]
+            print(f"  serve {mode} ({card}, {rec['wall_s']} s, exit {rec['rc']}): "
+                  f"{json.dumps(got)}", flush=True)
+            if rec["rc"] != 0 or "error" in got:
+                fail(f"suite mode {mode} failed (exit {rec['rc']}): {got.get('error')} "
+                     f"{rec.get('stderr_tail', '')[-800:]}")
+            missing = sorted(set(ref_serve["results"][mode]["result"]) - set(got))
+            if missing:
+                fail(f"suite mode {mode} lacks the reference's fields {missing}")
+            if got["backend"] != "cuda":
+                fail(f"suite mode {mode} ran on {got['backend']}, not cuda")
+            if got["errors"] or got["retries"]:
+                fail(f"suite mode {mode}: {got['errors']} failed requests, {got['retries']} "
+                     "retries")
+            if "reload" in got and ("error" in got["reload"]
+                                    or got["reload"].get("status") != "reloaded"):
+                fail(f"suite mode {mode}: the reload failed: {got['reload']}")
+            if mode in TOOLS_MODE_KERNELS:
+                tool_launched(f"suite mode {mode}", got, (TOOLS_MODE_KERNELS[mode],))
+            out[f"serve_{mode}"] = {**got, "wall_s": rec["wall_s"]}
+        if rc != 0 or "error" in line:
+            fail(f"the suite failed (exit {rc}): {line.get('error')}")
+        print(f"  suite: {seconds:.1f} s", flush=True)
+
+        # recall_real (mostly the encoder) beside ivf_scale and scale_proof: their gates
+        # hold whatever shares the card; their numbers for PERF.md come from runs alone
+        recall = start_tool("recall_real", [str(TOOLS_RECALL_ROWS)],
+                            {**env, "ARAG_RECALL_CACHE": str(Path(tmp) / "recall")})
+        try:
+            rc, line, seconds = run_tool("ivf_scale", [], {**env, "ROWS": str(TOOLS_IVF_ROWS)},
+                                         TOOLS_TIMEOUT_S["ivf_scale"])
+            print(f"  ivf_scale ({card}, {seconds:.1f} s, exit {rc}): {json.dumps(line)}",
+                  flush=True)
+            if rc != 0 or "error" in line:
+                fail(f"ivf_scale failed (exit {rc}): {line.get('error')}")
+            for nprobe, rec in line["per_nprobe"].items():
+                if not rec["recall_at_10"] >= TOOLS_RECALL_MIN:
+                    fail(f"ivf_scale nprobe {nprobe}: recall {rec['recall_at_10']}")
+                if rec["device_plan"]["match_host_plan"] is not True:
+                    fail(f"ivf_scale nprobe {nprobe}: the device plan is not the host plan")
+            tool_launched("ivf_scale", line, (("K5", "ivf_topk"), ("K6", "ivf_topk_device")))
+            out["ivf_scale"] = {**line, "seconds": seconds}
+
+            rc, line, seconds = run_tool(
+                "scale_proof", [str(Path(tmp) / "scale"), "--rows", str(TOOLS_SCALE_ROWS)], env,
+                TOOLS_TIMEOUT_S["scale_proof"])
+            print(f"  scale_proof A ({card}, {seconds:.1f} s, exit {rc}): {json.dumps(line)}",
+                  flush=True)
+            if rc != 0 or "error" in line:
+                fail(f"scale_proof failed (exit {rc}): {line.get('error')}")
+            tool_launched("scale_proof", line, (("K1", "fused_topk"),))
+            out["scale_proof"] = {**line, "seconds": seconds}
+
+            rc, line, seconds = finish_tool("recall_real", recall, TOOLS_TIMEOUT_S["recall_real"])
+            print(f"  recall_real ({card}, {seconds:.1f} s beside ivf_scale and scale_proof, exit "
+                  f"{rc}): {json.dumps(line)}", flush=True)
+            if rc != 0 or "error" in line:
+                fail(f"recall_real failed (exit {rc}): {line.get('error')}")
+            low = {k: v for k, v in line.items() if k.startswith("recall_")
+                   and k.endswith("_tol5e3") and not v >= TOOLS_RECALL_MIN}
+            if low or not any(k.startswith("recall_ivf_np") for k in line):
+                fail(f"recall_real: tie-tolerant recall under {TOOLS_RECALL_MIN}: {low}")
+            tool_launched("recall_real", line,
+                          (("K1", "fused_topk"), ("K3", "fused_topk_int8_row")))
+            out["recall_real"] = {**line, "seconds": seconds}
+        finally:
+            if recall[0].poll() is None:  # a gate above failed first
+                recall[0].kill()
+                recall[0].wait(timeout=30)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 12 took {out['seconds']:.1f} s ({card})", flush=True)
+    results["tools"] = out
+    return out
+
+
 KERNELS = (
     # key, counter, what, TPU kernel, main case (dtype, Q, rows), the
     # kernel it runs on, the counted path its launches come from
@@ -4000,6 +4168,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_bench(results, card)
+    phase_tools(results, card)
     if launches["sharded"]["topk_merge"] < 1:
         fail("the sharded path launched no cross-shard merge (topk_merge)")
     for counter, key in (("fused_topk", "K1"), ("fused_topk_int8", "K2"),

@@ -125,6 +125,33 @@ def test_pipeline_modules_import_without_pyarrow_yaml_or_pil():
     assert int(out.stdout.split()[0]) >= 40
 
 
+def test_tools_import_no_jax_transformers_or_ml_dtypes():
+    """Every module under ``arxiv_rag_tpu_torch/tools/`` (the ported
+    service and scale harnesses) loads no JAX, nothing of the JAX package,
+    no ``transformers`` and no ``ml_dtypes``, with pyarrow, PyYAML, PIL and
+    psutil blocked as the card's machine may lack them; and parses no argv
+    when imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import importlib, pkgutil, sys\n"
+            "for m in ('pyarrow', 'yaml', 'PIL', 'psutil'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['x', '--no-such-flag']\n"
+            "import arxiv_rag_tpu_torch.tools as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "want = {'serve_bench', 'run_serve_suite', 'recall_real', 'ivf_scale',\n"
+            "        'bm25_scale', 'scale_proof'}\n"
+            "assert {'arxiv_rag_tpu_torch.tools.' + m for m in want} <= set(names), names\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'arxiv_rag_tpu', 'transformers', 'ml_dtypes'))\n"
+            "print(len(names), bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 6
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
