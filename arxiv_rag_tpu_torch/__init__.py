@@ -13,9 +13,19 @@ probed clusters.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without that explicit request they raise.
-"""
 
-from arxiv_rag_tpu_torch.device import default_device
+The package itself imports no torch, so a host-only module (such as
+``logging_utils``, which the pipeline's workers load) stays light;
+``default_device`` is loaded on first use.
+"""
 
 __version__ = "0.1.0"
 __all__ = ["default_device"]
+
+
+def __getattr__(name: str):
+    if name == "default_device":
+        from arxiv_rag_tpu_torch.device import default_device
+
+        return default_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

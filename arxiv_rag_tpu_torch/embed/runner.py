@@ -15,6 +15,7 @@ come back in order: the data-parallel embedder of the reference
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable, Sequence
@@ -93,6 +94,10 @@ class Embedder:
         self.batch_size = max(self.batch_sizes)
         self.normalize = normalize
         self.stats = EmbedStats()
+        # when ``encode_texts`` last fetched its batches: from then until
+        # this embedder's next launch the device has none of its work
+        # queued (``embed.starved``)
+        self._drained_at: float | None = None
 
     @property
     def device(self) -> torch.device:
@@ -114,6 +119,7 @@ class Embedder:
         if self.native_tokenizer is not None:
             return self._tokenize_bucketed_native(texts, max_b)
         per_bucket: dict[int, list[tuple[int, list[int]]]] = {b: [] for b in self.buckets}
+        n_tokens = 0
         for pos, text in enumerate(texts):
             enc = self.tokenizer.encode(text, max_len=max_b)
             per_bucket[self._bucket_for(len(enc))].append((pos, enc))
@@ -128,8 +134,9 @@ class Embedder:
                 ids[r, : len(enc)] = enc
                 mask[r, : len(enc)] = 1
                 positions.append(pos)
-                self.stats.tokens += len(enc)
+                n_tokens += len(enc)
             out[bucket] = (positions, ids, mask)
+        self._count_tokens(n_tokens)
         return out
 
     def _tokenize_bucketed_native(
@@ -139,7 +146,7 @@ class Embedder:
         into its bucket by true length (a column slice, no re-encode)."""
         ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
         lengths = mask_full.sum(axis=1)
-        self.stats.tokens += int(lengths.sum())
+        self._count_tokens(int(lengths.sum()))
         row_bucket = np.asarray([self._bucket_for(int(n)) for n in lengths], np.int64)
         out: dict[int, tuple[list[int], np.ndarray, np.ndarray]] = {}
         for bucket in self.buckets:
@@ -147,6 +154,11 @@ class Embedder:
             if rows.size:
                 out[bucket] = (rows.tolist(), ids_full[rows, :bucket], mask_full[rows, :bucket])
         return out
+
+    def _count_tokens(self, n: int) -> None:
+        """Real tokens tokenized (a pad row's CLS is not one)."""
+        self.stats.tokens += n
+        METRICS.inc("embed.tokens", n)
 
     def _padded_height(self, n: int) -> int:
         for b in self.batch_sizes:
@@ -172,11 +184,15 @@ class Embedder:
                 bmask[n:, 0] = 1
                 self.stats.padded_slots += pad
             self.stats.batches += 1
+            METRICS.inc("embed.token_slots", bids.shape[0] * bids.shape[1])
             yield bpos, bids, bmask, n
 
     # -- device side -----------------------------------------------------
 
     def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        if self._drained_at is not None:
+            METRICS.observe_interval("embed.starved", self._drained_at, time.perf_counter())
+            self._drained_at = None
         if self.mesh is None:
             return self._encode(self.model, ids, mask)
         per = ids.shape[0] // self.mesh.size
@@ -195,16 +211,20 @@ class Embedder:
         if not len(texts):
             return np.zeros((0, self.cfg.hidden_size), np.float32)
         out = np.empty((len(texts), self.cfg.hidden_size), np.float32)
-        bucketed = self.tokenize_bucketed(texts)
+        with METRICS.timer("embed.tokenize"):
+            bucketed = self.tokenize_bucketed(texts)
         pending: list[tuple[list[int], torch.Tensor, int]] = []
         with METRICS.timer("embed.device"):
-            for bucket, (positions, ids, mask) in bucketed.items():
-                for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
-                    # launches are asynchronous: the host pads the next
-                    # batch while the device runs this one
-                    pending.append((bpos, self._run_batch(bids, bmask), n))
-            for bpos, emb, n in pending:
-                out[np.asarray(bpos)] = emb[:n].cpu().numpy()
+            with METRICS.timer("embed.launch"):
+                for bucket, (positions, ids, mask) in bucketed.items():
+                    for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
+                        # launches are asynchronous: the host pads the next
+                        # batch while the device runs this one
+                        pending.append((bpos, self._run_batch(bids, bmask), n))
+            with METRICS.timer("embed.fetch"):
+                for bpos, emb, n in pending:
+                    out[np.asarray(bpos)] = emb[:n].cpu().numpy()
+        self._drained_at = time.perf_counter()
         self.stats.texts += len(texts)
         METRICS.inc("embed.texts", len(texts))
         return out
@@ -219,8 +239,10 @@ class Embedder:
                                device=self.device)
         parts: list[torch.Tensor] = []
         pos_all: list[int] = []
-        with METRICS.timer("embed.device"):
-            for bucket, (positions, ids, mask) in self.tokenize_bucketed(texts).items():
+        with METRICS.timer("embed.tokenize"):
+            bucketed = self.tokenize_bucketed(texts)
+        with METRICS.timer("embed.launch"):
+            for bucket, (positions, ids, mask) in bucketed.items():
                 for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
                     parts.append(self._run_batch(bids, bmask)[:n])
                     pos_all.extend(bpos)
@@ -242,31 +264,33 @@ class Embedder:
         if n == 0 or n > self.batch_size:
             return None
         max_b = self.buckets[-1]
-        if self.native_tokenizer is not None:
-            ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
-            lengths = mask_full.sum(axis=1)
-        else:
-            encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
-            lengths = np.asarray([len(e) for e in encs])
-        bucket = self._bucket_for(int(lengths.max()))
-        height = self._padded_height(n)
-        ids = np.full((height, bucket), self.tokenizer.pad_id, np.int32)
-        mask = np.zeros((height, bucket), np.int32)
-        if self.native_tokenizer is not None:
-            ids[:n] = ids_full[:, :bucket]
-            mask[:n] = mask_full[:, :bucket]
-        else:
-            for r, enc in enumerate(encs):
-                ids[r, : len(enc)] = enc
-                mask[r, : len(enc)] = 1
-        ids[n:, 0] = self.tokenizer.cls_id  # pad rows: one real token
-        mask[n:, 0] = 1
-        self.stats.tokens += int(lengths.sum())
+        with METRICS.timer("embed.tokenize"):
+            if self.native_tokenizer is not None:
+                ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
+                lengths = mask_full.sum(axis=1)
+            else:
+                encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
+                lengths = np.asarray([len(e) for e in encs])
+            bucket = self._bucket_for(int(lengths.max()))
+            height = self._padded_height(n)
+            ids = np.full((height, bucket), self.tokenizer.pad_id, np.int32)
+            mask = np.zeros((height, bucket), np.int32)
+            if self.native_tokenizer is not None:
+                ids[:n] = ids_full[:, :bucket]
+                mask[:n] = mask_full[:, :bucket]
+            else:
+                for r, enc in enumerate(encs):
+                    ids[r, : len(enc)] = enc
+                    mask[r, : len(enc)] = 1
+            ids[n:, 0] = self.tokenizer.cls_id  # pad rows: one real token
+            mask[n:, 0] = 1
+        self._count_tokens(int(lengths.sum()))
         self.stats.padded_slots += height - n
         self.stats.batches += 1
+        METRICS.inc("embed.token_slots", height * bucket)
         self.stats.texts += n
         METRICS.inc("embed.texts", n)
-        with METRICS.timer("embed.device"):
+        with METRICS.timer("embed.launch"):
             return self._run_batch(ids, mask), n
 
 
@@ -292,6 +316,8 @@ def embed_batches(
     dim = embedder.cfg.hidden_size
     manifest = {"batches": [], "dim": dim, "model": model}
     total = resumed = 0
+    # the device's wait before the loop's first batch is set-up, not starvation
+    embedder._drained_at = None
     for i, (ids, texts) in enumerate(batches):
         ids, texts = list(ids), list(texts)
         emb_path, ids_path = out / f"embeddings_{i:05d}.npy", out / f"ids_{i:05d}.json"
@@ -315,8 +341,9 @@ def embed_batches(
                             }) + "\n")
                 embs = np.stack(good_embs) if good_embs else np.zeros((0, dim), np.float32)
                 ids = good_ids
-            np.save(emb_path, embs)
-            ids_path.write_text(json.dumps(ids))
+            with METRICS.timer("embed.write"):
+                np.save(emb_path, embs)
+                ids_path.write_text(json.dumps(ids))
         manifest["batches"].append({"file": emb_path.name, "rows": len(ids)})
         total += len(ids)
     manifest["total_rows"] = total

@@ -5,9 +5,12 @@ Replaces the reference's mix of loguru (``run.py:19-47``), stdlib logging
 (``downloader.py:194-211``) and vestigial NDJSON hypothesis tracing
 (``downloader.py:37-54``, ``pipeline.py:80-102``) with one stdlib-based
 setup that can emit human lines or JSON lines, plus a process-local
-metrics registry (counters / gauges / timers) that every stage reports
-through — the first-class chunks/sec and wall-clock counters SURVEY §5.1
-calls for.
+metrics registry (counters / timers) that every stage reports through —
+the first-class chunks/sec and wall-clock counters SURVEY §5.1 calls for.
+A timer is also a span: while a torch profiler records, it opens a
+``record_function`` annotation of the same name, so program time sits on
+the profiler's clock beside the device's kernels. This module imports no
+torch (the pipeline's workers load it without).
 """
 
 from __future__ import annotations
@@ -71,9 +74,16 @@ def get_logger(name: str) -> logging.Logger:
     return logging.getLogger(f"arag.{name}")
 
 
+def _recording_profiler():
+    """``torch.autograd.profiler`` while a torch profiler records (on any
+    thread), else None; never imports torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
 @dataclass
 class Metrics:
-    """Thread-safe counters/gauges/timers.
+    """Thread-safe counters/timers.
 
     Stage stats dicts in the reference (``pipeline.process_batch``
     :713-719, downloader per-category table :932-944) become explicit
@@ -81,7 +91,6 @@ class Metrics:
     """
 
     counters: dict[str, float] = field(default_factory=dict)
-    gauges: dict[str, float] = field(default_factory=dict)
     # per-timer aggregate + a bounded window of recent samples: the
     # full-history list grew without bound in a long-running server,
     # and percentiles only need the recent window anyway
@@ -93,10 +102,6 @@ class Metrics:
     def inc(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0.0) + value
-
-    def set(self, name: str, value: float) -> None:
-        with self._lock:
-            self.gauges[name] = value
 
     def observe(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -111,13 +116,29 @@ class Metrics:
             t["max"] = max(t["max"], seconds)
             t["recent"].append(seconds)
 
+    def observe_interval(self, name: str, t0: float, t1: float) -> None:
+        """A span that ends after the fact (``time.perf_counter`` ends):
+        the aggregate only, no profiler annotation."""
+        self.observe(name, t1 - t0)
+
     @contextmanager
-    def timer(self, name: str) -> Iterator[None]:
+    def timer(self, name: str, tag: str | None = None) -> Iterator[None]:
+        """Time the block under ``name``. While a torch profiler records,
+        the block is also a ``record_function`` annotation named ``name``
+        (``"name tag"`` with a tag: the tag names the annotation only, so
+        one window's spans join across threads in a trace)."""
+        prof = _recording_profiler()
+        ann = None
+        if prof is not None:
+            ann = prof.record_function(name if tag is None else f"{name} {tag}")
+            ann.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             self.observe(name, time.perf_counter() - t0)
+            if ann is not None:
+                ann.__exit__(None, None, None)
 
     def snapshot(self) -> dict[str, Any]:
         with self._lock:
@@ -136,14 +157,12 @@ class Metrics:
                 }
             return {
                 "counters": dict(self.counters),
-                "gauges": dict(self.gauges),
                 "timers": timers,
             }
 
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
-            self.gauges.clear()
             self.timers.clear()
 
 

@@ -8,7 +8,10 @@ through one stream: pairs sorted by estimated length, each device batch
 padded to ``batch_size`` rows and to its own power-of-two sequence
 bucket (at least 64, at most ``max_pair_len``), tokenized batch by batch
 while the device runs the previous one, and the logits copied to the
-host once per window.
+host once per window. Spans (``METRICS``): ``rerank.tokenize`` (a batch's
+pair encoding and padding), ``rerank.launch``, ``rerank.fetch``; counters
+``rerank.pairs``, ``rerank.tokens`` (real) and ``rerank.token_slots``
+(rows × bucket of every forward).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from arxiv_rag_tpu_torch.logging_utils import METRICS
 from arxiv_rag_tpu_torch.models.bert import Bert, BertConfig
 from arxiv_rag_tpu_torch.tokenize.wordpiece import WordPieceTokenizer
 
@@ -197,40 +201,48 @@ class CrossEncoderReranker:
         batch_idx: list[np.ndarray] = []
         for start in range(0, len(pairs), bs):
             idx = order[start : start + bs]
-            chunk = [pairs[i] for i in idx]
-            q_ids = raw([q for q, _ in chunk])
-            p_ids = raw([p for _, p in chunk])
-            batch = [
-                self._encode_pair(qi, pi, pair_len=mpl)
-                for qi, pi in zip(q_ids, p_ids)
-            ]
-            max_len = max(len(ids) for ids, _ in batch)
-            bucket = 64
-            while bucket < max_len:
-                bucket *= 2
-            bucket = min(bucket, mpl)
-            ids = np.full((bs, bucket), tk.pad_id, np.int32)
-            mask = np.zeros((bs, bucket), np.int32)
-            types = np.zeros((bs, bucket), np.int32)
-            for i, (tok_ids, tok_types) in enumerate(batch):
-                tok_ids = tok_ids[:bucket]
-                tok_types = tok_types[: len(tok_ids)]
-                ids[i, : len(tok_ids)] = tok_ids
-                mask[i, : len(tok_ids)] = 1
-                types[i, : len(tok_types)] = tok_types
+            with METRICS.timer("rerank.tokenize"):
+                chunk = [pairs[i] for i in idx]
+                q_ids = raw([q for q, _ in chunk])
+                p_ids = raw([p for _, p in chunk])
+                batch = [
+                    self._encode_pair(qi, pi, pair_len=mpl)
+                    for qi, pi in zip(q_ids, p_ids)
+                ]
+                max_len = max(len(ids) for ids, _ in batch)
+                bucket = 64
+                while bucket < max_len:
+                    bucket *= 2
+                bucket = min(bucket, mpl)
+                ids = np.full((bs, bucket), tk.pad_id, np.int32)
+                mask = np.zeros((bs, bucket), np.int32)
+                types = np.zeros((bs, bucket), np.int32)
+                for i, (tok_ids, tok_types) in enumerate(batch):
+                    tok_ids = tok_ids[:bucket]
+                    tok_types = tok_types[: len(tok_ids)]
+                    ids[i, : len(tok_ids)] = tok_ids
+                    mask[i, : len(tok_ids)] = 1
+                    types[i, : len(tok_types)] = tok_types
             self.stats.flops_padded += _bert_matmul_flops(
                 self.cfg, bs * bucket, bucket
             )
+            real = 0
             for tok_ids, _ in batch:
                 ln = min(len(tok_ids), bucket)
+                real += ln
                 self.stats.flops_useful += _bert_matmul_flops(self.cfg, ln, ln)
+            METRICS.inc("rerank.tokens", real)
+            METRICS.inc("rerank.token_slots", bs * bucket)
             self.stats.buckets[bucket] = self.stats.buckets.get(bucket, 0) + 1
-            device_logits.append(self._launch(ids, mask, types))
+            with METRICS.timer("rerank.launch"):
+                device_logits.append(self._launch(ids, mask, types))
             batch_idx.append(idx)
             self.stats.batches += 1
         self.stats.pairs += len(pairs)
+        METRICS.inc("rerank.pairs", len(pairs))
         # one device-to-host copy for the whole stream
-        flat = torch.cat(device_logits).cpu().numpy()
+        with METRICS.timer("rerank.fetch"):
+            flat = torch.cat(device_logits).cpu().numpy()
         out = np.zeros((len(pairs),), np.float32)
         srcpos = 0
         for idx in batch_idx:

@@ -18,6 +18,14 @@ Endpoints:
 - ``GET /healthz``  → {"status": "ok", "rows": N, "dim": D, ...}
 - ``GET /metrics``  → the METRICS counters/timers snapshot
 
+Spans (``METRICS`` timers; while a torch profiler records, annotations on
+its clock): ``serve.request`` around a ``/search`` request,
+``serve.reply`` around each reply's JSON encode and write,
+``serve.queue_wait`` from a request's enqueue to its window's dispatch,
+and per engine call ``serve.dispatch`` and ``serve.batched_search``,
+whose annotations carry ``w=<n>`` (the batcher's n-th engine call) so one
+window joins across the batcher and completion threads.
+
 Concurrency: the engine's device state is single-stream, so requests
 can't fan out — instead a MICRO-BATCHER coalesces them. Handler threads
 enqueue their queries and block; one dispatcher thread drains the queue
@@ -42,7 +50,7 @@ log = get_logger("serve")
 
 
 class _Job:
-    __slots__ = ("queries", "key", "results", "error", "done")
+    __slots__ = ("queries", "key", "results", "error", "done", "t_submit")
 
     def __init__(self, queries, key):
         self.queries = queries
@@ -50,6 +58,7 @@ class _Job:
         self.results = None
         self.error: Exception | None = None
         self.done = threading.Event()
+        self.t_submit = time.perf_counter()
 
 
 class _ControlJob:
@@ -81,6 +90,7 @@ class MicroBatcher:
         self._queue: list[_Job] = []
         self._pending = 0
         self._closed = False
+        self._calls = 0  # engine calls dispatched: the ``w=<n>`` span tag
         # dispatch/fetch pipeline: the loop thread dispatches device work
         # (engine.search_dispatch) and hands the finish closure to the
         # completion thread, which fetches results and resolves jobs —
@@ -177,8 +187,13 @@ class MicroBatcher:
             for key, jobs in groups.items():
                 k, cats, alpha = key
                 all_q = [q for j in jobs for q in j.queries]
+                self._calls += 1
+                tag = f"w={self._calls}"
+                now = time.perf_counter()
+                for j in jobs:
+                    METRICS.observe_interval("serve.queue_wait", j.t_submit, now)
                 try:
-                    with METRICS.timer("serve.dispatch"):
+                    with METRICS.timer("serve.dispatch", tag):
                         finish = self.engine.search_dispatch(
                             all_q, k=k,
                             categories=None if cats is None else list(cats),
@@ -186,7 +201,7 @@ class MicroBatcher:
                         )
                     METRICS.inc("serve.batched_queries", len(all_q))
                     METRICS.inc("serve.engine_calls")
-                    self._completions.put((jobs, finish))
+                    self._completions.put((jobs, finish, tag))
                 except Exception as exc:  # noqa: BLE001 — per-group isolation
                     for j in jobs:
                         j.error = exc
@@ -196,7 +211,7 @@ class MicroBatcher:
                 # this empty window's finish has run, every window
                 # dispatched above and before has finished
                 barrier = threading.Event()
-                self._completions.put(([], barrier.set))
+                self._completions.put(([], barrier.set, None))
                 barrier.wait()
                 try:
                     cj.result = cj.fn()
@@ -209,12 +224,12 @@ class MicroBatcher:
             item = self._completions.get()
             if item is None:
                 return
-            jobs, finish = item
+            jobs, finish, tag = item
             if not jobs:  # the completion barrier: not a search, so untimed
                 finish()
                 continue
             try:
-                with METRICS.timer("serve.batched_search"):
+                with METRICS.timer("serve.batched_search", tag):
                     results = finish()
                 pos = 0
                 for j in jobs:
@@ -239,12 +254,13 @@ def make_handler(engine, index_stats: dict, batcher: MicroBatcher,
         protocol_version = "HTTP/1.1"
 
         def _reply(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with METRICS.timer("serve.reply"):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
         def log_message(self, fmt, *args):  # route through our logger
             log.debug("http: " + fmt, *args)
@@ -264,6 +280,10 @@ def make_handler(engine, index_stats: dict, batcher: MicroBatcher,
             if self.path != "/search":
                 self._reply(404, {"error": "not found"})
                 return
+            with METRICS.timer("serve.request"):
+                self._do_search()
+
+        def _do_search(self):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 req = json.loads(self.rfile.read(length) or b"{}")

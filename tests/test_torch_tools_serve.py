@@ -39,7 +39,8 @@ from arxiv_rag_tpu_torch.tools import serve_bench as sb
 REPO = Path(__file__).resolve().parents[1]
 ROWS = 3000
 EXTRA_KEYS = {"card", "launches", "retries"}
-PORT_ONLY_STAGES = {"search.hydrate"}
+# the port times hydration, and a request, its queue wait and its reply, as stages
+PORT_ONLY_STAGES = {"search.hydrate", "serve.request", "serve.queue_wait", "serve.reply"}
 SMALL_LOAD = ["--clients", "2", "--queries-per-client", "2", "--qbatch", "4", "--dtype", "int8"]
 # serve_bench's port with the encoder and cross-encoder cut (run as a script)
 CUT_SCRIPT = """
