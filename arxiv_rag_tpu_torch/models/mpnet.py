@@ -15,7 +15,13 @@ numerics exactly:
   RoBERTa position ids ``cumsum(mask)*mask+pad`` (:323-327) and the
   ``finfo(float32).min`` additive mask bias (:348-350);
 - attention is matmul → softmax → matmul (the reference's default
-  ``fused=False``); no fused attention operator is used;
+  ``fused=False``), with the softmax's probabilities normalised in fp32
+  and rounded to the compute dtype before the product with v. On the
+  card in bf16 with no gradient wanted, one hand-written kernel computes
+  the whole chain (``ops/attention.py``, ``csrc/attention.cu``: the same
+  roundings, its sums in another order); the CPU, fp32 and training run
+  the chain op by op (``attention_plain``). ``METRICS`` counts the two as
+  ``attn.fused`` and ``attn.plain``;
 - training: ``hidden`` and ``embed`` are ``forward`` and ``encode``
   with autograd (the serving pair runs them under ``no_grad``); on the
   card a bf16 product's backward is ``_MatmulF32``'s, JAX's transpose of
@@ -42,7 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from arxiv_rag_tpu_torch.device import default_device
-from arxiv_rag_tpu_torch.ops import w8a8
+from arxiv_rag_tpu_torch.logging_utils import METRICS
+from arxiv_rag_tpu_torch.ops import attention, w8a8
 
 PAD_TOKEN_ID = 1  # MPNet convention: <pad>=1 (HF MPNetEmbeddings.padding_idx)
 
@@ -272,22 +279,14 @@ class Attention(nn.Module):
         self.ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
     def forward(self, x, bias, mask_bias):
-        b, s, h = x.shape
-        nh, hd = self.cfg.num_attention_heads, self.cfg.head_dim
-
-        def split_heads(t):
-            return t.reshape(b, s, nh, hd).transpose(1, 2)
-
-        q = split_heads(_dense(x, self.q))
-        k = split_heads(_dense(x, self.k))
-        v = split_heads(_dense(x, self.v))
-        scores = _matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        if bias is not None:  # MPNet's relative position bias (BERT has none)
-            scores = scores + bias
-        scores = scores + mask_bias
-        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-        ctx = _matmul_f32(probs, v)
-        ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, s, h)
+        nh = self.cfg.num_attention_heads
+        q, k, v = _dense(x, self.q), _dense(x, self.k), _dense(x, self.v)
+        if attention.takes_kernel(x, self.cfg.head_dim, q, k, v, bias):
+            METRICS.inc("attn.fused")
+            ctx = attention.attention(q, k, v, bias, mask_bias, nh)
+        else:
+            METRICS.inc("attn.plain")
+            ctx = attention.attention_plain(q, k, v, bias, mask_bias, nh, matmul=_matmul_f32)
         out = _dense(ctx, self.o)
         return _layer_norm(out + x, self.ln)
 

@@ -39,7 +39,11 @@ its first failure:
    bitwise, with TOP/s, the share of the bound, K8 − K7 (the cost of the
    fused quantization) and the bf16 dense layer's time at each shape; the
    index's and the activations' int8 quantizations on the card bitwise
-   the CPU's;
+   the CPU's; then the encoders' fused attention at the embed cell's
+   shape ([1024, 12, 384, 64] with MPNet's relative bias) and at
+   MiniLM's ([1024, 12, 256, 32], no bias) against the chain it replaces,
+   with its bound, the chain's time and ``scaled_dot_product_attention``'s
+   as a yardstick;
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
    (device plan and host plan), checked against the plain scans; then
@@ -182,7 +186,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SOURCES = ("fused_topk", "w8a8")  # csrc/<name>.cu
+SOURCES = ("fused_topk", "w8a8", "attention")  # csrc/<name>.cu
 N_ROWS = 2_000_000  # the ~105k-paper arXiv CS corpus in chunks
 N_RAGGED = 1_999_937
 N_F32 = 262_144
@@ -1022,6 +1026,93 @@ def phase_w8a8_kernels(gen, results) -> None:
     torch.cuda.empty_cache()
 
 
+# (b, s, heads, head_dim, MPNet's relative bias): the embed cell's forward
+# at the 384 bucket; MiniLM-L6's pairs of 256, which pass no bias
+ATTN_SHAPES = ((1024, 384, 12, 64, True), (1024, 256, 12, 32, False))
+# the kernel against the chain in bf16 (tests/test_torch_attention.py):
+# sums in another order move a value across a bf16 rounding now and then
+ATTN_RTOL, ATTN_P_ULP, ATTN_MIN_EQUAL = 2.0 ** -7, 2.0 ** -9, 0.99
+
+
+def attention_bound(b: int, s: int, nh: int, hd: int):
+    """Least time for one attention call: q, k, v and the context in bf16
+    read or written once, against 4·b·s²·heads·head_dim FLOPs at the bf16
+    peak."""
+    t_bytes = 4 * b * s * nh * hd * 2 / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * b * s * s * nh * hd / PEAK_OPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_inputs(b, s, nh, hd, bias, gen):
+    """q, k, v as a bf16 encoder's dense layers give them, random lengths
+    (an eighth of the rows a lone CLS, as the embed batches' pad rows),
+    MPNet's relative bias from a random bucket table."""
+    from arxiv_rag_tpu_torch.models import mpnet
+
+    q, k, v = ((torch.randn(b, s, nh * hd, generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16) for _ in range(3))
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[0] = s
+    lens[b - b // 8:] = 1
+    am = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    mask_bias = (1.0 - am.to(torch.float32))[:, None, None, :] * torch.finfo(torch.float32).min
+    rel = None
+    if bias:
+        cfg = mpnet.ModelConfig(hidden_size=nh * hd, num_attention_heads=nh)
+        table = torch.randn(cfg.relative_attention_num_buckets, nh, generator=gen, device="cuda")
+        rel = mpnet.compute_position_bias(table, s, cfg)
+    return q, k, v, rel, mask_bias
+
+
+def phase_attention(gen, results) -> None:
+    """The encoders' fused attention at the embed cell's shape and at
+    MiniLM's, against the chain it replaces; ``scaled_dot_product_attention``
+    (the bias and mask as one bf16 mask) is timed as a yardstick only."""
+    import torch.nn.functional as F
+
+    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import attention as at
+
+    print("== phase 2 (attention): the fused kernel at the embed and the rerank shapes",
+          flush=True)
+    cases = []
+    for b, s, nh, hd, bias in ATTN_SHAPES:
+        q, k, v, rel, mb = attention_inputs(b, s, nh, hd, bias, gen)
+        shape = f"[{b}, {nh}, {s}, {hd}] {'with' if bias else 'without'} bias"
+        got = at.attention(q, k, v, rel, mb, nh)
+
+        def chain():
+            return at.attention_plain(q, k, v, rel, mb, nh, matmul=mpnet._matmul_f32)
+
+        want = chain()
+        diff = (got.float() - want.float()).abs()
+        limit = ATTN_RTOL * want.float().abs() + ATTN_P_ULP * v.float().abs().max()
+        equal = (got == want).float().mean().item()
+        if not bool((diff <= limit).all()) or equal < ATTN_MIN_EQUAL:
+            fail(f"attention {shape}: max |kernel - chain| {diff.max().item():.3e}, "
+                 f"{100 * equal:.3f}% bitwise equal")
+        del got, want, diff, limit
+        heads = [t.view(b, s, nh, hd).transpose(1, 2) for t in (q, k, v)]
+        lib_mask = (mb if rel is None else rel + mb).to(torch.bfloat16)
+        c = {"b": b, "s": s, "heads": nh, "head_dim": hd, "bias": bias,
+             "bitwise_equal_share": equal,
+             "ms": median_ms(lambda: at.attention(q, k, v, rel, mb, nh)),
+             "plain_ms": median_ms(chain, runs=PLAIN_RUNS),
+             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                 *heads, attn_mask=lib_mask), runs=PLAIN_RUNS)}
+        c["bound_ms"], c["bound_by"] = attention_bound(b, s, nh, hd)
+        c["tflops"] = 4.0 * b * s * s * nh * hd / c["ms"] / 1e9
+        print(f"  attention {shape}: kernel {c['ms']:.3f} ms, chain {c['plain_ms']:.3f} ms, "
+              f"library {c['library_ms']:.3f} ms, bound {c['bound_ms']:.3f} ms "
+              f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s, "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of the bound; "
+              f"{100 * equal:.3f}% of the context bitwise the chain's", flush=True)
+        cases.append(c)
+        del q, k, v, rel, mb, heads, lib_mask
+        torch.cuda.empty_cache()
+    results["attention_cases"] = cases
+
+
 class GCPauses:
     """Seconds the host spends in Python's cyclic garbage collector while
     it is entered (a host pause inside a timed window)."""
@@ -1078,18 +1169,21 @@ def timed_search(engine, qtexts, results, label, counters, runs=3, card="", **kw
 
 
 def all_launches() -> dict:
+    from arxiv_rag_tpu_torch.ops import attention as at
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops import w8a8
 
-    return {**ft.LAUNCHES, **w8a8.LAUNCHES}
+    return {**ft.LAUNCHES, **w8a8.LAUNCHES, **at.LAUNCHES}
 
 
 def reset_all_launches() -> None:
+    from arxiv_rag_tpu_torch.ops import attention as at
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops import w8a8
 
     ft.reset_launches()
     w8a8.reset_launches()
+    at.reset_launches()
 
 
 def hits_arrays(hits, nq, what):
@@ -4011,6 +4105,22 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
             "library_ms": main["library_ms"],
             "cases": cases,
         })
+    cases = results["attention_cases"]
+    main = cases[0]
+    out.append({
+        "name": "attention (the encoders' scores, bias, mask, fp32 softmax and P·V, "
+                "[1024, 12, 384, 64] with bias)",
+        "route": "cuda",
+        "source": "arxiv_rag_tpu_torch/csrc/attention.cu",
+        "kernel": "attention_kernel<64, bias> / <32, no bias> (wgmma + TMA, two passes)",
+        "replaces": "none: the reference runs the chain unfused (models/mpnet.py)",
+        "launches": launches["main"]["attention"],
+        "bitwise_equal_share": min(c["bitwise_equal_share"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "cases": cases,
+    })
     merges = results["sharded"]["kernels"]
     main = next(c for c in merges if c["kind"] == "bf16" and c["q"] == 512)
     out.append({
@@ -4121,6 +4231,7 @@ def main() -> int:
     indexes, f32_index, former = phase_kernels(gen, results)
     ivfs = phase_ivf(gen, results)
     phase_w8a8_kernels(gen, results)
+    phase_attention(gen, results)
 
     reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)
@@ -4136,6 +4247,8 @@ def main() -> int:
     for key, counter, _, _, (dtype, *_), _, path in KERNELS:
         if launches[path][counter] < 1:
             fail(f"the {path} path launched no {key} {dtype} ({counter}) kernel")
+    if launches["main"]["attention"] < 1:
+        fail("the main path's bf16 encoder launched no attention kernel")
     w8a8_launches = phase_w8a8_slice(indexes, engines, texts, results)  # counts its own run
     for key, counter in (("K8", "w8a8_matmul_fused_quant"), ("K1", "fused_topk"),
                          ("K2", "fused_topk_int8")):
