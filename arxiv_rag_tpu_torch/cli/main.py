@@ -22,8 +22,11 @@ following ``arxiv_rag_tpu/cli/main.py`` (every verb of it):
            report over ``extract`` output (``--extractions``)
   status   the chunk stage's progress, failed papers and corpus summary
   convert  an HF MPNet checkpoint (``model.safetensors`` + ``config.json``)
-           into the reference's native checkpoint, tokenizer files copied
-  embed    embed the corpus store's chunks into batch files (resumable)
+           into the reference's native checkpoint, tokenizer files copied;
+           a DeepSeek-V3 one (``config.json`` ``model_type`` deepseek_v3,
+           e.g. Moonlight-16B-A3B) into this package's safetensors files
+  embed    embed the corpus store's chunks into batch files (resumable;
+           a DeepSeek-V3 checkpoint embeds with its last token)
   index    build the dense index from an embed output directory
            (``--corpus``: categories from the corpus store), with
            ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it;
@@ -71,7 +74,7 @@ import threading
 from pathlib import Path
 
 
-def _native_tokenizer_or_none(vocab_path):
+def _native_tokenizer_or_none(vocab_path, specials=None):
     """The C++ batch tokenizer when a real vocab exists and the native
     library builds; None (announced) otherwise."""
     if not (vocab_path and Path(vocab_path).exists()):
@@ -79,23 +82,41 @@ def _native_tokenizer_or_none(vocab_path):
     from arxiv_rag_tpu_torch.tokenize.native import NativeWordPieceTokenizer
 
     try:
-        return NativeWordPieceTokenizer(vocab_path)
+        return NativeWordPieceTokenizer(vocab_path, **({} if specials is None else
+                                                       {"specials": specials}))
     except RuntimeError as exc:
         print(f"note: native tokenizer unavailable ({exc}); using Python", file=sys.stderr)
         return None
 
 
-def _tokenizer_or_toy(vocab_path):
+def _tokenizer_or_toy(vocab_path, specials=None):
     """Real vocab when available; the toy char-level vocab is for smoke
     runs only and is announced."""
     from arxiv_rag_tpu_torch.tokenize.wordpiece import WordPieceTokenizer
 
     if vocab_path and Path(vocab_path).exists():
-        return WordPieceTokenizer.from_vocab_file(vocab_path)
+        return WordPieceTokenizer.from_vocab_file(vocab_path, **({} if specials is None else
+                                                                 {"specials": specials}))
     print("WARNING: no vocab.txt found - using the toy char-level vocab "
           "(fine for random-init smoke runs, wrong for real checkpoints)",
           file=sys.stderr)
     return WordPieceTokenizer.toy()
+
+
+def _decoder_specials(vocab_path, cfg):
+    """A decoder's WordPiece specials from its vocab.txt: BOS in CLS's
+    place, EOS in SEP's and as the pad (pad rows are never read: attention
+    is causal and pooling reads the last real token)."""
+    from arxiv_rag_tpu_torch.tokenize.wordpiece import SpecialTokens
+
+    if not (vocab_path and Path(vocab_path).exists()):
+        raise FileNotFoundError(f"a decoder checkpoint needs its vocab.txt ({vocab_path})")
+    toks = Path(vocab_path).read_text().split("\n")
+    unk = next((t for t in ("[UNK]", "<unk>", "<|unk|>") if t in toks), None)
+    if unk is None:
+        raise ValueError(f"{vocab_path} has no unknown-token entry")
+    bos, eos = toks[cfg.bos_token_id], toks[cfg.eos_token_id]
+    return SpecialTokens(cls=bos, sep=eos, pad=eos, unk=unk, mask=unk)
 
 
 def _add_download(sub) -> None:
@@ -399,20 +420,25 @@ def cmd_status(args) -> int:
 
 
 def _add_convert(sub) -> None:
-    p = sub.add_parser("convert", help="convert an HF MPNet checkpoint")
-    p.add_argument("--hf-dir", required=True, help="dir with model.safetensors + config.json")
+    p = sub.add_parser("convert", help="convert an HF MPNet or DeepSeek-V3 checkpoint")
+    p.add_argument("--hf-dir", required=True, help="dir with *.safetensors + config.json")
     p.add_argument("--out", required=True)
 
 
 def cmd_convert(args) -> int:
     from arxiv_rag_tpu_torch.models.convert import (
+        convert_deepseek_v3,
         from_safetensors,
+        is_deepseek_v3,
         load_model_config,
         save_checkpoint,
     )
 
-    cfg = load_model_config(args.hf_dir)
-    save_checkpoint(args.out, from_safetensors(args.hf_dir, cfg), cfg)
+    if is_deepseek_v3(args.hf_dir):
+        cfg = convert_deepseek_v3(args.hf_dir, args.out)
+    else:
+        cfg = load_model_config(args.hf_dir)
+        save_checkpoint(args.out, from_safetensors(args.hf_dir, cfg), cfg)
     # embed, search and serve look for vocab.txt beside the checkpoint
     copied = []
     for name in ("vocab.txt", "tokenizer.json", "tokenizer_config.json",
@@ -445,7 +471,7 @@ def cmd_embed(args) -> int:
     from arxiv_rag_tpu_torch.device import default_device
     from arxiv_rag_tpu_torch.embed import Embedder
     from arxiv_rag_tpu_torch.embed.runner import embed_batches
-    from arxiv_rag_tpu_torch.models.convert import load_model
+    from arxiv_rag_tpu_torch.models.convert import is_deepseek_v3, load_deepseek_v3, load_model
     from arxiv_rag_tpu_torch.models.mpnet import random_model
     from arxiv_rag_tpu_torch.store.corpus import CorpusReader
 
@@ -453,7 +479,12 @@ def cmd_embed(args) -> int:
         print("need --checkpoint or --random-init", file=sys.stderr)
         return 2
     dev = default_device(args.device)
-    if args.checkpoint:  # the bf16 encoder, as the reference's verb runs it
+    specials = ()  # the tokenizers' specials: MPNet's by default
+    if args.checkpoint and is_deepseek_v3(args.checkpoint):  # the bf16 decoder embedder
+        model, cfg = load_deepseek_v3(args.checkpoint, device=dev)
+        vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
+        specials = (_decoder_specials(vocab_path, cfg),)
+    elif args.checkpoint:  # the bf16 encoder, as the reference's verb runs it
         model, _ = load_model(args.checkpoint, device=dev)
         vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
     else:
@@ -464,8 +495,10 @@ def cmd_embed(args) -> int:
         from arxiv_rag_tpu_torch.parallel import data_mesh
 
         mesh = data_mesh(device=dev)
-    embedder = Embedder(model, _tokenizer_or_toy(vocab_path), batch_size=args.batch_size,
-                        native_tokenizer=_native_tokenizer_or_none(vocab_path), mesh=mesh)
+    embedder = Embedder(model, _tokenizer_or_toy(vocab_path, *specials),
+                        batch_size=args.batch_size,
+                        native_tokenizer=_native_tokenizer_or_none(vocab_path, *specials),
+                        mesh=mesh)
     batches = ((b.column("chunk_id").to_pylist(), b.column("text").to_pylist())
                for b in CorpusReader(args.corpus).iter_batches(
                    batch_size=8192, columns=["chunk_id", "text"],

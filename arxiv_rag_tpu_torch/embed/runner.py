@@ -1,12 +1,17 @@
-"""Embedding runner: length-bucketed batching over the MPNet module.
+"""Embedding runner: length-bucketed batching over a sentence encoder.
 
 The port of ``arxiv_rag_tpu/embed/runner.py``: tokenize on the host (the
 Python WordPiece tokenizer, or the C++ core of ``tokenize/native.py``
 when one is given), group rows by length bucket, pad each batch to an
-allowed height (pad rows carry one CLS token so pooling never divides by
-zero), run the encoder on the device, and restore the original order by
-position. With a mesh (``parallel.DeviceMesh`` of this process's
-devices) each padded batch splits evenly over its entries, each slice
+allowed height (pad rows carry one CLS token, BOS for a decoder, so
+pooling always has a real token), run the encoder on the device, and
+restore the original order by position. The encoder is any module with
+``encode(ids, mask, normalize)`` and a ``cfg.hidden_size`` output width:
+MPNet (``models/mpnet.py``, mean-pooled) or a DeepSeek-V3 decoder
+(``models/deepseek_v3.py``, last-token pooled); a model with
+``drain_counters`` has its device-side counters read into ``METRICS`` at
+``encode_texts``' fetch. With a mesh (``parallel.DeviceMesh`` of this
+process's devices) each padded batch splits evenly over its entries, each slice
 encoded on its entry's device by a replica of the model, and the slices
 come back in order: the data-parallel embedder of the reference
 (``:98-108``, ``:206-208``).
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from arxiv_rag_tpu_torch.logging_utils import METRICS
-from arxiv_rag_tpu_torch.models.mpnet import MPNet, quantize_params_int8
+from arxiv_rag_tpu_torch.models.mpnet import quantize_params_int8
 from arxiv_rag_tpu_torch.tokenize import WordPieceTokenizer
 
 
@@ -40,8 +45,9 @@ class Embedder:
     """Batched sentence embeddings on the model's device.
 
     Args:
-        model: the MPNet module (its parameters' device is where batches run).
-        tokenizer: WordPiece tokenizer with MPNet specials.
+        model: the encoder module (its parameters' device is where batches run).
+        tokenizer: WordPiece tokenizer with the model's specials (its CLS
+            and SEP are a decoder's BOS and EOS).
         buckets: padded sequence lengths, ascending.
         batch_size / batch_sizes: allowed padded batch heights; a batch
             pads to the smallest height that fits.
@@ -59,7 +65,7 @@ class Embedder:
 
     def __init__(
         self,
-        model: MPNet,
+        model: torch.nn.Module,
         tokenizer: WordPieceTokenizer,
         *,
         buckets: Sequence[int] = (64, 128, 256, 384),
@@ -87,6 +93,8 @@ class Embedder:
             model = self._replicas[0]
         self.model = model
         self.cfg = model.cfg
+        self.dim = model.cfg.hidden_size  # the embeddings' width
+        self._drain_counters = getattr(model, "drain_counters", None)
         self.tokenizer = tokenizer
         self.native_tokenizer = native_tokenizer
         self.buckets = tuple(sorted(buckets))
@@ -101,7 +109,7 @@ class Embedder:
 
     @property
     def device(self) -> torch.device:
-        return self.model.word.weight.device
+        return next(self.model.parameters()).device
 
     # -- host side -------------------------------------------------------
 
@@ -200,8 +208,8 @@ class Embedder:
                  for s, m in enumerate(self._replicas)]
         return torch.cat([p.to(self.device) for p in parts])
 
-    def _encode(self, model: MPNet, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        dev = model.word.weight.device
+    def _encode(self, model: torch.nn.Module, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        dev = next(model.parameters()).device
         x_ids = torch.from_numpy(ids.astype(np.int64)).to(dev, non_blocking=True)
         x_mask = torch.from_numpy(np.ascontiguousarray(mask)).to(dev, non_blocking=True)
         return model.encode(x_ids, x_mask, normalize=self.normalize)
@@ -209,8 +217,8 @@ class Embedder:
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         """[len(texts), hidden] fp32 embeddings, original order."""
         if not len(texts):
-            return np.zeros((0, self.cfg.hidden_size), np.float32)
-        out = np.empty((len(texts), self.cfg.hidden_size), np.float32)
+            return np.zeros((0, self.dim), np.float32)
+        out = np.empty((len(texts), self.dim), np.float32)
         with METRICS.timer("embed.tokenize"):
             bucketed = self.tokenize_bucketed(texts)
         pending: list[tuple[list[int], torch.Tensor, int]] = []
@@ -224,6 +232,10 @@ class Embedder:
             with METRICS.timer("embed.fetch"):
                 for bpos, emb, n in pending:
                     out[np.asarray(bpos)] = emb[:n].cpu().numpy()
+                if self._drain_counters is not None:
+                    for m in self._replicas or (self.model,):
+                        for name, value in m.drain_counters().items():
+                            METRICS.inc(name, value)
         self._drained_at = time.perf_counter()
         self.stats.texts += len(texts)
         METRICS.inc("embed.texts", len(texts))
@@ -235,7 +247,7 @@ class Embedder:
         straight into another device op. The order is restored on the
         device (one ``index_select``)."""
         if not len(texts):
-            return torch.zeros((0, self.cfg.hidden_size), dtype=torch.float32,
+            return torch.zeros((0, self.dim), dtype=torch.float32,
                                device=self.device)
         parts: list[torch.Tensor] = []
         pos_all: list[int] = []
@@ -313,7 +325,7 @@ def embed_batches(
     Returns {"embedded", "resumed_batches", "batches", "stats"}."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    dim = embedder.cfg.hidden_size
+    dim = embedder.dim
     manifest = {"batches": [], "dim": dim, "model": model}
     total = resumed = 0
     # the device's wait before the loop's first batch is set-up, not starvation

@@ -365,3 +365,134 @@ def load_model(directory: str | Path, *, compute_dtype: str | torch.dtype = torc
     state, cfg = load_checkpoint(directory)
     return build_model(state, cfg, compute_dtype=compute_dtype_of(compute_dtype),
                        device=device), cfg
+
+
+# --- DeepSeek-V3 (the decoder embedder) ----------------------------------------
+
+_DSV3_ATTN = {"attn_norm.weight": "input_layernorm.weight",
+              "ffn_norm.weight": "post_attention_layernorm.weight",
+              "attn.q.weight": "self_attn.q_proj.weight",
+              "attn.kv_a.weight": "self_attn.kv_a_proj_with_mqa.weight",
+              "attn.kv_norm.weight": "self_attn.kv_a_layernorm.weight",
+              "attn.kv_b.weight": "self_attn.kv_b_proj.weight",
+              "attn.o.weight": "self_attn.o_proj.weight"}
+
+
+def is_deepseek_v3(directory: str | Path) -> bool:
+    """Whether ``directory``'s ``config.json`` names a DeepSeek-V3 model."""
+    path = Path(directory) / "config.json"
+    return path.exists() and json.loads(path.read_text()).get("model_type") == "deepseek_v3"
+
+
+def _swiglu_from_hf(get, prefix: str) -> dict[str, torch.Tensor]:
+    """``{prefix}{gate,up,down}_proj.weight`` → ``w13`` (gate rows, then up) and ``w2``."""
+    return {"w13": torch.cat([get(prefix + "gate_proj.weight"), get(prefix + "up_proj.weight")]),
+            "w2": get(prefix + "down_proj.weight")}
+
+
+def deepseek_v3_layer_from_hf(get, cfg, i: int) -> dict[str, torch.Tensor]:
+    """Layer ``i`` of an HF DeepSeek-V3 checkpoint (``get(name)`` → tensor,
+    the published names) → this package's ``DeepseekV3`` state entries:
+    routed experts stacked ([E, 2·I, H] and [E, H, I]), each MLP's gate and
+    up stacked, the correction bias in fp32."""
+    pre, out = f"model.layers.{i}.", {}
+    for ours, theirs in _DSV3_ATTN.items():
+        out[f"layers.{i}.{ours}"] = get(pre + theirs)
+    if not cfg.is_moe(i):
+        for k, v in _swiglu_from_hf(get, pre + "mlp.").items():
+            out[f"layers.{i}.mlp.{k}.weight"] = v
+        return out
+    out[f"layers.{i}.mlp.gate.weight"] = get(pre + "mlp.gate.weight")
+    out[f"layers.{i}.mlp.e_score_correction_bias"] = \
+        get(pre + "mlp.gate.e_score_correction_bias").to(torch.float32)
+    experts = [_swiglu_from_hf(get, f"{pre}mlp.experts.{e}.") for e in range(cfg.n_routed_experts)]
+    out[f"layers.{i}.mlp.w13"] = torch.stack([x["w13"] for x in experts])
+    out[f"layers.{i}.mlp.w2"] = torch.stack([x["w2"] for x in experts])
+    if cfg.n_shared_experts:
+        for k, v in _swiglu_from_hf(get, pre + "mlp.shared_experts.").items():
+            out[f"layers.{i}.mlp.shared.{k}.weight"] = v
+    return out
+
+
+def deepseek_v3_from_hf(get, cfg) -> dict[str, torch.Tensor]:
+    """A whole HF DeepSeek-V3 checkpoint → this package's state dict
+    (``lm_head`` is not read: the embedder holds no LM head)."""
+    out = {"embed.weight": get("model.embed_tokens.weight"),
+           "norm.weight": get("model.norm.weight")}
+    for i in range(cfg.num_hidden_layers):
+        out.update(deepseek_v3_layer_from_hf(get, cfg, i))
+    return out
+
+
+def _safetensors(directory: str | Path) -> dict:
+    """{tensor name: the open file holding it} over every ``*.safetensors``
+    file of ``directory`` (a sharded HF checkpoint or this package's)."""
+    from safetensors import safe_open  # the card's machine may lack it
+
+    files = sorted(Path(directory).glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors file in {directory}")
+    where = {}
+    for path in files:
+        h = safe_open(str(path), framework="pt")
+        for key in h.keys():
+            where[key] = h
+    return where
+
+
+def safetensors_getter(directory: str | Path):
+    """``get(name)`` → CPU tensor, each read from ``directory``'s files when
+    asked for."""
+    where = _safetensors(directory)
+    return lambda name: where[name].get_tensor(name)
+
+
+def convert_deepseek_v3(hf_dir: str | Path, out_dir: str | Path):
+    """An HF DeepSeek-V3 checkpoint directory → this package's: the
+    config as published (``config.json``) and the weights under this
+    package's names, one ``model-{n:05d}.safetensors`` for the embedding
+    and final norm and one per layer, so no more than a layer is held at
+    once. Returns the config."""
+    from safetensors.torch import save_file
+
+    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+
+    hf_dir, out_dir = Path(hf_dir), Path(out_dir)
+    raw = json.loads((hf_dir / "config.json").read_text())
+    cfg = DeepseekV3Config.from_dict(raw)
+    get = safetensors_getter(hf_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_file({"embed.weight": get("model.embed_tokens.weight").contiguous(),
+               "norm.weight": get("model.norm.weight").contiguous()},
+              str(out_dir / "model-00000.safetensors"))
+    for i in range(cfg.num_hidden_layers):
+        layer = {k: v.contiguous() for k, v in deepseek_v3_layer_from_hf(get, cfg, i).items()}
+        save_file(layer, str(out_dir / f"model-{i + 1:05d}.safetensors"))
+    (out_dir / "config.json").write_text(json.dumps(raw, indent=1))
+    return cfg
+
+
+def build_deepseek_v3(state: Mapping[str, torch.Tensor], cfg, *,
+                      compute_dtype: torch.dtype = torch.bfloat16, device=None):
+    """``DeepseekV3`` holding ``state`` as given (no copy on ``device``)."""
+    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3
+
+    dev = default_device(device)
+    with torch.device("meta"):
+        model = DeepseekV3(cfg, compute_dtype)
+    model.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
+    return model.eval()
+
+
+def load_deepseek_v3(directory: str | Path, *, compute_dtype: torch.dtype = torch.bfloat16,
+                     device=None):
+    """(model, config) from this package's DeepSeek-V3 checkpoint
+    (``convert_deepseek_v3``), its weights moved to ``device`` one file at
+    a time; the parameters keep the file's dtype."""
+    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+
+    directory = Path(directory)
+    cfg = DeepseekV3Config.from_dict(json.loads((directory / "config.json").read_text()))
+    dev = default_device(device)
+    state = {k: h.get_tensor(k).to(dev) for k, h in _safetensors(directory).items()}
+    return build_deepseek_v3(state, cfg, compute_dtype=compute_dtype, device=dev), cfg

@@ -152,6 +152,28 @@ def test_tools_import_no_jax_transformers_or_ml_dtypes():
     assert int(out.stdout.split()[0]) >= 6
 
 
+def test_decoder_modules_import_no_jax():
+    """The DeepSeek-V3 embedder (the model, the MoE ops, the converter),
+    its plain reference and its benchmark cell's modules load no JAX and
+    nothing of the JAX package, with pyarrow and safetensors blocked as
+    the card's machine may lack them; the reference imports nothing of
+    the port."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys\nsys.modules['pyarrow'] = None\nsys.modules['safetensors'] = None\n"
+            "import benchmark.reference.deepseek_v3\n"
+            "assert not any(m.startswith('arxiv_rag_tpu_torch') for m in sys.modules)\n"
+            "import arxiv_rag_tpu_torch.models.deepseek_v3, arxiv_rag_tpu_torch.ops.moe\n"
+            "import arxiv_rag_tpu_torch.models.convert, arxiv_rag_tpu_torch.embed.runner\n"
+            "import benchmark.kinds.embed_moe_stream, benchmark.moe_inputs, benchmark.flops_moe\n"
+            "import benchmark.check_moe\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'arxiv_rag_tpu'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
