@@ -7,7 +7,14 @@ numerics exactly:
 - dense layers and both attention products take operands in the
   compute dtype and give an fp32 result (``_matmul_f32``); a dense
   layer adds its bias in fp32, then casts back (``_dense``, :153-162).
-  fp32 compute is full fp32;
+  fp32 compute is full fp32. On the card in bf16 with no gradient
+  wanted, one hand-written GEMM computes a dense layer whole, the bias
+  and the rounding in its epilogue, and for ``ffn.inp`` the GELU after
+  that rounding too (``ops/dense.py``, ``csrc/dense.cu``: the same
+  roundings, its sums perhaps in another order); the CPU, fp32,
+  training and W8A8 run the chain op by op (``dense_plain``,
+  ``_dense_int8``). ``METRICS`` counts the two as ``dense.fused`` and
+  ``dense.plain``;
 - LayerNorm in fp32 with eps 1e-5, cast back to the compute dtype
   (:134-141); exact GELU in fp32 (:318); softmax in fp32, cast to the
   compute dtype (:306);
@@ -49,7 +56,7 @@ from torch import nn
 
 from arxiv_rag_tpu_torch.device import default_device
 from arxiv_rag_tpu_torch.logging_utils import METRICS
-from arxiv_rag_tpu_torch.ops import attention, w8a8
+from arxiv_rag_tpu_torch.ops import attention, dense, w8a8
 
 PAD_TOKEN_ID = 1  # MPNet convention: <pad>=1 (HF MPNetEmbeddings.padding_idx)
 
@@ -245,13 +252,19 @@ class QuantLinear(nn.Module):
         return torch.round(w32 / scale).to(torch.int8), scale[:, 0]
 
 
-def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+def _dense(x: torch.Tensor, lin: nn.Module, gelu: bool = False) -> torch.Tensor:
     """x @ W^T in the compute dtype with an fp32 result, + fp32 bias, cast
-    back to the compute dtype: one rounding, after the bias."""
+    back to the compute dtype: one rounding, after the bias; with ``gelu``,
+    then exact GELU in fp32, cast back. The kernel where ``takes_kernel``
+    holds, else the chain (W8A8: K8, then the GELU apart)."""
+    if dense.takes_kernel(x, lin):
+        METRICS.inc("dense.fused")
+        return dense.dense(x, lin.weight.to(x.dtype), lin.bias, gelu)
+    METRICS.inc("dense.plain")
     if isinstance(lin, QuantLinear):
-        return _dense_int8(x, lin)
-    y = _matmul_f32(x, lin.weight.to(x.dtype).T)
-    return (y + lin.bias.to(torch.float32)).to(x.dtype)
+        y = _dense_int8(x, lin)
+        return dense.gelu_plain(y) if gelu else y
+    return dense.dense_plain(x, lin.weight.to(x.dtype), lin.bias, gelu, matmul=_matmul_f32)
 
 
 def _dense_int8(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
@@ -300,8 +313,7 @@ class FeedForward(nn.Module):
         self.ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x):
-        y = _dense(x, self.inp)
-        y = F.gelu(y.to(torch.float32), approximate="none").to(x.dtype)
+        y = _dense(x, self.inp, gelu=True)
         y = _dense(y, self.out)
         return _layer_norm(y + x, self.ln)
 

@@ -43,7 +43,12 @@ its first failure:
    shape ([1024, 12, 384, 64] with MPNet's relative bias) and at
    MiniLM's ([1024, 12, 256, 32], no bias) against the chain it replaces,
    with its bound, the chain's time and ``scaled_dot_product_attention``'s
-   as a yardstick;
+   as a yardstick; then the encoders' dense layers (D1: the GEMM with the
+   bias, the rounding and ffn.inp's GELU in its epilogue) at the embed
+   cell's rows (M = 393,216, all-mpnet-base-v2's three shapes) and at
+   MiniLM's (M = 262,144) against the chain, with its bound, the chain's
+   time and, as yardsticks, ``torch.mm(out_dtype=float32)`` with the bias
+   add and cast, and ``F.linear`` in bf16;
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
    (device plan and host plan), checked against the plain scans; then
@@ -186,7 +191,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SOURCES = ("fused_topk", "w8a8", "attention")  # csrc/<name>.cu
+SOURCES = ("fused_topk", "w8a8", "attention", "dense")  # csrc/<name>.cu
 N_ROWS = 2_000_000  # the ~105k-paper arXiv CS corpus in chunks
 N_RAGGED = 1_999_937
 N_F32 = 262_144
@@ -1113,6 +1118,92 @@ def phase_attention(gen, results) -> None:
     results["attention_cases"] = cases
 
 
+# the embed cell's 384-token bucket (1,024 rows) through all-mpnet-base-v2's
+# dense layers, and MiniLM-L6's pairs of 256: (M, K, N, gelu)
+DENSE_SHAPES = ((393216, 768, 768, False), (393216, 768, 3072, True), (393216, 3072, 768, False),
+                (262144, 384, 384, False), (262144, 384, 1536, True), (262144, 1536, 384, False))
+# the kernel against the chain in bf16 (tests/test_torch_dense.py): equal or
+# one bf16 ulp apart, 2^-16 of an output's rms size where it cancels toward
+# zero, a GELU output also its input's step times GELU's largest slope
+DENSE_ABS, DENSE_SLOPE, DENSE_MIN_EQUAL = 2.0 ** -16, 1.13, 0.99
+
+
+def dense_bound(m: int, k: int, n: int):
+    """Least time for one dense layer: x, W and the bf16 output read or
+    written once, against 2·M·K·N FLOPs at the bf16 peak."""
+    t_bytes = (m * k + n * k + m * n) * 2 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / PEAK_OPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    a = t.abs().to(torch.bfloat16)
+    return (a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float()
+
+
+def phase_dense(gen, results) -> None:
+    """The encoders' dense layers at the embed cell's rows and at
+    MiniLM's, against the chain they replace; ``torch.mm(out_dtype=
+    float32)`` with the bias add and cast (the chain's GEMM alone, no GELU)
+    and ``F.linear`` in bf16 (cuBLASLt's bias epilogue) are timed as
+    yardsticks only."""
+    import torch.nn.functional as F
+
+    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import dense as dn
+
+    print("== phase 2 (dense): the fused GEMM at the embed and the rerank shapes", flush=True)
+    cases = []
+    for m, k, n, gelu in DENSE_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+        b = (torch.randn(n, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        shape = f"{m} x {k} -> {n}{' + GELU' if gelu else ''}"
+        got = dn.dense(x, w, b, gelu)
+        absolute = DENSE_ABS * k ** 0.5 * x.float().pow(2).mean().sqrt() * \
+            w.float().pow(2).mean().sqrt()
+        equal, worst = 0, 0.0
+        for r0 in range(0, m, 32768):
+            y = dn.dense_plain(x[r0:r0 + 32768], w, b, False, matmul=mpnet._matmul_f32)
+            want = dn.gelu_plain(y) if gelu else y
+            g = got[r0:r0 + 32768]
+            limit = bf16_ulp(want) + (DENSE_SLOPE * (bf16_ulp(y) + absolute) if gelu
+                                      else absolute)
+            diff = (g.float() - want.float()).abs()
+            worst = max(worst, (diff / limit).max().item())
+            equal += (g == want).sum().item()
+            del y, want, g, limit, diff
+        equal /= got.numel()
+        if worst > 1.0 or equal < DENSE_MIN_EQUAL:
+            fail(f"dense {shape}: largest |kernel - chain| / limit {worst:.3f}, "
+                 f"{100 * equal:.4f}% bitwise equal")
+        del got
+
+        def chain():
+            return dn.dense_plain(x, w, b, gelu, matmul=mpnet._matmul_f32)
+
+        def library():
+            return (torch.mm(x, w.T, out_dtype=torch.float32) + b.float()).to(torch.bfloat16)
+
+        c = {"m": m, "k": k, "n": n, "gelu": gelu, "bitwise_equal_share": equal,
+             "worst_over_limit": worst,
+             "ms": median_ms(lambda: dn.dense(x, w, b, gelu)),
+             "plain_ms": median_ms(chain, runs=PLAIN_RUNS),
+             "library_ms": median_ms(library, runs=PLAIN_RUNS),
+             "linear_ms": median_ms(lambda: F.linear(x, w, b), runs=PLAIN_RUNS)}
+        c["bound_ms"], c["bound_by"] = dense_bound(m, k, n)
+        c["tflops"] = 2.0 * m * k * n / c["ms"] / 1e9
+        print(f"  dense {shape}: kernel {c['ms']:.4f} ms, chain {c['plain_ms']:.4f} ms, "
+              f"mm + bias + cast {c['library_ms']:.4f} ms, F.linear bf16 {c['linear_ms']:.4f} "
+              f"ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}), {c['tflops']:.1f} TFLOP/s, "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}% of the bound; {100 * equal:.4f}% bitwise "
+              f"the chain's", flush=True)
+        cases.append(c)
+        del x, w, b
+        torch.cuda.empty_cache()
+    results["dense_cases"] = cases
+
+
 class GCPauses:
     """Seconds the host spends in Python's cyclic garbage collector while
     it is entered (a host pause inside a timed window)."""
@@ -1170,20 +1261,23 @@ def timed_search(engine, qtexts, results, label, counters, runs=3, card="", **kw
 
 def all_launches() -> dict:
     from arxiv_rag_tpu_torch.ops import attention as at
+    from arxiv_rag_tpu_torch.ops import dense as dn
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops import w8a8
 
-    return {**ft.LAUNCHES, **w8a8.LAUNCHES, **at.LAUNCHES}
+    return {**ft.LAUNCHES, **w8a8.LAUNCHES, **at.LAUNCHES, **dn.LAUNCHES}
 
 
 def reset_all_launches() -> None:
     from arxiv_rag_tpu_torch.ops import attention as at
+    from arxiv_rag_tpu_torch.ops import dense as dn
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
     from arxiv_rag_tpu_torch.ops import w8a8
 
     ft.reset_launches()
     w8a8.reset_launches()
     at.reset_launches()
+    dn.reset_launches()
 
 
 def hits_arrays(hits, nq, what):
@@ -4121,6 +4215,22 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
         "library_ms": main["library_ms"],
         "cases": cases,
     })
+    cases = results["dense_cases"]
+    main = cases[1]
+    out.append({
+        "name": "dense (the encoders' GEMM, fp32 bias, one bf16 rounding and ffn.inp's GELU in "
+                "the epilogue, M=393216 K=768 N=3072 + GELU)",
+        "route": "cuda",
+        "source": "arxiv_rag_tpu_torch/csrc/dense.cu",
+        "kernel": "dense_kernel<gelu> (wgmma m64n192k16 + TMA, persistent, 128 x 192 tiles)",
+        "replaces": "none: the reference leaves the dense layer to XLA, which fuses its epilogue",
+        "launches": launches["main"]["dense"],
+        "bitwise_equal_share": min(c["bitwise_equal_share"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "cases": cases,
+    })
     merges = results["sharded"]["kernels"]
     main = next(c for c in merges if c["kind"] == "bf16" and c["q"] == 512)
     out.append({
@@ -4232,6 +4342,7 @@ def main() -> int:
     ivfs = phase_ivf(gen, results)
     phase_w8a8_kernels(gen, results)
     phase_attention(gen, results)
+    phase_dense(gen, results)
 
     reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)
@@ -4249,6 +4360,8 @@ def main() -> int:
             fail(f"the {path} path launched no {key} {dtype} ({counter}) kernel")
     if launches["main"]["attention"] < 1:
         fail("the main path's bf16 encoder launched no attention kernel")
+    if launches["main"]["dense"] < 1:
+        fail("the main path's bf16 encoder launched no dense kernel")
     w8a8_launches = phase_w8a8_slice(indexes, engines, texts, results)  # counts its own run
     for key, counter in (("K8", "w8a8_matmul_fused_quant"), ("K1", "fused_topk"),
                          ("K2", "fused_topk_int8")):
