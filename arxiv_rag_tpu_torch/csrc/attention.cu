@@ -52,9 +52,7 @@
 // 32 registers a thread; holding a 64 x 512 fp32 row block instead would
 // take 128 KB of shared memory a warpgroup. Measured times are in PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 #include <math.h>
 #include <stdint.h>
 
@@ -86,36 +84,7 @@ __host__ __device__ constexpr size_t smem_bytes(int hd, int seq, int groups, boo
          (groups + 2 * n_tiles(seq)) * sizeof(uint64_t);
 }
 
-// -- TMA, mbarriers and wgmma (as csrc/w8a8.cu) --------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+// -- TMA and wgmma beside hopper.cuh's ---------------------------------------------
 
 // One 3-D TMA box (columns c0.., rows c1.., batch c2) into shared memory;
 // completion is counted in bytes on `bar`. Rows past s arrive as zeros.
@@ -211,11 +180,6 @@ template <int N>
 __device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -487,26 +451,6 @@ __global__ void __launch_bounds__(kMaxGroups * 128, 1)
 
 // -- launch ------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links only the
-// CUDA runtime, which hands out its entry point.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A bf16 [b, s, width] row-major tensor read (or written) in boxes of
 // hd columns x 64 rows of one batch, swizzled as tile_desc reads them;
 // rows past s read as zeros and are not written.
@@ -588,10 +532,6 @@ int arag_attention(int hd, const void* q, const void* k, const void* v, void* ou
                                  : launch<64, false>(maps, a, b, heads, st));
   return static_cast<int>(bias ? launch<32, true>(maps, a, b, heads, st)
                                : launch<32, false>(maps, a, b, heads, st));
-}
-
-const char* arag_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -55,9 +55,7 @@
 // included, runs under the next tile's products. Measured times are in
 // PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 #include <math.h>
 #include <stdint.h>
 
@@ -92,52 +90,7 @@ struct Args {
 constexpr size_t kSmem =
     1024 + kStages * kStage + kGroups * kOut + (2 * kStages + 2 * kGroups) * sizeof(uint64_t);
 
-// -- TMA, mbarriers and wgmma (as csrc/w8a8.cu) -------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (columns c0.., rows c1..) into shared memory; completion
-// is counted in bytes on `bar`. Rows and columns past the map's extent
-// arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
+// -- TMA and wgmma beside hopper.cuh's ---------------------------------------------
 
 // One 2-D TMA box out of shared memory (a bulk group of its own is
 // committed by the caller); rows and columns past the map's extent are
@@ -148,16 +101,6 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                    "l"(reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused for this layout. The tile base is 1024-byte
-// aligned, so a 32-byte k-step inside it is a 32-byte start offset.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
 }
 
 // The 96 accumulator registers of an m64n192 wgmma, as asm operands.
@@ -206,11 +149,6 @@ __device__ __forceinline__ float2 bias_pair(const Args& a, int n) {
 // it: 0.5f * y * (1.0f + erff(y * M_SQRT1_2)).
 __device__ __forceinline__ float gelu(float y) {
   return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(y, kSqrtHalf))));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // GELU of the two bf16 values of a word, rounded back to bf16.
@@ -391,26 +329,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- launch ------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links only the
-// CUDA runtime, which hands out its entry point.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A bf16 [rows, cols] row-major tensor read (or written) in boxes of
 // box_rows x 64 columns with the 128-byte swizzle; rows and columns past
 // the extent read as zeros and are not written.
@@ -475,10 +393,6 @@ int arag_dense(int gelu, const void* x, const void* w, int bias_kind, const void
   const Args a{bias, bias_kind, m, n, k};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(gelu ? launch<true>(maps, a, s) : launch<false>(maps, a, s));
-}
-
-const char* arag_dense_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -182,10 +182,7 @@
 // between it and the visit floor is that path (row: loads, widening,
 // products and selection in turn on one warpgroup). Measured times are in PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <type_traits>
 
@@ -312,61 +309,6 @@ __host__ __device__ constexpr int tc_slices(int kind, int d) {
 // widening and the query slice (32 KB), three of them.
 __host__ __device__ constexpr int tc_stages(int kind, int nc) {
   return kind == kF32 ? (nc == 1 ? 3 : 2) : kind == kS8 ? kTcStagesS8 : kTcStages;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (columns c0.., rows c1..) into shared memory; completion
-// is counted in bytes on `bar`. Rows past the map's extent arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused for this layout. The tile base is 1024-byte
-// aligned, so a 32-byte k-step inside it (16 bf16, 8 f32 or 32 int8
-// columns) is a 32-byte start offset.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
 }
 
 // The 64 accumulator registers of an m64n128 wgmma, as asm operands.
@@ -1389,26 +1331,6 @@ __global__ void __launch_bounds__(160, KIND == kS8Row && QB == 8 ? 3 : 2)
   }
 }
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links only the
-// CUDA runtime, which hands out its entry point.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A [rows, d] row-major tensor of the kind's element type (int8 as its
 // bits, UINT8), read in boxes of box_rows x one slice (tc_cols) with the
 // 128-byte swizzle, the row kind's 64-byte int8 slices unswizzled; rows
@@ -1615,10 +1537,6 @@ int arag_topk_merge(const float* cand_vals, const int* cand_ids, int n_chunks, i
   merge_kernel<<<nq, kMergeThreads, sizeof(int) * n_chunks, static_cast<cudaStream_t>(stream)>>>(
       cand_vals, cand_ids, n_chunks, nq, k, qscale, out_vals, out_ids);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* arag_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -67,10 +67,7 @@
 // bytes (0.060 ms), 768 -> 3072 and 3072 -> 768 by operations (0.156 ms).
 // Measured times are in PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -115,62 +112,7 @@ __host__ __device__ constexpr size_t smem_bytes(int form, int stages, int k) {
          2 * sizeof(uint64_t) * stages;
 }
 
-// -- TMA, mbarriers and wgmma (as csrc/fused_topk.cu) -------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (columns c0.., rows c1..) into shared memory; completion
-// is counted in bytes on `bar`. Rows and columns past the map's extent
-// arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused for this layout. The tile base is 1024-byte
-// aligned, so a 32-byte k-step inside it is a 32-byte start offset.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
+// -- wgmma -------------------------------------------------------------------------
 
 // The 128 accumulator registers of an m64n256 wgmma, as asm operands.
 #define W8_D8(d, o) \
@@ -554,26 +496,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- launch ------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links only the
-// CUDA runtime, which hands out its entry point.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // An int8 [rows, k] row-major tensor read in boxes of box_rows x 128
 // bytes with the 128-byte swizzle; rows past `rows` and columns past k
 // read as zeros.
@@ -658,10 +580,6 @@ int arag_w8a8(int x_kind, int form, int stages, int tiles_per_block, const void*
     case kXBF16: return static_cast<int>(launch_form<kXBF16>(wm, xm, a, form, stages, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* arag_w8a8_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

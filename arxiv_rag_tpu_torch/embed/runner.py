@@ -119,42 +119,32 @@ class Embedder:
                 return b
         return self.buckets[-1]
 
+    def _tokenize_full(self, texts: Sequence[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, mask, lengths): ids and mask int32 [len(texts), largest
+        bucket], each row's tokens padded to the largest bucket, and each
+        row's token count. One multithreaded C++ pass with a native
+        tokenizer, else the Python tokenizer text by text."""
+        max_b = self.buckets[-1]
+        if self.native_tokenizer is not None:
+            ids, mask = self.native_tokenizer.encode_batch(texts, max_len=max_b)
+        else:
+            ids = np.full((len(texts), max_b), self.tokenizer.pad_id, np.int32)
+            mask = np.zeros((len(texts), max_b), np.int32)
+            for r, text in enumerate(texts):
+                enc = self.tokenizer.encode(text, max_len=max_b)
+                ids[r, : len(enc)] = enc
+                mask[r, : len(enc)] = 1
+        lengths = mask.sum(axis=1)
+        self._count_tokens(int(lengths.sum()))
+        return ids, mask, lengths
+
     def tokenize_bucketed(
         self, texts: Sequence[str]
     ) -> dict[int, tuple[list[int], np.ndarray, np.ndarray]]:
-        """{bucket: (original positions, ids [n, bucket], mask)}."""
-        max_b = self.buckets[-1]
-        if self.native_tokenizer is not None:
-            return self._tokenize_bucketed_native(texts, max_b)
-        per_bucket: dict[int, list[tuple[int, list[int]]]] = {b: [] for b in self.buckets}
-        n_tokens = 0
-        for pos, text in enumerate(texts):
-            enc = self.tokenizer.encode(text, max_len=max_b)
-            per_bucket[self._bucket_for(len(enc))].append((pos, enc))
-        out = {}
-        for bucket, rows in per_bucket.items():
-            if not rows:
-                continue
-            ids = np.full((len(rows), bucket), self.tokenizer.pad_id, np.int32)
-            mask = np.zeros((len(rows), bucket), np.int32)
-            positions = []
-            for r, (pos, enc) in enumerate(rows):
-                ids[r, : len(enc)] = enc
-                mask[r, : len(enc)] = 1
-                positions.append(pos)
-                n_tokens += len(enc)
-            out[bucket] = (positions, ids, mask)
-        self._count_tokens(n_tokens)
-        return out
-
-    def _tokenize_bucketed_native(
-        self, texts: Sequence[str], max_b: int
-    ) -> dict[int, tuple[list[int], np.ndarray, np.ndarray]]:
-        """One C++ pass at the largest bucket, then each row regrouped
+        """{bucket: (original positions, ids [n, bucket], mask)}: one pass
+        at the largest bucket (``_tokenize_full``), then each row regrouped
         into its bucket by true length (a column slice, no re-encode)."""
-        ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
-        lengths = mask_full.sum(axis=1)
-        self._count_tokens(int(lengths.sum()))
+        ids_full, mask_full, lengths = self._tokenize_full(texts)
         row_bucket = np.asarray([self._bucket_for(int(n)) for n in lengths], np.int64)
         out: dict[int, tuple[list[int], np.ndarray, np.ndarray]] = {}
         for bucket in self.buckets:
@@ -241,30 +231,6 @@ class Embedder:
         METRICS.inc("embed.texts", len(texts))
         return out
 
-    def encode_texts_device(self, texts: Sequence[str]) -> torch.Tensor:
-        """[len(texts), hidden] fp32 embeddings in the original order, on
-        the model's device, never fetched: for callers that feed them
-        straight into another device op. The order is restored on the
-        device (one ``index_select``)."""
-        if not len(texts):
-            return torch.zeros((0, self.dim), dtype=torch.float32,
-                               device=self.device)
-        parts: list[torch.Tensor] = []
-        pos_all: list[int] = []
-        with METRICS.timer("embed.tokenize"):
-            bucketed = self.tokenize_bucketed(texts)
-        with METRICS.timer("embed.launch"):
-            for bucket, (positions, ids, mask) in bucketed.items():
-                for bpos, bids, bmask, n in self._iter_batches(positions, ids, mask):
-                    parts.append(self._run_batch(bids, bmask)[:n])
-                    pos_all.extend(bpos)
-        emb = parts[0] if len(parts) == 1 else torch.cat(parts)
-        inv = np.empty(len(texts), np.int64)
-        inv[np.asarray(pos_all)] = np.arange(len(texts))
-        self.stats.texts += len(texts)
-        METRICS.inc("embed.texts", len(texts))
-        return emb.index_select(0, torch.from_numpy(inv).to(emb.device))
-
     def encode_window_device(self, texts: Sequence[str]):
         """(embeddings [H, hidden] on the device, real row count) for one
         serving window: every text tokenizes at one bucket (the largest
@@ -275,28 +241,16 @@ class Embedder:
         n = len(texts)
         if n == 0 or n > self.batch_size:
             return None
-        max_b = self.buckets[-1]
         with METRICS.timer("embed.tokenize"):
-            if self.native_tokenizer is not None:
-                ids_full, mask_full = self.native_tokenizer.encode_batch(texts, max_len=max_b)
-                lengths = mask_full.sum(axis=1)
-            else:
-                encs = [self.tokenizer.encode(t, max_len=max_b) for t in texts]
-                lengths = np.asarray([len(e) for e in encs])
+            ids_full, mask_full, lengths = self._tokenize_full(texts)
             bucket = self._bucket_for(int(lengths.max()))
             height = self._padded_height(n)
             ids = np.full((height, bucket), self.tokenizer.pad_id, np.int32)
             mask = np.zeros((height, bucket), np.int32)
-            if self.native_tokenizer is not None:
-                ids[:n] = ids_full[:, :bucket]
-                mask[:n] = mask_full[:, :bucket]
-            else:
-                for r, enc in enumerate(encs):
-                    ids[r, : len(enc)] = enc
-                    mask[r, : len(enc)] = 1
+            ids[:n] = ids_full[:, :bucket]
+            mask[:n] = mask_full[:, :bucket]
             ids[n:, 0] = self.tokenizer.cls_id  # pad rows: one real token
             mask[n:, 0] = 1
-        self._count_tokens(int(lengths.sum()))
         self.stats.padded_slots += height - n
         self.stats.batches += 1
         METRICS.inc("embed.token_slots", height * bucket)

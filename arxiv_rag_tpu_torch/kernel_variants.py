@@ -4,15 +4,14 @@ machinery that ``tc_variants.py`` and ``w8a8_variants.py`` share.
 A variant is the text of ``csrc/<name>.cu`` with some lines replaced.
 :func:`require` checks that the lines a script edits are still there,
 :func:`build` compiles every variant at once (one ``nvcc`` each) into
-``build/variants/``, and :func:`bound` makes the source's wrapper module
-launch one variant's library inside a ``with`` block. Needs ``nvcc``
-for :func:`build` and a card to launch anything.
+``build/variants/`` (``csrc/``'s headers on the include path), and
+:func:`bound` makes the source's wrapper module launch one variant's
+library inside a ``with`` block. Needs ``nvcc`` for :func:`build` and a
+card to launch anything.
 """
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import subprocess
 from pathlib import Path
 
@@ -45,9 +44,9 @@ def build(name: str, texts: dict[str, str]) -> dict[str, Path]:
         cu = out_dir / f"{name}_{variant}.cu"
         cu.write_text(text)
         lib = out_dir / f"lib{name}_{variant}.so"
-        procs[variant] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[variant] = (lib, subprocess.Popen(_build.nvcc_command(cu, lib),
+                                                stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True))
     for variant, (_, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -55,15 +54,7 @@ def build(name: str, texts: dict[str, str]) -> dict[str, Path]:
     return {variant: lib for variant, (lib, _) in procs.items()}
 
 
-@contextlib.contextmanager
-def bound(module, name: str, lib: Path):
-    """Inside the block, ``module`` (the wrapper of ``csrc/<name>.cu``,
-    which keeps the library it bound in ``_LIB``) launches ``lib``'s
-    kernels."""
-    module._LIB.clear()
-    _build._LIBS[name] = ctypes.CDLL(str(lib))
-    try:
-        yield
-    finally:
-        module._LIB.clear()
-        _build._LIBS.pop(name, None)
+def bound(module, lib: Path):
+    """A context inside which ``module`` (the wrapper of the variants'
+    source) launches ``lib``'s kernels."""
+    return module._lib.bound(lib)

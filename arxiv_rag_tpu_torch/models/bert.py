@@ -13,8 +13,9 @@ embeddings, post-LayerNorm layers):
 
 The layers are MPNet's (``models/mpnet.py``: ``Layer`` with no relative
 position bias), so the numerics are the reference's: every product in
-the compute dtype with an fp32 result (``_matmul_f32``), fp32 LayerNorm,
-exact GELU and softmax in fp32, the ``finfo(float32).min`` mask bias;
+the compute dtype with an fp32 result (``ops/matmul.py::matmul_f32``),
+fp32 LayerNorm, exact GELU and softmax in fp32, the
+``finfo(float32).min`` mask bias;
 the pooler and the classifier run in fp32 whatever the compute dtype.
 Weights: ``models/convert.py`` (``bert_from_jax_params``,
 ``bert_from_hf_state_dict``, ``build_bert``) or ``random_bert``.

@@ -30,42 +30,35 @@ additive key bias ([b, 1, 1, s] fp32: 0 or ``finfo(float32).min``).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
-import threading
 
 import numpy as np
 import torch
+
+from arxiv_rag_tpu_torch.ops import _build
+from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
 HEAD_DIMS = (32, 64)
 MAX_SEQ = 512
 _MAX_GRID = 65535  # a grid's batches and heads
 
-LAUNCHES = {"attention": 0}
-_COUNT_LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        LAUNCHES["attention"] = 0
-
-
-def _matmul_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in fp32 from operands cast up: the exact products of bf16
-    operands, summed in fp32."""
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+LAUNCHES = _build.Launches("attention")
+reset_launches = LAUNCHES.reset
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = _build.Library("attention", {
+    "arag_attention": ([_i32, _p, _p, _p, _p, _p, _i64, _i64, _i64, _p, _i64, ctypes.c_float,
+                        _i32, _i32, _i32, _p], _i32),
+})
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor | None, mask_bias: torch.Tensor, num_heads: int, *,
-                    matmul=_matmul_upcast) -> torch.Tensor:
+                    bias: torch.Tensor | None, mask_bias: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
     """The chain, step by step: scores, ``/ √head_dim``, + bias, + mask,
     fp32 softmax cast to the compute dtype, ``P·V``, the heads back side
-    by side. ``matmul`` gives an fp32 product of compute-dtype operands
-    (``Attention`` passes ``models/mpnet.py::_matmul_f32``, which runs the
-    card's bf16 GEMM and carries autograd)."""
+    by side. Both products are ``matmul_f32``'s (the card's bf16 GEMM with
+    an fp32 output, which carries autograd)."""
     b, s, h = q.shape
     hd = h // num_heads
 
@@ -73,12 +66,12 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return t.reshape(b, s, num_heads, hd).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    scores = matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+    scores = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
     if bias is not None:  # MPNet's relative position bias (BERT has none)
         scores = scores + bias
     scores = scores + mask_bias
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
-    ctx = matmul(probs, v)
+    ctx = matmul_f32(probs, v)
     return ctx.to(q.dtype).transpose(1, 2).reshape(b, s, h)
 
 
@@ -97,21 +90,6 @@ def _scale(head_dim: int) -> float:
     """The factor CUDA multiplies by for ``/ math.sqrt(head_dim)``: the
     fp32 reciprocal of the fp32 square root."""
     return float(np.float32(1.0) / np.float32(math.sqrt(head_dim)))
-
-
-def _lib() -> ctypes.CDLL:
-    if not _LIB:
-        from arxiv_rag_tpu_torch.ops import _build
-
-        lib = _build.load("attention")
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.arag_attention.argtypes = [i32, p, p, p, p, p, i64, i64, i64, p, i64,
-                                       ctypes.c_float, i32, i32, i32, p]
-        lib.arag_attention.restype = i32
-        lib.arag_attention_error_string.argtypes = [i32]
-        lib.arag_attention_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias, mask_bias,
@@ -158,21 +136,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Ten
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    lib = _lib()
     dev = q.device
-    # the kernel launches on the thread's current card: make it q's
-    with (contextlib.nullcontext() if dev.index in (None, torch.cuda.current_device())
-          else torch.cuda.device(dev)):
-        err = lib.arag_attention(
+    with _build.on_device(dev):
+        err = _lib().arag_attention(
             hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if bias is None else bias.data_ptr(),
             *((0, 0, 0) if bias is None else bias.stride()[1:]),
             mask_bias.data_ptr(), mask_bias.stride(0), _scale(hd), b, s, num_heads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {err} "
-                           f"({lib.arag_attention_error_string(err).decode()})")
-    with _COUNT_LOCK:
-        LAUNCHES["attention"] += 1
+    _lib.check(err, "attention kernel")
+    LAUNCHES.count("attention")
     return out

@@ -19,28 +19,25 @@ for bit (PERF.md).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from arxiv_rag_tpu_torch.ops.attention import _matmul_upcast
+from arxiv_rag_tpu_torch.ops import _build
+from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
 _ALIGN = 8  # K and N: 16-byte rows of bf16 for TMA
 _MAX_ROWS = 2**31 - 256  # the kernel's row count is a 32-bit int
 _BIAS_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
-LAUNCHES = {"dense": 0}
-_COUNT_LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        LAUNCHES["dense"] = 0
+LAUNCHES = _build.Launches("dense")
+reset_launches = LAUNCHES.reset
+_p, _i32 = ctypes.c_void_p, ctypes.c_int
+_lib = _build.Library("dense", {
+    "arag_dense": ([_i32, _p, _p, _i32, _p, _p, _i32, _i32, _i32, _p], _i32),
+})
 
 
 def gelu_plain(y: torch.Tensor) -> torch.Tensor:
@@ -49,13 +46,12 @@ def gelu_plain(y: torch.Tensor) -> torch.Tensor:
 
 
 def dense_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-                gelu: bool = False, *, matmul=_matmul_upcast) -> torch.Tensor:
-    """The chain, step by step: ``x @ Wᵀ`` with an fp32 result, + the fp32
-    bias, cast to x's dtype, then (``gelu``) :func:`gelu_plain`. ``matmul``
-    gives an fp32 product of compute-dtype operands (``_dense`` passes
-    ``models/mpnet.py::_matmul_f32``, which runs the card's bf16 GEMM and
-    carries autograd)."""
-    y = matmul(x, weight.T)
+                gelu: bool = False) -> torch.Tensor:
+    """The chain, step by step: ``x @ Wᵀ`` with an fp32 result
+    (``matmul_f32``: the card's bf16 GEMM with an fp32 output, which
+    carries autograd), + the fp32 bias, cast to x's dtype, then (``gelu``)
+    :func:`gelu_plain`."""
+    y = matmul_f32(x, weight.T)
     if bias is not None:
         y = y + bias.to(torch.float32)
     y = y.to(x.dtype)
@@ -73,20 +69,6 @@ def takes_kernel(x: torch.Tensor, lin: nn.Module) -> bool:
             and not (torch.is_grad_enabled()
                      and any(t is not None and t.requires_grad
                              for t in (x, lin.weight, lin.bias))))
-
-
-def _lib() -> ctypes.CDLL:
-    if not _LIB:
-        from arxiv_rag_tpu_torch.ops import _build
-
-        lib = _build.load("dense")
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.arag_dense.argtypes = [i32, p, p, i32, p, p, i32, i32, i32, p]
-        lib.arag_dense.restype = i32
-        lib.arag_dense_error_string.argtypes = [i32]
-        lib.arag_dense_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor,
@@ -129,20 +111,13 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     out = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
-    lib = _lib()
-    dev = x.device
-    # the kernel launches on the thread's current card: make it x's
-    with (contextlib.nullcontext() if dev.index in (None, torch.cuda.current_device())
-          else torch.cuda.device(dev)):
-        err = lib.arag_dense(
+    with _build.on_device(x.device):
+        err = _lib().arag_dense(
             int(gelu), x.data_ptr(), weight.data_ptr(),
             _BIAS_KIND[None if bias is None else bias.dtype],
             None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"dense kernel launch failed: CUDA error {err} "
-                           f"({lib.arag_dense_error_string(err).decode()})")
-    with _COUNT_LOCK:
-        LAUNCHES["dense"] += 1
+    _lib.check(err, "dense kernel")
+    LAUNCHES.count("dense")
     return out

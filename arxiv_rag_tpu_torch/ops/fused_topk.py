@@ -56,10 +56,10 @@ launch).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from arxiv_rag_tpu_torch.ops import _build
 from arxiv_rag_tpu_torch.ops.topk import NEG_INF, topk_padded
 
 K_MAX = 128
@@ -71,24 +71,24 @@ TABLE_SPLIT_ITEMS = 64  # items a block-table split aims at, past one wave (plan
 _KIND = {"f32": 0, "bf16": 1, "s8s8": 2, "row": 3}
 _PLAIN_SCORE_ELEMS = 1 << 26  # plain versions score this many [q, row] pairs at a time
 
-LAUNCHES = {"fused_topk": 0, "fused_topk_int8": 0, "fused_topk_int8_row": 0,
-            "fused_topk_masked": 0, "ivf_topk": 0, "ivf_topk_device": 0, "topk_merge": 0}
-_COUNT_LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
+LAUNCHES = _build.Launches("fused_topk", "fused_topk_int8", "fused_topk_int8_row",
+                           "fused_topk_masked", "ivf_topk", "ivf_topk_device", "topk_merge")
+reset_launches = LAUNCHES.reset
+count = LAUNCHES.count
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = _build.Library("fused_topk", {
+    "arag_topk_merge": ([_p, _p, _i32, _i32, _i32, _p, _p, _p, _p], _i32),
+    "arag_topk_table_scan": ([_i32, _i32, _p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _p,
+                              _i32, _i32, _i32, _p, _p, _p], _i32),
+    "arag_topk_table_smem": ([_i32, _i32, _i32], ctypes.c_size_t),
+    "arag_topk_table_blocks": ([_i32, _i32, _i32], _i32),
+    "arag_topk_tc_scan": ([_i32, _p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i32, _i32,
+                           _p, _p, _p], _i32),
+    "arag_topk_tc_smem": ([_i32, _i32, _i32], ctypes.c_size_t),
+    "arag_topk_tc_lists": ([_i32], _i32),
+})
 # (library handle, kind, q_block, list capacity, device) -> (SMs, blocks an SM)
 _TABLE_FIT: dict[tuple, tuple[int, int]] = {}
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def count(*names: str) -> None:
-    with _COUNT_LOCK:
-        for name in names:
-            LAUNCHES[name] += 1
 
 
 def _check_k(k: int) -> None:
@@ -268,40 +268,6 @@ def _empty(k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 # -- CUDA kernels --------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
-    if not _LIB:
-        from arxiv_rag_tpu_torch.ops import _build
-
-        lib = _build.load("fused_topk")
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.arag_topk_merge.argtypes = [p, p, i32, i32, i32, p, p, p, p]
-        lib.arag_topk_merge.restype = i32
-        lib.arag_topk_table_scan.argtypes = [i32, i32, p, p, p, p, p, p, i64, i32, i32, i32,
-                                             p, i32, i32, i32, p, p, p]
-        lib.arag_topk_table_scan.restype = i32
-        lib.arag_topk_table_smem.argtypes = [i32, i32, i32]
-        lib.arag_topk_table_smem.restype = ctypes.c_size_t
-        lib.arag_topk_table_blocks.argtypes = [i32, i32, i32]
-        lib.arag_topk_table_blocks.restype = i32
-        lib.arag_topk_tc_scan.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, i32, i32, i32,
-                                          p, p, p]
-        lib.arag_topk_tc_scan.restype = i32
-        lib.arag_topk_tc_smem.argtypes = [i32, i32, i32]
-        lib.arag_topk_tc_smem.restype = ctypes.c_size_t
-        lib.arag_topk_tc_lists.argtypes = [i32]
-        lib.arag_topk_tc_lists.restype = i32
-        lib.arag_error_string.argtypes = [i32]
-        lib.arag_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({lib.arag_error_string(err).decode()})")
-
-
 def plan_tc(n_rows: int, nq: int, sm_count: int) -> tuple[int, int, int]:
     """(rows per split, splits, query tiles) of the tensor-core scan: one
     block per SM (its shared memory holds one), the query tiles of a split
@@ -433,7 +399,7 @@ def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
     props = _check_smem(lib.arag_topk_tc_smem(_KIND[kind], k, d), dev, d)
     split_rows, n_splits, _ = plan_tc(n_valid, nq, props.multi_processor_count)
     cand_v, cand_i = _scratch(n_splits * lib.arag_topk_tc_lists(k), nq, k, dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arag_topk_tc_scan(
             _KIND[kind],
@@ -442,7 +408,7 @@ def _launch_tc(kind, x, scales, row_masks, qmask, q, q_lo, qscale, k, n_valid):
             q.data_ptr(), _ptr(q_lo), n_valid, d, nq, k, split_rows // TC_ROWS, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
-        _raise_on(lib, err, "tensor-core top-k scan")
+        _lib.check(err, "tensor-core top-k scan")
         return _merge(lib, cand_v, cand_i, qscale, stream)
 
 
@@ -470,7 +436,7 @@ def _launch_table(kind, qb, x, scales, row_masks, qmask, q, q_lo, table, k, n_va
         raise ValueError(f"block_rows must be positive, not {block_rows}")
     lib = _lib()
     d = x.shape[1]
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         sm_count, blocks = _table_fit(lib, _KIND[kind], qb, k, dev)
         width = table.shape[1]
         n_splits = plan_table(width, tiles, -(-block_rows // TABLE_ROWS), sm_count, blocks)
@@ -482,7 +448,7 @@ def _launch_table(kind, qb, x, scales, row_masks, qmask, q, q_lo, table, k, n_va
             n_valid, d, nq, k, table.data_ptr(), width, block_rows, n_splits,
             cand_v.data_ptr(), cand_i.data_ptr(), stream,
         )
-        _raise_on(lib, err, "block-table scan")
+        _lib.check(err, "block-table scan")
         return _merge(lib, cand_v, cand_i, None, stream)
 
 
@@ -496,7 +462,7 @@ def _table_fit(lib, kind: int, qb: int, k: int, dev) -> tuple[int, int]:
         props = _check_smem(lib.arag_topk_table_smem(kind, qb, k), dev, None)
         blocks = lib.arag_topk_table_blocks(kind, qb, k)
         if blocks < 1:
-            _raise_on(lib, -blocks, "block-table scan (occupancy)")
+            _lib.check(-blocks, "block-table scan (occupancy)")
             raise ValueError("a block-table scan block fits no SM")
         _TABLE_FIT[key] = (props.multi_processor_count, blocks)
     return _TABLE_FIT[key]
@@ -541,7 +507,7 @@ def _merge(lib, cand_v, cand_i, qscale, stream):
         cand_v.data_ptr(), cand_i.data_ptr(), n_lists, nq, k, _ptr(qscale),
         out_v.data_ptr(), out_i.data_ptr(), stream,
     )
-    _raise_on(lib, err, "fused top-k merge")
+    _lib.check(err, "fused top-k merge")
     return out_v, out_i
 
 
@@ -580,7 +546,7 @@ def merge_topk(cand_v: torch.Tensor, cand_i: torch.Tensor) -> tuple[torch.Tensor
         return _empty(cand_v.shape[2], cand_v.device)
     cand_v, cand_i = cand_v.contiguous(), cand_i.contiguous()
     lib = _lib()
-    with torch.cuda.device(cand_v.device):
+    with _build.on_device(cand_v.device):
         stream = torch.cuda.current_stream(cand_v.device).cuda_stream
         out = _merge(lib, cand_v, cand_i, None, stream)
     count("topk_merge")

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from arxiv_rag_tpu_torch.logging_utils import get_logger
-from arxiv_rag_tpu_torch.models.mpnet import _matmul_f32
+from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
 log = get_logger("kmeans")
 
@@ -32,7 +32,7 @@ def _l2n(x: torch.Tensor) -> torch.Tensor:
 
 def _assign_batch(batch: torch.Tensor, centroids_bf16: torch.Tensor) -> torch.Tensor:
     """[B] int64 nearest-centroid ids (bf16 operands, fp32 scores)."""
-    scores = _matmul_f32(batch.to(torch.bfloat16), centroids_bf16.T)
+    scores = matmul_f32(batch.to(torch.bfloat16), centroids_bf16.T)
     return torch.argmax(scores, dim=1)
 
 
@@ -70,7 +70,7 @@ def spherical_kmeans(
             batch = data[start : start + batch_rows].to(torch.bfloat16)
             assign = _assign_batch(batch, cbf)
             onehot = torch.nn.functional.one_hot(assign, n_clusters).to(torch.bfloat16)
-            sums += _matmul_f32(onehot.T, batch)
+            sums += matmul_f32(onehot.T, batch)
             counts += torch.bincount(assign, minlength=n_clusters)
         counts_h = counts.cpu().numpy()
         empty = counts_h == 0

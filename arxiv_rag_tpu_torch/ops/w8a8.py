@@ -36,14 +36,14 @@ the plain version for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import functools
 import math
-import threading
 
 import torch
+
+from arxiv_rag_tpu_torch.ops import _build
 
 _MAX_FULL_K = 4096  # the reference's guard (pallas_matmul.py:57)
 _VEC = 16  # bytes per vector load in the kernel: K must be a multiple
@@ -51,20 +51,14 @@ _X_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 _BIAS_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT = (torch.float32, torch.bfloat16)
 
-LAUNCHES = {"w8a8_matmul": 0, "w8a8_matmul_fused_quant": 0}
-_COUNT_LOCK = threading.Lock()
-_LIB: list[ctypes.CDLL] = []
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+LAUNCHES = _build.Launches("w8a8_matmul", "w8a8_matmul_fused_quant")
+reset_launches = LAUNCHES.reset
+_p, _i32 = ctypes.c_void_p, ctypes.c_int
+_lib = _build.Library("w8a8", {
+    "arag_w8a8": ([_i32, _i32, _i32, _i32, _p, _p, _p, _p, _i32, _p, _i32, _p, _i32, _i32, _i32,
+                   _p], _i32),
+    "arag_w8a8_smem": ([_i32, _i32, _i32], ctypes.c_size_t),
+})
 
 
 def _guard(k: int, kw: int, n: int) -> None:
@@ -139,23 +133,6 @@ def w8a8_dense_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 # -- CUDA kernels --------------------------------------------------------------
-
-
-def _lib() -> ctypes.CDLL:
-    if not _LIB:
-        from arxiv_rag_tpu_torch.ops import _build
-
-        lib = _build.load("w8a8")
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.arag_w8a8.argtypes = [i32, i32, i32, i32, p, p, p, p, i32, p, i32, p, i32, i32, i32,
-                                  p]
-        lib.arag_w8a8.restype = i32
-        lib.arag_w8a8_smem.argtypes = [i32, i32, i32]
-        lib.arag_w8a8_smem.restype = ctypes.c_size_t
-        lib.arag_w8a8_error_string.argtypes = [i32]
-        lib.arag_w8a8_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
 
 
 def _vector(t: torch.Tensor | None, name: str, n: int, dev, dtypes) -> torch.Tensor | None:
@@ -274,21 +251,16 @@ def _launch(x: torch.Tensor, a_scale, w_q: torch.Tensor, w_scale, bias,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    lib = _lib()
     p = _device_plan(m, n, k, x.dtype != torch.int8, dev)
-    # the kernel launches on the thread's current card: make it x's
-    with (contextlib.nullcontext() if dev.index in (None, torch.cuda.current_device())
-          else torch.cuda.device(dev)):
-        err = lib.arag_w8a8(
+    with _build.on_device(dev):
+        err = _lib().arag_w8a8(
             _X_KIND[x.dtype], p.form, p.stages, p.tiles_per_block, x.data_ptr(),
             None if a_scale is None else a_scale.data_ptr(),
             w_q.data_ptr(), w_scale.data_ptr(), _BIAS_KIND[None if bias is None else bias.dtype],
             None if bias is None else bias.data_ptr(), int(out_dtype == torch.bfloat16),
             out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"W8A8 kernel launch failed: CUDA error {err} "
-                           f"({lib.arag_w8a8_error_string(err).decode()})")
+    _lib.check(err, "W8A8 kernel")
     return out
 
 
@@ -311,7 +283,7 @@ def w8a8_matmul(x_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"w8a8_matmul takes int8 activations and their scales, not "
                          f"{x_q.dtype} with a_scale {a_scale is not None}")
     out = _launch(x_q, a_scale, w_q, w_scale, bias, out_dtype)
-    _count("w8a8_matmul")
+    LAUNCHES.count("w8a8_matmul")
     return out
 
 
@@ -322,7 +294,7 @@ def _fused_quant(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, bias
     if x.dtype == torch.int8:
         raise ValueError("the fused-quant kernel takes fp32 or bf16 activations, not int8")
     out = _launch(x, None, w_q, w_scale, bias, out_dtype)
-    _count("w8a8_matmul_fused_quant")
+    LAUNCHES.count("w8a8_matmul_fused_quant")
     return out
 
 

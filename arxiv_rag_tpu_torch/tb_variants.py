@@ -78,7 +78,7 @@ def main() -> int:
                                         block_rows=1024, **kw)
             cases.append((name, nq, q, table, kw, plain))
     for variant in names:
-        with kernel_variants.bound(ft, "fused_topk", libs[variant]):
+        with kernel_variants.bound(ft, libs[variant]):
             for name, nq, q, table, kw, (pv, _) in cases:
                 ivf = ivfs[name]
 

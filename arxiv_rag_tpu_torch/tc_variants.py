@@ -128,7 +128,7 @@ def main() -> int:
     queries = {nq: torch.nn.functional.normalize(
         torch.randn(nq, 768, generator=gen, device="cuda"), dim=1) for nq in (64, 512)}
     for name, lib in libs.items():
-        with kernel_variants.bound(ft, "fused_topk", lib):
+        with kernel_variants.bound(ft, lib):
             for kind in KINDS[name]:
                 run, plain = scans[kind]
                 for nq, q in queries.items():

@@ -12,7 +12,7 @@ Numerics follow the reference on one device:
   ``MPNet.embed``, the serving forward's own code with autograd on. On
   the card a bf16 product's backward forms each gradient from the fp32
   cotangent as JAX transposes the reference's products
-  (``models/mpnet.py::_MatmulF32``); weight gradients reach the
+  (``ops/matmul.py::_MatmulF32``); weight gradients reach the
   optimizer rounded to bf16, as JAX's do;
 - the loss and its softmax are fp32; the master parameters and both
   Adam moments are fp32;

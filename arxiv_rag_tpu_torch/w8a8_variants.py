@@ -109,7 +109,7 @@ def main() -> int:
         plan = plans.get(name, base_plan)
         w8a8._device_plan = plan
         try:
-            with kernel_variants.bound(w8a8, "w8a8", libs.get(name, libs["as_is"])):
+            with kernel_variants.bound(w8a8, libs.get(name, libs["as_is"])):
                 for (m, k, n), (x, x_q, a_scale, w_q, w_scale, bias) in operands.items():
                     kw = {"out_dtype": torch.bfloat16}
                     cases = {

@@ -1075,7 +1075,6 @@ def phase_attention(gen, results) -> None:
     (the bias and mask as one bf16 mask) is timed as a yardstick only."""
     import torch.nn.functional as F
 
-    from arxiv_rag_tpu_torch.models import mpnet
     from arxiv_rag_tpu_torch.ops import attention as at
 
     print("== phase 2 (attention): the fused kernel at the embed and the rerank shapes",
@@ -1087,7 +1086,7 @@ def phase_attention(gen, results) -> None:
         got = at.attention(q, k, v, rel, mb, nh)
 
         def chain():
-            return at.attention_plain(q, k, v, rel, mb, nh, matmul=mpnet._matmul_f32)
+            return at.attention_plain(q, k, v, rel, mb, nh)
 
         want = chain()
         diff = (got.float() - want.float()).abs()
@@ -1149,7 +1148,6 @@ def phase_dense(gen, results) -> None:
     yardsticks only."""
     import torch.nn.functional as F
 
-    from arxiv_rag_tpu_torch.models import mpnet
     from arxiv_rag_tpu_torch.ops import dense as dn
 
     print("== phase 2 (dense): the fused GEMM at the embed and the rerank shapes", flush=True)
@@ -1164,7 +1162,7 @@ def phase_dense(gen, results) -> None:
             w.float().pow(2).mean().sqrt()
         equal, worst = 0, 0.0
         for r0 in range(0, m, 32768):
-            y = dn.dense_plain(x[r0:r0 + 32768], w, b, False, matmul=mpnet._matmul_f32)
+            y = dn.dense_plain(x[r0:r0 + 32768], w, b, False)
             want = dn.gelu_plain(y) if gelu else y
             g = got[r0:r0 + 32768]
             limit = bf16_ulp(want) + (DENSE_SLOPE * (bf16_ulp(y) + absolute) if gelu
@@ -1180,7 +1178,7 @@ def phase_dense(gen, results) -> None:
         del got
 
         def chain():
-            return dn.dense_plain(x, w, b, gelu, matmul=mpnet._matmul_f32)
+            return dn.dense_plain(x, w, b, gelu)
 
         def library():
             return (torch.mm(x, w.T, out_dtype=torch.float32) + b.float()).to(torch.bfloat16)
@@ -2512,7 +2510,7 @@ def split3_product(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def train_backward_check(gen, out) -> None:
-    """The card's ``_MatmulF32`` backward at the training step's shapes
+    """The card's ``matmul_f32`` backward at the training step's shapes
     (M = 32 x 128 rows; the attention's [b·h, s, s] products) against
     the CPU's formula (the bf16 operand cast up, an fp32 product): before
     the bf16 cast within fp32 summation order (twice K·2^-24 of the sum
@@ -2521,7 +2519,7 @@ def train_backward_check(gen, out) -> None:
     cancels to near 0). Times the port's fp32 GEMM (TF32 off) for each
     operand's gradient beside the three-part bf16 split on one bf16 GEMM
     (checked to the same bound)."""
-    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import matmul
 
     m, bh, s, hd = TR_BATCH * TR_SEQ, TR_BATCH * 12, TR_SEQ, 64
     cases = (("dense 768->768", (m, 768), (768, 768)),
@@ -2534,7 +2532,7 @@ def train_backward_check(gen, out) -> None:
         a = torch.randn(sa, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
         b = (torch.randn(sb, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
         b.requires_grad_()
-        y = mpnet._matmul_f32(a, b)
+        y = matmul.matmul_f32(a, b)
         ct = torch.randn(y.shape, generator=gen, device="cuda") * 1e-3
         y.backward(ct)
         ad, bd = a.detach(), b.detach()
@@ -2544,7 +2542,7 @@ def train_backward_check(gen, out) -> None:
                                     ("b", ad.transpose(-1, -2), ct, sa[-2], b.grad)):
             xc, zc = x.float().cpu(), z.float().cpu()
             want, order = xc @ zc, 2 * k * 2.0**-24 * (xc.abs() @ zc.abs())
-            got = mpnet._product_f32(x, z)
+            got = matmul._product_f32(x, z)
             alt = split3_product(x, z)
             for what, val in (("the port's fp32 GEMM", got), ("the three-part split", alt)):
                 if not bool(((val.cpu() - want).abs() <= order).all()):
@@ -2563,7 +2561,7 @@ def train_backward_check(gen, out) -> None:
             row[name] = {"k": k, "max_err_over_order": float(((got.cpu() - want).abs()
                                                               / order.clamp_min(1e-30)).max()),
                          "bf16_differ": int((g != w).sum()), "values": g.numel(),
-                         "fp32_gemm_ms": median_ms(lambda: mpnet._product_f32(x, z)),
+                         "fp32_gemm_ms": median_ms(lambda: matmul._product_f32(x, z)),
                          "split_ms": median_ms(lambda: split3_product(x, z))}
         rows.append(row)
         print(f"  backward {label}: {json.dumps({n: row[n] for n in 'ab'})}", flush=True)

@@ -19,6 +19,7 @@ from arxiv_rag_tpu_torch.logging_utils import METRICS
 from arxiv_rag_tpu_torch.models import mpnet
 from arxiv_rag_tpu_torch.models.bert import BertConfig, random_bert
 from arxiv_rag_tpu_torch.ops import attention as at
+from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
 ROOT = Path(__file__).resolve().parents[1]
 FMIN = torch.finfo(torch.float32).min
@@ -35,12 +36,12 @@ def chain(q, k, v, bias, mask_bias, nh):
         return t.reshape(b, s, nh, hd).transpose(1, 2)
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    scores = mpnet._matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
+    scores = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
     if bias is not None:  # MPNet's relative position bias (BERT has none)
         scores = scores + bias
     scores = scores + mask_bias
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x_dtype)
-    ctx = mpnet._matmul_f32(probs, v)
+    ctx = matmul_f32(probs, v)
     return ctx.to(x_dtype).transpose(1, 2).reshape(b, s, h)
 
 
@@ -81,15 +82,14 @@ def test_plain_equals_chain(b, s, nh, hd, bias, dtype):
     q, k, v, rel, mb = make_inputs(b, s, nh, hd, bias, dtype=dtype, pad_rows=b // 2)
     want = chain(q, k, v, rel, mb, nh)
     assert torch.equal(at.attention_plain(q, k, v, rel, mb, nh), want)
-    assert torch.equal(at.attention_plain(q, k, v, rel, mb, nh, matmul=mpnet._matmul_f32), want)
     assert torch.equal(at.attention(q, k, v, rel, mb, nh), want)  # a CPU tensor: the plain version
 
 
 def test_plain_gradients_equal_chain():
-    """The chain under autograd (the trainer's path) is the plain version
-    with ``_matmul_f32``: same values, same gradients."""
+    """The chain under autograd (the trainer's path) is the plain version:
+    same values, same gradients."""
     grads = []
-    for fn in (chain, lambda *a: at.attention_plain(*a, matmul=mpnet._matmul_f32)):
+    for fn in (chain, at.attention_plain):
         q, k, v, rel, mb = make_inputs(2, 48, 4, 32, True, dtype=torch.float32)
         for t in (q, k, v, rel):
             t.requires_grad_(True)
@@ -164,7 +164,7 @@ def test_fused_branch_wiring(monkeypatch):
 
     def kernel(q, k, v, bias, mask_bias, nh):
         seen.append((q.shape, bias is None, mask_bias.shape, nh))
-        return at.attention_plain(q, k, v, bias, mask_bias, nh, matmul=mpnet._matmul_f32)
+        return at.attention_plain(q, k, v, bias, mask_bias, nh)
 
     monkeypatch.setattr(at, "takes_kernel", lambda *a: True)
     monkeypatch.setattr(at, "attention", kernel)
@@ -265,7 +265,7 @@ def _against_plain(card, b, s, nh, hd, bias, **kw):
     got = at.attention(q, k, v, rel, mb, nh)
     torch.cuda.synchronize()
     assert at.LAUNCHES["attention"] == before + 1
-    want = at.attention_plain(q, k, v, rel, mb, nh, matmul=mpnet._matmul_f32)
+    want = at.attention_plain(q, k, v, rel, mb, nh)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape and got.is_contiguous()
     assert torch.isfinite(got.float()).all()
     diff = (got.float() - want.float()).abs()

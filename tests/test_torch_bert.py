@@ -181,7 +181,8 @@ def test_bf16_first_divergence_is_the_first_products_sum_order():
     from arxiv_rag_tpu.models.mpnet import _dense as jax_dense
     from arxiv_rag_tpu.models.mpnet import _layer_norm as jax_layer_norm
 
-    from arxiv_rag_tpu_torch.models.mpnet import _dense, _layer_norm, _matmul_f32
+    from arxiv_rag_tpu_torch.models.mpnet import _dense, _layer_norm
+    from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
     widths = dict(SMALL, vocab_size=300, hidden_size=384, num_hidden_layers=1,
                   num_attention_heads=12, intermediate_size=1536, max_position_embeddings=512)
@@ -202,7 +203,7 @@ def test_bf16_first_divergence_is_the_first_products_sum_order():
         p, lin = jax.tree.map(lambda a: a[0], params["layers"]["attn"]["q"]), model.layers[0].attn.q
         want32 = np.asarray(jnp.dot(x, p["kernel"].astype(jnp.bfloat16),
                                     preferred_element_type=jnp.float32) + p["bias"])
-        got32 = (_matmul_f32(t, lin.weight.to(torch.bfloat16).T) + lin.bias.float()).numpy()
+        got32 = (matmul_f32(t, lin.weight.to(torch.bfloat16).T) + lin.bias.float()).numpy()
         want = np.asarray(jax_dense(x, p).astype(jnp.float32))
         got = _dense(t, lin).float().numpy()
     order = np.abs(got32 - want32)

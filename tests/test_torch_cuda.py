@@ -64,13 +64,13 @@ def test_bf16_products_keep_fp32(gen, batched):
     """The encoder's bf16 products on the card come out in fp32, unrounded:
     within fp32 summation order (1e-3 at |sum| ~ 28) of the products summed
     in fp32, where a bf16 output is off by up to half a bf16 step (~0.06)."""
-    from arxiv_rag_tpu_torch.models.mpnet import _matmul_f32
+    from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
     shape_a, shape_b = ((8, 12, 128, 64), (8, 12, 64, 128)) if batched else \
         ((1024, 768), (768, 3072))
     a = torch.randn(shape_a, generator=gen, device="cuda").to(torch.bfloat16)
     b = torch.randn(shape_b, generator=gen, device="cuda").to(torch.bfloat16)
-    out = _matmul_f32(a, b)
+    out = matmul_f32(a, b)
     want = torch.matmul(a.to(torch.float32), b.to(torch.float32))
     assert out.dtype == torch.float32
     assert (out - want).abs().max().item() <= 1e-3
@@ -975,7 +975,7 @@ def _bf16_steps(x):
                                              ((8, 64, 3072), (3072, 768)),
                                              ((8, 12, 64, 64), (8, 12, 64, 64))])
 def test_matmul_f32_backward_on_the_card_matches_the_cpu(gen, shape_a, shape_b):
-    """The card's ``_MatmulF32`` backward (an fp32 GEMM of the fp32
+    """The card's ``matmul_f32`` backward (an fp32 GEMM of the fp32
     cotangent and the other bf16 operand, cast to bf16) against the
     CPU's autograd through its cast and fp32 product: before the cast
     within fp32 summation order of the float64 product (K·2^-24 of the
@@ -984,18 +984,18 @@ def test_matmul_f32_backward_on_the_card_matches_the_cpu(gen, shape_a, shape_b):
     step apart, plus twice that order where a sum cancels to near 0
     (there the step of the tiny result is finer than the order's
     error)."""
-    from arxiv_rag_tpu_torch.models import mpnet
+    from arxiv_rag_tpu_torch.ops import matmul
 
     a = torch.randn(shape_a, generator=gen, device="cuda").to(torch.bfloat16)
     b = (torch.randn(shape_b, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
     a.requires_grad_()
     b.requires_grad_()
-    out = mpnet._matmul_f32(a, b)
+    out = matmul.matmul_f32(a, b)
     ct = torch.randn(out.shape, generator=gen, device="cuda") * 1e-3
     out.backward(ct)
     a_cpu = a.detach().cpu().requires_grad_()
     b_cpu = b.detach().cpu().requires_grad_()
-    mpnet._matmul_f32(a_cpu, b_cpu).backward(ct.cpu())
+    matmul.matmul_f32(a_cpu, b_cpu).backward(ct.cpu())
     ad, bd = a.detach(), b.detach()
     if b.dim() == 2:  # the dense kernel's gradient sums over every row of a
         x_b, z_b, k_b = ad.reshape(-1, b.shape[0]).T, ct.reshape(-1, b.shape[1]), ad.numel() // b.shape[0]
@@ -1006,7 +1006,7 @@ def test_matmul_f32_backward_on_the_card_matches_the_cpu(gen, shape_a, shape_b):
             ("b", x_b, z_b, k_b, b.grad, b_cpu.grad)):
         x64, z64 = x.cpu().to(torch.float64), z.cpu().to(torch.float64)
         order = (k * 2.0**-24 * (x64.abs() @ z64.abs())).reshape(grad.shape)
-        pre = mpnet._product_f32(x, z).cpu().to(torch.float64).reshape(grad.shape)
+        pre = matmul._product_f32(x, z).cpu().to(torch.float64).reshape(grad.shape)
         assert (pre - (x64 @ z64).reshape(grad.shape)).abs().le(order).all(), name
         g, w = grad.cpu().to(torch.float32), want.to(torch.float32)
         assert grad.dtype == torch.bfloat16 and g.shape == w.shape

@@ -20,6 +20,7 @@ from arxiv_rag_tpu_torch.logging_utils import METRICS
 from arxiv_rag_tpu_torch.models import mpnet
 from arxiv_rag_tpu_torch.models.bert import Bert, BertConfig, random_bert
 from arxiv_rag_tpu_torch.ops import dense as dn
+from arxiv_rag_tpu_torch.ops.matmul import matmul_f32
 
 ROOT = Path(__file__).resolve().parents[1]
 # (K, N, gelu) of every dense layer of all-mpnet-base-v2 and MiniLM-L6:
@@ -31,7 +32,7 @@ MINILM_SHAPES = ((384, 384, False), (384, 1536, True), (1536, 384, False))
 def chain(x, lin, gelu):
     """``models/mpnet.py::_dense`` as it was before the kernel, and
     ``FeedForward``'s GELU after it, copied here unchanged."""
-    y = mpnet._matmul_f32(x, lin.weight.to(x.dtype).T)
+    y = matmul_f32(x, lin.weight.to(x.dtype).T)
     y = (y + lin.bias.to(torch.float32)).to(x.dtype)
     if gelu:
         y = F.gelu(y.to(torch.float32), approximate="none").to(x.dtype)
@@ -64,7 +65,6 @@ def test_plain_equals_chain(k, n, gelu, dtype):
     want = chain(x, lin, gelu)
     w = lin.weight.to(x.dtype)
     assert torch.equal(dn.dense_plain(x, w, lin.bias, gelu), want)
-    assert torch.equal(dn.dense_plain(x, w, lin.bias, gelu, matmul=mpnet._matmul_f32), want)
     assert torch.equal(dn.dense(x, w, lin.bias, gelu), want)  # a CPU tensor: the plain version
     assert torch.equal(mpnet._dense(x, lin, gelu), want)
 
@@ -159,7 +159,7 @@ def test_cpu_bert_counts_plain():
 def _stand_in(seen):
     def kernel(x, weight, bias, gelu=False):
         seen.append((tuple(weight.shape), gelu))
-        return dn.dense_plain(x, weight, bias, gelu, matmul=mpnet._matmul_f32)
+        return dn.dense_plain(x, weight, bias, gelu)
     return kernel
 
 
@@ -308,7 +308,7 @@ def against_plain(x, weight, bias, gelu):
     equal = 0
     for r0 in range(0, x2.shape[0], 16384):
         xs, gs = x2[r0:r0 + 16384], got2[r0:r0 + 16384]
-        y = dn.dense_plain(xs, weight, bias, False, matmul=mpnet._matmul_f32)
+        y = dn.dense_plain(xs, weight, bias, False)
         want = dn.gelu_plain(y) if gelu else y
         assert torch.isfinite(gs.float()).all()
         diff = (gs.float() - want.float()).abs()
@@ -371,7 +371,7 @@ def test_epilogue_on_every_bf16_value(card, gelu):
     x = torch.zeros(2, 8, dtype=torch.bfloat16, device=card)
     w = torch.zeros(65536, 8, dtype=torch.bfloat16, device=card)
     got = dn.dense(x, w, bias, gelu)
-    want = dn.dense_plain(x, w, bias, gelu, matmul=mpnet._matmul_f32)
+    want = dn.dense_plain(x, w, bias, gelu)
     nan = torch.isnan(want.float())
     assert torch.equal(torch.isnan(got.float()), nan)
     assert torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])

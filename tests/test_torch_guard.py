@@ -2,6 +2,8 @@
 its entry points run on the card unless the caller asks for the CPU."""
 
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -260,6 +262,56 @@ def test_kernel_build_is_not_touched_on_import():
     """Importing the kernel modules builds and loads nothing."""
     from arxiv_rag_tpu_torch.ops import _build, fused_topk
 
-    assert fused_topk._LIB == [] or torch.cuda.is_available()
+    assert not fused_topk._lib.loaded or torch.cuda.is_available()
     assert _build.lib_path("fused_topk").name.startswith("libfused_topk-")
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
+
+
+KERNELS = ("fused_topk", "w8a8", "attention", "dense")  # csrc/<name>.cu
+
+
+def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh``: an
+    edited or added header names new libraries for all four sources, the
+    same text names the same ones, and the checkout's path is no part of
+    the name (a copy elsewhere loads what the tree built)."""
+    from arxiv_rag_tpu_torch.ops import _build
+
+    built = {name: _build.lib_path(name) for name in KERNELS}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {name: _build.lib_path(name) for name in KERNELS} == built
+    header = csrc / "hopper.cuh"
+    text = header.read_text()
+    header.write_text(text + "// an edit\n")
+    edited = {name: _build.lib_path(name) for name in KERNELS}
+    assert all(edited[name] != built[name] for name in KERNELS)
+    header.write_text(text)
+    assert {name: _build.lib_path(name) for name in KERNELS} == built
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build.lib_path(name) != built[name] for name in KERNELS)
+
+
+def _defined(text: str) -> set[str]:
+    """Names a CUDA source defines at file scope: functions whose
+    declaration starts a line, and ``using`` aliases."""
+    funcs = re.findall(r'^\w[\w\s:*&<>,"]*?\b(\w+)\(', text, re.M)
+    return set(funcs) | set(re.findall(r"^using\s+(\w+)\s*=", text, re.M))
+
+
+def test_every_kernel_includes_the_hopper_header_and_copies_none_of_it():
+    """Each ``csrc/*.cu`` includes ``hopper.cuh`` and defines none of the
+    names the header defines, so the primitives stay in one place."""
+    from arxiv_rag_tpu_torch.ops import _build
+
+    shared = _defined((_build.CSRC / "hopper.cuh").read_text())
+    assert {"smem_u32", "mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
+            "tma_load_2d", "sw128_desc", "pack_bf16", "encode_tiled", "EncodeTiledFn",
+            "arag_error_string"} <= shared
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    assert {s.stem for s in sources} == set(KERNELS)
+    for src in sources:
+        text = src.read_text()
+        assert '#include "hopper.cuh"' in text, src.name
+        assert not shared & _defined(text), (src.name, sorted(shared & _defined(text)))

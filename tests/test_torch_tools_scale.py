@@ -1,9 +1,9 @@
 """The port's scale harnesses (``arxiv_rag_tpu_torch/tools/recall_real.py``,
 ``ivf_scale.py``, ``bm25_scale.py``, ``scale_proof.py``) against the
-reference's scripts in ``tools/``, and the three reference APIs they
-brought over (``Embedder.encode_texts_device``,
-``models/convert.py::from_torch_module``, ``IVFIndex._probe_dispatch``),
-on the CPU.
+reference's scripts in ``tools/``, and three reference APIs
+(``Embedder.encode_texts_device``, whose embeddings the port's
+``encode_texts`` and window path give, ``models/convert.py::from_torch_module``,
+``IVFIndex._probe_dispatch``), on the CPU.
 
 Each reference script is loaded by path with ``sys.argv`` (and its
 environment knobs) patched and runs in this process on JAX's CPU backend,
@@ -322,9 +322,10 @@ TEXTS = ["the quick brown fox", "dense retrieval on accelerators",
 
 
 def test_encode_texts_device_matches_the_reference():
-    """The device-resident embeddings (a tensor, never fetched) in the
-    input order across buckets and batch splits: within 1e-6 of the JAX
-    package's ``encode_texts_device`` and of the port's host path."""
+    """The JAX package's device-resident embeddings (``encode_texts_device``)
+    are the port's: ``encode_texts`` in the input order across buckets and
+    batch splits, and ``encode_window_device`` (a tensor, never fetched)
+    for a window of one batch, each within 1e-6."""
     from arxiv_rag_tpu.embed import Embedder as JaxEmbedder
     from arxiv_rag_tpu.models import ModelConfig as JaxCfg
     from arxiv_rag_tpu.models import init_params
@@ -344,13 +345,14 @@ def test_encode_texts_device_matches_the_reference():
     model = build_model(from_jax_params(jax.tree.map(np.asarray, params), cfg), cfg,
                         compute_dtype=torch.float32, device="cpu")
     emb = Embedder(model, WordPieceTokenizer.toy(), buckets=(8, 16, 48), batch_size=4)
-    got = emb.encode_texts_device(TEXTS)
-    assert isinstance(got, torch.Tensor) and got.shape == (len(TEXTS), 32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jemb.encode_texts_device(TEXTS)),
-                               rtol=0, atol=1e-6)
-    np.testing.assert_allclose(got.numpy(), emb.encode_texts(TEXTS), rtol=0, atol=1e-6)
-    empty = emb.encode_texts_device([])
-    assert isinstance(empty, torch.Tensor) and tuple(empty.shape) == (0, 32)
+    want = np.asarray(jemb.encode_texts_device(TEXTS))
+    got = emb.encode_texts(TEXTS)
+    assert got.shape == (len(TEXTS), 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    window, n = emb.encode_window_device(TEXTS[:4])
+    assert isinstance(window, torch.Tensor) and n == 4
+    np.testing.assert_allclose(window[:n].numpy(), want[:4], rtol=0, atol=1e-6)
+    assert emb.encode_texts([]).shape == (0, 32) == np.asarray(jemb.encode_texts_device([])).shape
 
 
 def test_from_torch_module_matches_the_reference():

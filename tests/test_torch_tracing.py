@@ -193,19 +193,19 @@ def test_encoder_counters_and_starvation(tmp_path):
 
 
 def test_device_paths_record_launch_not_device():
-    """``embed.device`` is ``encode_texts``' launch and fetch; the paths
-    that leave the embeddings on the device record ``embed.launch``."""
+    """``embed.device`` is ``encode_texts``' launch and fetch; the window
+    path, which leaves the embeddings on the device, records
+    ``embed.launch``."""
     emb = _embedder()
     before = METRICS.snapshot()
-    emb.encode_texts_device(_texts(6, 1))
     emb.encode_window_device(_texts(3, 2))
     d = _delta(before, METRICS.snapshot())
     assert d["counts"].get("embed.device", 0) == 0 and d["counts"].get("embed.fetch", 0) == 0
-    assert d["counts"]["embed.launch"] == d["counts"]["embed.tokenize"] == 2
+    assert d["counts"]["embed.launch"] == d["counts"]["embed.tokenize"] == 1
     lens = [len(emb.tokenizer.encode(t, max_len=BUCKETS[-1])) for t in _texts(3, 2)]
     window_slots = HEIGHT * (BUCKETS[0] if max(lens) <= BUCKETS[0] else BUCKETS[1])
-    assert d["counters"]["embed.token_slots"] > window_slots
-    assert d["counters"]["embed.tokens"] == emb.stats.tokens
+    assert d["counters"]["embed.token_slots"] == window_slots
+    assert d["counters"]["embed.tokens"] == emb.stats.tokens == sum(lens)
 
 
 # -- the serving path -----------------------------------------------------

@@ -16,7 +16,7 @@ At the reference's own test config (``tests/test_train.py:13-20``), from
   of gradient values equal, every other within one bf16 step of the
   larger magnitude (the attention key biases, whose gradient is
   rounding noise around 0, take the step);
-- the ``_matmul_f32`` backward against JAX's VJP of the reference's
+- the ``matmul_f32`` backward against JAX's VJP of the reference's
   product, in both forms the port runs: autograd through the CPU's cast
   and fp32 product, and the card's ``_MatmulF32`` (its forward's bf16
   GEMM emulated in fp32 here; its backward is the same fp32 product).
@@ -40,9 +40,9 @@ from arxiv_rag_tpu.models import init_params
 from arxiv_rag_tpu.train import contrastive_loss as jax_contrastive_loss
 from arxiv_rag_tpu.train import make_train_step as jax_make_train_step
 
-from arxiv_rag_tpu_torch.models import mpnet
 from arxiv_rag_tpu_torch.models.convert import build_model, from_jax_params
 from arxiv_rag_tpu_torch.models.mpnet import ModelConfig
+from arxiv_rag_tpu_torch.ops import matmul
 from arxiv_rag_tpu_torch.train import AdamW, AdamWState, contrastive_loss, make_train_step
 from arxiv_rag_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -270,10 +270,10 @@ def test_matmul_f32_backward_matches_jax_vjp(monkeypatch, route, batched):
     ta = torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
     tb = torch.from_numpy(b).to(torch.bfloat16).requires_grad_()
     if route == "cpu":
-        got = mpnet._matmul_f32(ta, tb)
+        got = matmul.matmul_f32(ta, tb)
     else:
-        monkeypatch.setattr(mpnet, "_gemm_f32_out", _emulated_gemm)
-        got = mpnet._MatmulF32.apply(ta, tb)
+        monkeypatch.setattr(matmul, "_gemm_f32_out", _emulated_gemm)
+        got = matmul._MatmulF32.apply(ta, tb)
     got.backward(torch.from_numpy(ct))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=1e-6, atol=1e-5)
     for g, w in ((ta.grad, want_a), (tb.grad, want_b)):

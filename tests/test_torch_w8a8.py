@@ -230,7 +230,7 @@ def test_cpu_tensors_take_the_plain_versions():
                      *_port_args(w_q, w_scale, b))
     w8a8.w8a8_dense(torch.randn(3, 5, 128), *_port_args(w_q, w_scale, b))
     assert w8a8.LAUNCHES == {"w8a8_matmul": 0, "w8a8_matmul_fused_quant": 0}
-    assert w8a8._LIB == [] or torch.cuda.is_available()
+    assert not w8a8._lib.loaded or torch.cuda.is_available()
 
 
 # -- weights, conversion, the quantized encoder -------------------------------------
