@@ -17,8 +17,14 @@ numerics exactly:
   ``_dense_int8``). ``METRICS`` counts the two as ``dense.fused`` and
   ``dense.plain``;
 - LayerNorm in fp32 with eps 1e-5, cast back to the compute dtype
-  (:134-141); exact GELU in fp32 (:318); softmax in fp32, cast to the
-  compute dtype (:306);
+  (:134-141), of the residual sum rounded to the compute dtype. On the
+  card in bf16 with no gradient wanted, at the encoders' widths (768,
+  384), one hand-written kernel reads both terms of the sum and writes
+  the normalised rows (``ops/layer_norm.py``, ``csrc/layer_norm.cu``: the
+  same roundings, its statistics summed in another order); the CPU, fp32
+  and training run the chain op by op (``add_layer_norm_plain``).
+  ``METRICS`` counts the two as ``ln.fused`` and ``ln.plain``; exact GELU
+  in fp32 (:318); softmax in fp32, cast to the compute dtype (:306);
 - T5-style relative position buckets shared across layers (:234-267),
   RoBERTa position ids ``cumsum(mask)*mask+pad`` (:323-327) and the
   ``finfo(float32).min`` additive mask bias (:348-350);
@@ -52,12 +58,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from arxiv_rag_tpu_torch.device import default_device
 from arxiv_rag_tpu_torch.logging_utils import METRICS
-from arxiv_rag_tpu_torch.ops import attention, dense, w8a8
+from arxiv_rag_tpu_torch.ops import attention, dense, layer_norm, w8a8
 
 PAD_TOKEN_ID = 1  # MPNet convention: <pad>=1 (HF MPNetEmbeddings.padding_idx)
 
@@ -141,13 +146,16 @@ def create_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Ten
     return torch.cumsum(mask, dim=1) * mask + pad_token_id
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """fp32 LayerNorm whatever the compute dtype, cast back."""
-    out = F.layer_norm(
-        x.to(torch.float32), ln.normalized_shape,
-        ln.weight.to(torch.float32), ln.bias.to(torch.float32), ln.eps,
-    )
-    return out.to(x.dtype)
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+    """fp32 LayerNorm of ``x + residual`` (the sum in the compute dtype;
+    ``x`` alone without a residual) whatever the compute dtype, cast back.
+    The kernel where ``takes_kernel`` holds, else the chain."""
+    if layer_norm.takes_kernel(x, residual, ln.weight, ln.bias):
+        METRICS.inc("ln.fused")
+        return layer_norm.add_layer_norm(x, residual, ln.weight, ln.bias, ln.eps)
+    METRICS.inc("ln.plain")
+    return layer_norm.add_layer_norm_plain(x, residual, ln.weight, ln.bias, ln.eps)
 
 
 class QuantLinear(nn.Module):
@@ -234,7 +242,7 @@ class Attention(nn.Module):
             METRICS.inc("attn.plain")
             ctx = attention.attention_plain(q, k, v, bias, mask_bias, nh)
         out = _dense(ctx, self.o)
-        return _layer_norm(out + x, self.ln)
+        return _layer_norm(out, self.ln, x)
 
 
 class FeedForward(nn.Module):
@@ -248,7 +256,7 @@ class FeedForward(nn.Module):
     def forward(self, x):
         y = _dense(x, self.inp, gelu=True)
         y = _dense(y, self.out)
-        return _layer_norm(y + x, self.ln)
+        return _layer_norm(y, self.ln, x)
 
 
 class Layer(nn.Module):
@@ -331,8 +339,10 @@ class MPNet(nn.Module):
         """``forward`` with autograd as the caller has it: fp32 token states."""
         cfg = self.cfg
         pos_ids = create_position_ids(input_ids, cfg.pad_token_id)
-        x = self.word(input_ids) + self.position(pos_ids)
-        x = _layer_norm(x.to(self.compute_dtype), self.emb_ln)
+        x, pos = self.word(input_ids), self.position(pos_ids)
+        if x.dtype != self.compute_dtype:  # summed in the parameter dtype, then rounded
+            x, pos = (x + pos).to(self.compute_dtype), None
+        x = _layer_norm(x, self.emb_ln, pos)
         bias = self._position_bias(input_ids.shape[1])
         mask_bias = (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * \
             torch.finfo(torch.float32).min

@@ -48,7 +48,11 @@ its first failure:
    cell's rows (M = 393,216, all-mpnet-base-v2's three shapes) and at
    MiniLM's (M = 262,144) against the chain, with its bound, the chain's
    time and, as yardsticks, ``torch.mm(out_dtype=float32)`` with the bias
-   add and cast, and ``F.linear`` in bf16;
+   add and cast, and ``F.linear`` in bf16; then the encoders' residual add
+   and LayerNorm (N1) at the embed cell's rows (393,216 × 768) and at
+   MiniLM's (262,144 × 384) against the chain, with its bound, the chain's
+   time, ``F.layer_norm`` in fp32 on the sum as a yardstick, the share
+   equal bit for bit and the largest difference in bf16 ulps;
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
    (device plan and host plan), checked against the plain scans; then
@@ -191,7 +195,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SOURCES = ("fused_topk", "w8a8", "attention", "dense")  # csrc/<name>.cu
+SOURCES = ("fused_topk", "w8a8", "attention", "dense", "layer_norm")  # csrc/<name>.cu
 N_ROWS = 2_000_000  # the ~105k-paper arXiv CS corpus in chunks
 N_RAGGED = 1_999_937
 N_F32 = 262_144
@@ -1202,6 +1206,77 @@ def phase_dense(gen, results) -> None:
     results["dense_cases"] = cases
 
 
+# the residual add and LayerNorm at the embed cell's 384-token bucket
+# (all-mpnet-base-v2, eps 1e-5) and MiniLM-L6's pairs of 256 (eps 1e-12):
+# (M, H, eps)
+LN_SHAPES = ((393216, 768, 1e-5), (262144, 384, 1e-12))
+# N1 against the chain (tests/test_torch_layer_norm.py): equal or one bf16
+# ulp apart, 2^-17 of what the statistics' fp32 rounding reaches an output
+# through where it cancels toward zero
+LN_STAT, LN_MIN_EQUAL = 2.0 ** -17, 0.999
+
+
+def phase_layer_norm(gen, results) -> None:
+    """N1, the residual add and LayerNorm, at the embed cell's rows and at
+    MiniLM's, against the chain it replaces (the bf16 add, casts,
+    ``F.layer_norm`` in fp32); ``F.layer_norm`` alone on the sum made
+    already in fp32 is timed as a yardstick only."""
+    import torch.nn.functional as F
+
+    from arxiv_rag_tpu_torch.ops import layer_norm as lnk
+
+    print("== phase 2 (layer_norm): N1 at the embed and the rerank shapes", flush=True)
+    cases = []
+    for m, h, eps in LN_SHAPES:
+        a = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+        bias = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+        shape = f"{m} x {h}, eps {eps:g}"
+        got = lnk.add_layer_norm(a, b, w, bias, eps)
+        equal, worst, ulps = 0, 0.0, 0.0
+        for r0 in range(0, m, 32768):
+            xa, xb, g = a[r0:r0 + 32768], b[r0:r0 + 32768], got[r0:r0 + 32768]
+            want = lnk.add_layer_norm_plain(xa, xb, w, bias, eps)
+            s = (xa + xb).double()
+            mean = s.mean(-1, keepdim=True)
+            rstd = (s.var(-1, unbiased=False, keepdim=True) + eps).rsqrt()
+            ulp = bf16_ulp(want)
+            limit = ulp + LN_STAT * (w.double().abs() * (1 + ((s - mean) * rstd).abs()
+                                                         + mean.abs() * rstd)
+                                     + bias.double().abs())
+            diff = (g.float() - want.float()).abs()
+            worst = max(worst, (diff / limit).max().item())
+            ulps = max(ulps, (diff / ulp).max().item())
+            equal += (g == want).sum().item()
+            del want, s, mean, rstd, ulp, limit, diff
+        equal /= got.numel()
+        if worst > 1.0 or equal < LN_MIN_EQUAL:
+            fail(f"layer_norm {shape}: largest |N1 - chain| / limit {worst:.3f}, "
+                 f"{100 * equal:.4f}% bitwise equal")
+        del got
+        s32 = (a + b).float()
+        w32, b32 = w.float(), bias.float()
+        c = {"m": m, "h": h, "eps": eps, "bitwise_equal_share": equal,
+             "largest_ulps": ulps, "worst_over_limit": worst,
+             "ms": median_ms(lambda: lnk.add_layer_norm(a, b, w, bias, eps)),
+             "plain_ms": median_ms(lambda: lnk.add_layer_norm_plain(a, b, w, bias, eps),
+                                   runs=PLAIN_RUNS),
+             "library_ms": median_ms(lambda: F.layer_norm(s32, (h,), w32, b32, eps),
+                                     runs=PLAIN_RUNS),
+             "bound_ms": 3 * m * h * 2 / HBM_BYTES_PER_S * 1e3}
+        c["tb_per_s"] = 3 * m * h * 2 / c["ms"] / 1e9
+        print(f"  layer_norm {shape}: N1 {c['ms']:.4f} ms, chain {c['plain_ms']:.4f} ms, "
+              f"F.layer_norm fp32 {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"(bytes), {c['tb_per_s']:.3f} TB/s, {100 * c['bound_ms'] / c['ms']:.1f}% of the "
+              f"bound; {100 * equal:.4f}% bitwise the chain's, largest difference {ulps:.3f} "
+              f"bf16 ulps", flush=True)
+        cases.append(c)
+        del a, b, s32
+        torch.cuda.empty_cache()
+    results["layer_norm_cases"] = cases
+
+
 class GCPauses:
     """Seconds the host spends in Python's cyclic garbage collector while
     it is entered (a host pause inside a timed window)."""
@@ -1261,21 +1336,24 @@ def all_launches() -> dict:
     from arxiv_rag_tpu_torch.ops import attention as at
     from arxiv_rag_tpu_torch.ops import dense as dn
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops import layer_norm as lnk
     from arxiv_rag_tpu_torch.ops import w8a8
 
-    return {**ft.LAUNCHES, **w8a8.LAUNCHES, **at.LAUNCHES, **dn.LAUNCHES}
+    return {**ft.LAUNCHES, **w8a8.LAUNCHES, **at.LAUNCHES, **dn.LAUNCHES, **lnk.LAUNCHES}
 
 
 def reset_all_launches() -> None:
     from arxiv_rag_tpu_torch.ops import attention as at
     from arxiv_rag_tpu_torch.ops import dense as dn
     from arxiv_rag_tpu_torch.ops import fused_topk as ft
+    from arxiv_rag_tpu_torch.ops import layer_norm as lnk
     from arxiv_rag_tpu_torch.ops import w8a8
 
     ft.reset_launches()
     w8a8.reset_launches()
     at.reset_launches()
     dn.reset_launches()
+    lnk.reset_launches()
 
 
 def hits_arrays(hits, nq, what):
@@ -4229,6 +4307,22 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
         "library_ms": main["library_ms"],
         "cases": cases,
     })
+    cases = results["layer_norm_cases"]
+    main = cases[0]
+    out.append({
+        "name": "layer_norm (N1: the encoders' residual add and LayerNorm, fp32 statistics, one "
+                "bf16 rounding, M=393216 H=768)",
+        "route": "cuda",
+        "source": "arxiv_rag_tpu_torch/csrc/layer_norm.cu",
+        "kernel": "add_layer_norm_kernel<8, 3> / <4, 3> (a warp a row, registers only)",
+        "replaces": "none: the reference leaves LayerNorm to XLA, which fuses the residual add",
+        "launches": launches["main"]["layer_norm"],
+        "bitwise_equal_share": min(c["bitwise_equal_share"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+        "cases": cases,
+    })
     merges = results["sharded"]["kernels"]
     main = next(c for c in merges if c["kind"] == "bf16" and c["q"] == 512)
     out.append({
@@ -4341,6 +4435,7 @@ def main() -> int:
     phase_w8a8_kernels(gen, results)
     phase_attention(gen, results)
     phase_dense(gen, results)
+    phase_layer_norm(gen, results)
 
     reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)
@@ -4360,6 +4455,8 @@ def main() -> int:
         fail("the main path's bf16 encoder launched no attention kernel")
     if launches["main"]["dense"] < 1:
         fail("the main path's bf16 encoder launched no dense kernel")
+    if launches["main"]["layer_norm"] < 1:
+        fail("the main path's bf16 encoder launched no layer-norm kernel")
     w8a8_launches = phase_w8a8_slice(indexes, engines, texts, results)  # counts its own run
     for key, counter in (("K8", "w8a8_matmul_fused_quant"), ("K1", "fused_topk"),
                          ("K2", "fused_topk_int8")):

@@ -257,7 +257,9 @@ def test_dense_fused_pct_in_benchmark():
     assert entry == {"name": "dense_fused_pct.embed", "unit": "%", "better": "higher",
                      "source": "program_counter", "layer": "encoder", "moves": "chunks_per_s",
                      "workloads": ["embed-chunks384"]}
-    assert spec["per_layer"][-1] is entry  # appended after what was there
+    names = [m["name"] for m in spec["per_layer"]]
+    # appended after what was there, the later entries after it
+    assert names[names.index(entry["name"]) - 1] == "moe_imbalance_pct.moe"
 
 
 # -- on the card ------------------------------------------------------------------

@@ -267,12 +267,12 @@ def test_kernel_build_is_not_touched_on_import():
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
 
 
-KERNELS = ("fused_topk", "w8a8", "attention", "dense")  # csrc/<name>.cu
+KERNELS = ("fused_topk", "w8a8", "attention", "dense", "layer_norm")  # csrc/<name>.cu
 
 
 def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
     """A library's name hashes its source and every ``csrc/*.cuh``: an
-    edited or added header names new libraries for all four sources, the
+    edited or added header names new libraries for every source, the
     same text names the same ones, and the checkout's path is no part of
     the name (a copy elsewhere loads what the tree built)."""
     from arxiv_rag_tpu_torch.ops import _build
