@@ -23,10 +23,11 @@ following ``arxiv_rag_tpu/cli/main.py`` (every verb of it):
   status   the chunk stage's progress, failed papers and corpus summary
   convert  an HF MPNet checkpoint (``model.safetensors`` + ``config.json``)
            into the reference's native checkpoint, tokenizer files copied;
-           a DeepSeek-V3 one (``config.json`` ``model_type`` deepseek_v3,
-           e.g. Moonlight-16B-A3B) into this package's safetensors files
+           a decoder's (``config.json`` ``model_type`` deepseek_v3, e.g.
+           Moonlight-16B-A3B, or granitemoehybrid, e.g.
+           Granite-4.0-H-Small) into this package's safetensors files
   embed    embed the corpus store's chunks into batch files (resumable;
-           a DeepSeek-V3 checkpoint embeds with its last token)
+           a decoder checkpoint embeds with its last token)
   index    build the dense index from an embed output directory
            (``--corpus``: categories from the corpus store), with
            ``--ivf-clusters`` an IVF (cluster-pruned) delta beside it;
@@ -420,22 +421,23 @@ def cmd_status(args) -> int:
 
 
 def _add_convert(sub) -> None:
-    p = sub.add_parser("convert", help="convert an HF MPNet or DeepSeek-V3 checkpoint")
+    p = sub.add_parser("convert", help="convert an HF MPNet, DeepSeek-V3 or Granite-4.0-H "
+                                        "checkpoint")
     p.add_argument("--hf-dir", required=True, help="dir with *.safetensors + config.json")
     p.add_argument("--out", required=True)
 
 
 def cmd_convert(args) -> int:
     from arxiv_rag_tpu_torch.models.convert import (
-        convert_deepseek_v3,
+        convert_decoder,
         from_safetensors,
-        is_deepseek_v3,
+        is_decoder,
         load_model_config,
         save_checkpoint,
     )
 
-    if is_deepseek_v3(args.hf_dir):
-        cfg = convert_deepseek_v3(args.hf_dir, args.out)
+    if is_decoder(args.hf_dir):
+        cfg = convert_decoder(args.hf_dir, args.out)
     else:
         cfg = load_model_config(args.hf_dir)
         save_checkpoint(args.out, from_safetensors(args.hf_dir, cfg), cfg)
@@ -471,7 +473,7 @@ def cmd_embed(args) -> int:
     from arxiv_rag_tpu_torch.device import default_device
     from arxiv_rag_tpu_torch.embed import Embedder
     from arxiv_rag_tpu_torch.embed.runner import embed_batches
-    from arxiv_rag_tpu_torch.models.convert import is_deepseek_v3, load_deepseek_v3, load_model
+    from arxiv_rag_tpu_torch.models.convert import is_decoder, load_decoder, load_model
     from arxiv_rag_tpu_torch.models.mpnet import random_model
     from arxiv_rag_tpu_torch.store.corpus import CorpusReader
 
@@ -480,8 +482,8 @@ def cmd_embed(args) -> int:
         return 2
     dev = default_device(args.device)
     specials = ()  # the tokenizers' specials: MPNet's by default
-    if args.checkpoint and is_deepseek_v3(args.checkpoint):  # the bf16 decoder embedder
-        model, cfg = load_deepseek_v3(args.checkpoint, device=dev)
+    if args.checkpoint and is_decoder(args.checkpoint):  # the bf16 decoder embedders
+        model, cfg = load_decoder(args.checkpoint, device=dev)
         vocab_path = args.vocab or str(Path(args.checkpoint) / "vocab.txt")
         specials = (_decoder_specials(vocab_path, cfg),)
     elif args.checkpoint:  # the bf16 encoder, as the reference's verb runs it

@@ -378,10 +378,20 @@ _DSV3_ATTN = {"attn_norm.weight": "input_layernorm.weight",
               "attn.o.weight": "self_attn.o_proj.weight"}
 
 
+def model_type(directory: str | Path) -> str | None:
+    """``directory``'s ``config.json`` ``model_type``, or None without one."""
+    path = Path(directory) / "config.json"
+    return json.loads(path.read_text()).get("model_type") if path.exists() else None
+
+
 def is_deepseek_v3(directory: str | Path) -> bool:
     """Whether ``directory``'s ``config.json`` names a DeepSeek-V3 model."""
-    path = Path(directory) / "config.json"
-    return path.exists() and json.loads(path.read_text()).get("model_type") == "deepseek_v3"
+    return model_type(directory) == "deepseek_v3"
+
+
+def is_granite_hybrid(directory: str | Path) -> bool:
+    """Whether ``directory``'s ``config.json`` names a Granite-4.0-H model."""
+    return model_type(directory) == "granitemoehybrid"
 
 
 def _swiglu_from_hf(get, prefix: str) -> dict[str, torch.Tensor]:
@@ -414,14 +424,80 @@ def deepseek_v3_layer_from_hf(get, cfg, i: int) -> dict[str, torch.Tensor]:
     return out
 
 
-def deepseek_v3_from_hf(get, cfg) -> dict[str, torch.Tensor]:
-    """A whole HF DeepSeek-V3 checkpoint → this package's state dict
-    (``lm_head`` is not read: the embedder holds no LM head)."""
+def _decoder_from_hf(get, cfg, layer_from_hf) -> dict[str, torch.Tensor]:
     out = {"embed.weight": get("model.embed_tokens.weight"),
            "norm.weight": get("model.norm.weight")}
     for i in range(cfg.num_hidden_layers):
-        out.update(deepseek_v3_layer_from_hf(get, cfg, i))
+        out.update(layer_from_hf(get, cfg, i))
     return out
+
+
+def deepseek_v3_from_hf(get, cfg) -> dict[str, torch.Tensor]:
+    """A whole HF DeepSeek-V3 checkpoint → this package's state dict
+    (``lm_head`` is not read: the embedder holds no LM head)."""
+    return _decoder_from_hf(get, cfg, deepseek_v3_layer_from_hf)
+
+
+# --- Granite-4.0-H (the hybrid decoder embedder) --------------------------------
+
+_GRANITE_LAYER = {"input_norm.weight": "input_layernorm.weight",
+                  "post_norm.weight": "post_attention_layernorm.weight",
+                  "moe.router.weight": "block_sparse_moe.router.layer.weight",
+                  "moe.w13": "block_sparse_moe.input_linear.weight",
+                  "moe.w2": "block_sparse_moe.output_linear.weight",
+                  "moe.shared.w13.weight": "shared_mlp.input_linear.weight",
+                  "moe.shared.w2.weight": "shared_mlp.output_linear.weight"}
+_GRANITE_MIXER = {
+    "mamba": {"in_proj.weight": "mamba.in_proj.weight", "conv_weight": "mamba.conv1d.weight",
+              "conv_bias": "mamba.conv1d.bias", "dt_bias": "mamba.dt_bias",
+              "A_log": "mamba.A_log", "D": "mamba.D", "norm_weight": "mamba.norm.weight",
+              "out_proj.weight": "mamba.out_proj.weight"},
+    "attention": {f"{x}.weight": f"self_attn.{x}_proj.weight" for x in "qkvo"},
+}
+
+
+def granite_hybrid_layer_from_hf(get, cfg, i: int) -> dict[str, torch.Tensor]:
+    """Layer ``i`` of an HF Granite-4.0-H checkpoint (``get(name)`` →
+    tensor, the published names) → this package's ``GraniteHybrid`` state
+    entries. The experts are stacked as published ([E, 2·I, H], gate rows
+    then up rows, and [E, H, I]); the conv's weight [C, 1, K] becomes [C, K]."""
+    pre, out = f"model.layers.{i}.", {}
+    for ours, theirs in _GRANITE_LAYER.items():
+        out[f"layers.{i}.{ours}"] = get(pre + theirs)
+    for ours, theirs in _GRANITE_MIXER[cfg.layer_types[i]].items():
+        out[f"layers.{i}.mixer.{ours}"] = get(pre + theirs)
+    if cfg.layer_types[i] == "mamba":
+        w = out[f"layers.{i}.mixer.conv_weight"]
+        out[f"layers.{i}.mixer.conv_weight"] = w.reshape(w.shape[0], w.shape[-1])
+    return out
+
+
+def granite_hybrid_from_hf(get, cfg) -> dict[str, torch.Tensor]:
+    """A whole HF Granite-4.0-H checkpoint → this package's state dict
+    (``lm_head``, tied to the embedding where published, is not read)."""
+    return _decoder_from_hf(get, cfg, granite_hybrid_layer_from_hf)
+
+
+# --- both decoders ----------------------------------------------------------------
+
+
+def _decoder_classes(kind: str):
+    """(config class, model class, layer_from_hf) of a decoder ``model_type``."""
+    if kind == "deepseek_v3":
+        from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3, DeepseekV3Config
+
+        return DeepseekV3Config, DeepseekV3, deepseek_v3_layer_from_hf
+    if kind == "granitemoehybrid":
+        from arxiv_rag_tpu_torch.models.granite_hybrid import GraniteHybrid, GraniteHybridConfig
+
+        return GraniteHybridConfig, GraniteHybrid, granite_hybrid_layer_from_hf
+    raise ValueError(f"no decoder embedder for model_type {kind!r}")
+
+
+def is_decoder(directory: str | Path) -> bool:
+    """Whether ``directory`` holds a decoder the port embeds with
+    (DeepSeek-V3 or Granite-4.0-H)."""
+    return model_type(directory) in ("deepseek_v3", "granitemoehybrid")
 
 
 def _safetensors(directory: str | Path) -> dict:
@@ -447,52 +523,66 @@ def safetensors_getter(directory: str | Path):
     return lambda name: where[name].get_tensor(name)
 
 
-def convert_deepseek_v3(hf_dir: str | Path, out_dir: str | Path):
-    """An HF DeepSeek-V3 checkpoint directory → this package's: the
-    config as published (``config.json``) and the weights under this
-    package's names, one ``model-{n:05d}.safetensors`` for the embedding
-    and final norm and one per layer, so no more than a layer is held at
-    once. Returns the config."""
+def convert_decoder(hf_dir: str | Path, out_dir: str | Path):
+    """An HF decoder checkpoint directory (``model_type`` deepseek_v3 or
+    granitemoehybrid) → this package's: the config as published
+    (``config.json``) and the weights under this package's names, one
+    ``model-{n:05d}.safetensors`` for the embedding and final norm and one
+    per layer, so no more than a layer is held at once. Returns the config."""
     from safetensors.torch import save_file
-
-    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3Config
 
     hf_dir, out_dir = Path(hf_dir), Path(out_dir)
     raw = json.loads((hf_dir / "config.json").read_text())
-    cfg = DeepseekV3Config.from_dict(raw)
+    config_cls, _, layer_from_hf = _decoder_classes(raw.get("model_type"))
+    cfg = config_cls.from_dict(raw)
     get = safetensors_getter(hf_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     save_file({"embed.weight": get("model.embed_tokens.weight").contiguous(),
                "norm.weight": get("model.norm.weight").contiguous()},
               str(out_dir / "model-00000.safetensors"))
     for i in range(cfg.num_hidden_layers):
-        layer = {k: v.contiguous() for k, v in deepseek_v3_layer_from_hf(get, cfg, i).items()}
+        layer = {k: v.contiguous() for k, v in layer_from_hf(get, cfg, i).items()}
         save_file(layer, str(out_dir / f"model-{i + 1:05d}.safetensors"))
     (out_dir / "config.json").write_text(json.dumps(raw, indent=1))
     return cfg
 
 
-def build_deepseek_v3(state: Mapping[str, torch.Tensor], cfg, *,
-                      compute_dtype: torch.dtype = torch.bfloat16, device=None):
-    """``DeepseekV3`` holding ``state`` as given (no copy on ``device``)."""
-    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3
+convert_deepseek_v3 = convert_granite_hybrid = convert_decoder
 
+
+def _build_decoder(model_cls, state: Mapping[str, torch.Tensor], cfg, compute_dtype, device):
     dev = default_device(device)
     with torch.device("meta"):
-        model = DeepseekV3(cfg, compute_dtype)
+        model = model_cls(cfg, compute_dtype)
     model.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
     return model.eval()
 
 
-def load_deepseek_v3(directory: str | Path, *, compute_dtype: torch.dtype = torch.bfloat16,
-                     device=None):
-    """(model, config) from this package's DeepSeek-V3 checkpoint
-    (``convert_deepseek_v3``), its weights moved to ``device`` one file at
-    a time; the parameters keep the file's dtype."""
-    from arxiv_rag_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+def build_deepseek_v3(state: Mapping[str, torch.Tensor], cfg, *,
+                      compute_dtype: torch.dtype = torch.bfloat16, device=None):
+    """``DeepseekV3`` holding ``state`` as given (no copy on ``device``)."""
+    return _build_decoder(_decoder_classes("deepseek_v3")[1], state, cfg, compute_dtype, device)
 
+
+def build_granite_hybrid(state: Mapping[str, torch.Tensor], cfg, *,
+                         compute_dtype: torch.dtype = torch.bfloat16, device=None):
+    """``GraniteHybrid`` holding ``state`` as given (no copy on ``device``)."""
+    return _build_decoder(_decoder_classes("granitemoehybrid")[1], state, cfg, compute_dtype,
+                          device)
+
+
+def load_decoder(directory: str | Path, *, compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+    """(model, config) from this package's decoder checkpoint
+    (``convert_decoder``), its weights moved to ``device`` one file at a
+    time; the parameters keep the file's dtype."""
     directory = Path(directory)
-    cfg = DeepseekV3Config.from_dict(json.loads((directory / "config.json").read_text()))
+    raw = json.loads((directory / "config.json").read_text())
+    config_cls, model_cls, _ = _decoder_classes(raw.get("model_type"))
+    cfg = config_cls.from_dict(raw)
     dev = default_device(device)
     state = {k: h.get_tensor(k).to(dev) for k, h in _safetensors(directory).items()}
-    return build_deepseek_v3(state, cfg, compute_dtype=compute_dtype, device=dev), cfg
+    return _build_decoder(model_cls, state, cfg, compute_dtype, dev), cfg
+
+
+load_deepseek_v3 = load_granite_hybrid = load_decoder

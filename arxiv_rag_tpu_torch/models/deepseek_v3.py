@@ -48,6 +48,8 @@ expert) and ``moe.combine``; counters ``moe.assignments`` (token-expert
 pairs routed, pad tokens included, counted on the host at launch) and
 ``moe.expert_rows_max`` (the busiest expert's rows, summed over layers:
 summed on the device, read by ``drain_counters`` when the caller fetches).
+The layer's flow is ``ops/moe.py::MoELayer``, which Granite-4.0-H's MoE
+shares.
 """
 
 from __future__ import annotations
@@ -60,7 +62,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from arxiv_rag_tpu_torch.logging_utils import METRICS
 from arxiv_rag_tpu_torch.ops import moe
 
 KV_NORM_EPS = 1e-6  # kv_a_layernorm: DeepseekV3RMSNorm's default eps in the published code
@@ -200,19 +201,17 @@ class MLP(nn.Module):
         return self.w2(F.silu(g) * u)
 
 
-class MoE(nn.Module):
-    """Routed experts (stacked ``w13`` [E, 2·I, H], ``w2`` [E, H, I]),
-    the fp32 correction bias and the shared experts."""
+class MoE(moe.MoELayer):
+    """Routed experts, the fp32 correction bias and the shared experts
+    (``ops/moe.py::MoELayer``'s flow) with the sigmoid router."""
 
     def __init__(self, cfg: DeepseekV3Config) -> None:
-        super().__init__()
-        self.cfg = cfg
         h, e, i = cfg.hidden_size, cfg.n_routed_experts, cfg.moe_intermediate_size
+        super().__init__(h, i, e, cfg.num_experts_per_tok,
+                         MLP(h, i * cfg.n_shared_experts) if cfg.n_shared_experts else None)
+        self.cfg = cfg
         self.gate = nn.Linear(h, e, bias=False)
         self.register_buffer("e_score_correction_bias", torch.zeros(e, dtype=torch.float32))
-        self.w13 = nn.Parameter(torch.empty(e, 2 * i, h))
-        self.w2 = nn.Parameter(torch.empty(e, h, i))
-        self.shared = MLP(h, i * cfg.n_shared_experts) if cfg.n_shared_experts else None
 
     def _apply(self, fn, recurse=True):
         # a cast of the module leaves the correction bias in fp32: it only
@@ -224,30 +223,10 @@ class MoE(nn.Module):
             self._buffers["e_score_correction_bias"] = bias.to(self.gate.weight.device)
         return self
 
-    def run_experts(self, xs: torch.Tensor, offs: torch.Tensor,
-                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """(routed outputs of the permuted rows ``xs``, shared outputs of ``x``)."""
-        ys = moe.expert_swiglu(xs, self.w13, self.w2, offs)
-        return ys, (self.shared(x) if self.shared is not None else None)
-
-    def forward(self, x: torch.Tensor, rows_max: torch.Tensor | None = None) -> torch.Tensor:
+    def choose(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        shape = x.shape
-        x = x.reshape(-1, shape[-1])
-        with METRICS.timer("moe.route"):
-            idx, w = moe.route(x, self.gate.weight, self.e_score_correction_bias,
-                               cfg.num_experts_per_tok, cfg.routed_scaling_factor,
-                               cfg.norm_topk_prob)
-            order, counts, offs = moe.plan(idx, cfg.n_routed_experts)
-            xs = x.index_select(0, order // cfg.num_experts_per_tok)
-        METRICS.inc("moe.assignments", idx.numel())
-        if rows_max is not None:
-            rows_max.add_(counts.max())
-        with METRICS.timer("moe.experts"):
-            ys, shared = self.run_experts(xs, offs, x)
-        with METRICS.timer("moe.combine"):
-            out = moe.combine(ys, order, w, shared)
-        return out.view(shape)
+        return moe.route(x, self.gate.weight, self.e_score_correction_bias,
+                         cfg.num_experts_per_tok, cfg.routed_scaling_factor, cfg.norm_topk_prob)
 
 
 class Layer(nn.Module):
@@ -265,40 +244,26 @@ class Layer(nn.Module):
         return a + self.mlp(self.ffn_norm(a))
 
 
-class DeepseekV3(nn.Module):
-    """``encode(ids, mask)``: [batch, hidden] fp32 embeddings of
-    right-padded token ids (attention is causal, so no real token sees a
-    pad, and no key mask is needed)."""
+class LastTokenEmbedder(nn.Module):
+    """A decoder as an embedder: ``encode(ids, mask)`` pools the final
+    RMSNorm (``self.norm``) of each row's last real token from
+    ``hidden(ids)``, in fp32, L2-normalized; ``rows_max`` is the device
+    counter of the busiest expert's rows its MoE layers add to, read by
+    ``drain_counters``. Right padding is safe where every layer is causal:
+    no real token sees a pad."""
 
-    def __init__(self, cfg: DeepseekV3Config, compute_dtype: torch.dtype = torch.float32) -> None:
+    def __init__(self) -> None:
         super().__init__()
-        self.cfg = cfg
-        self.compute_dtype = compute_dtype
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(Layer(cfg, i) for i in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._rows_max: dict[torch.device, torch.Tensor] = {}
 
-    def _angles(self, seq_len: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-        key = (seq_len, device)
-        if key not in self._rope:
-            self._rope[key] = rope_angles(seq_len, self.cfg.qk_rope_head_dim,
-                                          self.cfg.rope_theta, device)
-        return self._rope[key]
-
     def hidden(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """[batch, seq, hidden] states after the last layer (before the
-        final norm), in the compute dtype."""
-        dev = input_ids.device
-        h = self.embed(input_ids).to(self.compute_dtype)
-        cos, sin = self._angles(input_ids.shape[1], dev)
-        rows_max = self._rows_max.get(dev)
-        if rows_max is None:
-            rows_max = self._rows_max[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-        for layer in self.layers:
-            h = layer(h, cos, sin, rows_max)
-        return h
+        raise NotImplementedError
+
+    def rows_max(self, dev: torch.device) -> torch.Tensor:
+        acc = self._rows_max.get(dev)
+        if acc is None:
+            acc = self._rows_max[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+        return acc
 
     @torch.no_grad()
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -319,3 +284,36 @@ class DeepseekV3(nn.Module):
             total += int(acc.item())
             acc.zero_()
         return {"moe.expert_rows_max": float(total)}
+
+
+class DeepseekV3(LastTokenEmbedder):
+    """``encode(ids, mask)``: [batch, hidden] fp32 embeddings of
+    right-padded token ids (attention is causal, so no real token sees a
+    pad, and no key mask is needed)."""
+
+    def __init__(self, cfg: DeepseekV3Config, compute_dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList(Layer(cfg, i) for i in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _angles(self, seq_len: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+        key = (seq_len, device)
+        if key not in self._rope:
+            self._rope[key] = rope_angles(seq_len, self.cfg.qk_rope_head_dim,
+                                          self.cfg.rope_theta, device)
+        return self._rope[key]
+
+    def hidden(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """[batch, seq, hidden] states after the last layer (before the
+        final norm), in the compute dtype."""
+        dev = input_ids.device
+        h = self.embed(input_ids).to(self.compute_dtype)
+        cos, sin = self._angles(input_ids.shape[1], dev)
+        rows_max = self.rows_max(dev)
+        for layer in self.layers:
+            h = layer(h, cos, sin, rows_max)
+        return h

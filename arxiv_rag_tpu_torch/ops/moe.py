@@ -1,10 +1,13 @@
 """A dropless mixture-of-experts layer's routing, expert products and
-combine (DeepSeek-V3's MoE).
+combine (DeepSeek-V3's and Granite-4.0-H's MoE), and the layer's flow.
 
 - ``route``: the sigmoid router in fp32 (``σ(x W_gateᵀ)``, both operands
   cast up), the top-k of the scores plus the correction bias (the bias
   picks the experts and never weighs them), and the chosen scores
-  normalized to sum to one and scaled by ``routed_scaling_factor``.
+  normalized to sum to one and scaled by ``routed_scaling_factor``
+  (DeepSeek-V3).
+- ``route_topk_softmax``: the top-k of the fp32 logits, weighed by a
+  softmax over those k alone (Granite-4.0-H's ``TopKGating``).
 - ``plan``: the token-expert pairs sorted by expert (a stable sort of the
   flat choices), each expert's row count and the groups' end offsets.
   Dropless: every pair gets a row, whatever the counts.
@@ -21,12 +24,23 @@ Expert weights are stacked: ``w13`` [E, 2·I, H] (gate rows, then up
 rows, as ``nn.Linear`` lays out [out, in]) and ``w2`` [E, H, I]. No token's
 result depends on which other tokens share its batch: routing is per
 token, and the products are per row.
+
+``MoELayer`` is the layer both decoders subclass with their router
+(``choose``): route, plan and permute (span ``moe.route``), the expert
+products and the shared expert (``run_experts``, span ``moe.experts``),
+the combine (span ``moe.combine``); counters ``moe.assignments``
+(token-expert pairs routed, pad tokens included, counted on the host at
+launch) and, into the caller's device tensor ``rows_max``, the busiest
+expert's rows (read by the model's ``drain_counters``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from arxiv_rag_tpu_torch.logging_utils import METRICS
 
 
 def route(x: torch.Tensor, gate_weight: torch.Tensor, bias: torch.Tensor | None, top_k: int,
@@ -41,6 +55,16 @@ def route(x: torch.Tensor, gate_weight: torch.Tensor, bias: torch.Tensor | None,
     if top_k > 1 and norm_topk_prob:
         w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
     return idx, w * scaling
+
+
+def route_topk_softmax(x: torch.Tensor, gate_weight: torch.Tensor,
+                       top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chosen experts [T, k] int64, their weights [T, k] fp32) of tokens
+    ``x`` [T, H]: the top-k of the fp32 logits, weights their softmax over
+    the k."""
+    logits = F.linear(x.to(torch.float32), gate_weight.to(torch.float32))
+    top, idx = torch.topk(logits, top_k, dim=-1)
+    return idx, torch.softmax(top, dim=-1)
 
 
 def plan(idx: torch.Tensor, n_experts: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -102,3 +126,43 @@ def combine(ys: torch.Tensor, order: torch.Tensor, w: torch.Tensor,
     for j in range(k):
         out.addcmul_(per_pair[:, j], w[:, j:j + 1])
     return out.to(ys.dtype)
+
+
+class MoELayer(nn.Module):
+    """Routed experts (stacked ``w13`` [E, 2·I, H], ``w2`` [E, H, I]) and
+    an optional ``shared`` expert, in the flow the module note sets out;
+    a subclass holds the router and implements ``choose``."""
+
+    def __init__(self, hidden: int, inter: int, n_experts: int, top_k: int,
+                 shared: nn.Module | None) -> None:
+        super().__init__()
+        self.n_experts, self.top_k = n_experts, top_k
+        self.w13 = nn.Parameter(torch.empty(n_experts, 2 * inter, hidden))
+        self.w2 = nn.Parameter(torch.empty(n_experts, hidden, inter))
+        self.shared = shared
+
+    def choose(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(chosen experts [T, k], their fp32 weights [T, k]) of tokens ``x`` [T, H]."""
+        raise NotImplementedError
+
+    def run_experts(self, xs: torch.Tensor, offs: torch.Tensor,
+                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(routed outputs of the permuted rows ``xs``, shared outputs of ``x``)."""
+        ys = expert_swiglu(xs, self.w13, self.w2, offs)
+        return ys, (self.shared(x) if self.shared is not None else None)
+
+    def forward(self, x: torch.Tensor, rows_max: torch.Tensor | None = None) -> torch.Tensor:
+        shape = x.shape
+        x = x.reshape(-1, shape[-1])
+        with METRICS.timer("moe.route"):
+            idx, w = self.choose(x)
+            order, counts, offs = plan(idx, self.n_experts)
+            xs = x.index_select(0, order // self.top_k)
+        METRICS.inc("moe.assignments", idx.numel())
+        if rows_max is not None:
+            rows_max.add_(counts.max())
+        with METRICS.timer("moe.experts"):
+            ys, shared = self.run_experts(xs, offs, x)
+        with METRICS.timer("moe.combine"):
+            out = combine(ys, order, w, shared)
+        return out.view(shape)

@@ -52,7 +52,12 @@ its first failure:
    and LayerNorm (N1) at the embed cell's rows (393,216 × 768) and at
    MiniLM's (262,144 × 384) against the chain, with its bound, the chain's
    time, ``F.layer_norm`` in fp32 on the sum as a yardstick, the share
-   equal bit for bit and the largest difference in bf16 ulps;
+   equal bit for bit and the largest difference in bf16 ulps; then
+   Granite-4.0-H's state-space mixer (S1: the conv, the chunked scan and
+   the gated norm's parts) at the hybrid embed cell's shape (80 × 384
+   tokens, 128 heads × 64, state 128) against the fp32 recurrence, with
+   its bound, the plain version's time and the times of the parts it
+   takes in as PyTorch runs them alone;
 3. the slice: text queries through Embedder → SearchEngine over the
    bf16 and int8 indexes, plain, with categories, and through the IVF
    (device plan and host plan), checked against the plain scans; then
@@ -195,7 +200,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SOURCES = ("fused_topk", "w8a8", "attention", "dense", "layer_norm")  # csrc/<name>.cu
+SOURCES = ("fused_topk", "w8a8", "attention", "dense", "layer_norm", "ssd")  # csrc/<name>.cu
 N_ROWS = 2_000_000  # the ~105k-paper arXiv CS corpus in chunks
 N_RAGGED = 1_999_937
 N_F32 = 262_144
@@ -1275,6 +1280,141 @@ def phase_layer_norm(gen, results) -> None:
         del a, b, s32
         torch.cuda.empty_cache()
     results["layer_norm_cases"] = cases
+
+
+# the state-space mixer at the hybrid embed cell's shape: a full-height
+# batch of the 384-token bucket (b, s) through Granite-4.0-H-Small's mixer
+# (128 heads x 64, state 128, one group, conv 4, eps 1e-5; the published
+# chunk of 256 for the plain version and the bound)
+SSD_SHAPE, SSD_CHUNK, SSD_EPS = (64, 384), 256, 1e-5
+# S1 against the fp32 recurrence on the same bf16 input: the kernel rounds
+# x, B, C and the state to bf16 as product operands and its output to bf16,
+# so an output is within 2^-6 of its own size plus its row's rms (where y's
+# terms cancel)
+SSD_TOL, SSD_MIN_WITHIN = 2.0 ** -6, 0.999
+
+
+def ssd_inputs(gen, b: int, s: int, dims):
+    """The in-projection's output (N(0, 1.28²): RMSNormed states through
+    N(0, 0.02²) weights, 4,096 in) and the mixer's parameters as Mamba-2
+    initializes them (A ~ U[1, 16]; Δ log-uniform in [0.001, 0.1], dt_bias
+    its inverse softplus; conv U(±1/√4); D 1; the norm's gain 1 + N(0,
+    0.02²)), in bf16."""
+    import math
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    delta = torch.exp(u(dims.heads) * math.log(100.0) + math.log(0.001)).clamp(min=1e-4)
+    bound = 1 / math.sqrt(dims.conv)
+    params = [(2 * u(dims.conv_dim, dims.conv) - 1) * bound, (2 * u(dims.conv_dim) - 1) * bound,
+              delta + torch.log(-torch.expm1(-delta)), torch.log(1 + 15 * u(dims.heads)),
+              torch.ones(dims.heads, device="cuda"),
+              1 + 0.02 * torch.randn(dims.d_inner, generator=gen, device="cuda")]
+    zxbcdt = torch.randn(b, s, dims.width, generator=gen, device="cuda") * 1.28
+    return zxbcdt.to(torch.bfloat16), [t.to(torch.bfloat16) for t in params]
+
+
+def ssd_recurrence(zxbcdt, params, dims, eps):
+    """The mixer by its definition in fp32: nn.Conv1d's causal depthwise
+    conv and SiLU, then the state-space recurrence one position at a time,
+    the D skip, RMSNorm(y ⊙ SiLU(z)) · w."""
+    import torch.nn.functional as F
+
+    conv_w, conv_b, dt_bias, A_log, D, norm_w = (t.float() for t in params)
+    b, s, _ = zxbcdt.shape
+    nh, p, n = dims.heads, dims.head_dim, dims.state
+    z, xbc, dt = zxbcdt.float().split([dims.d_inner, dims.conv_dim, nh], dim=-1)
+    xbc = F.conv1d(xbc.transpose(1, 2), conv_w[:, None, :], conv_b, padding=dims.conv - 1,
+                   groups=dims.conv_dim)[..., :s]
+    x, B, C = F.silu(xbc).transpose(1, 2).split([dims.d_inner, n, n], dim=-1)
+    x = x.reshape(b, s, nh, p)
+    delta = F.softplus(dt + dt_bias)
+    decay = torch.exp(delta * -torch.exp(A_log))
+    state = torch.zeros(b, nh, p, n, device="cuda")
+    y = torch.empty(b, s, nh, p, device="cuda")
+    for t in range(s):
+        state.mul_(decay[:, t, :, None, None]).add_(
+            (delta[:, t, :, None] * x[:, t])[..., None] * B[:, t, None, None, :])
+        y[:, t] = (state @ C[:, t, None, :, None]).squeeze(-1)
+    g = (y + D[:, None] * x).reshape(b, s, dims.d_inner) * F.silu(z)
+    return g * torch.rsqrt(g.pow(2).mean(-1, keepdim=True) + eps) * norm_w
+
+
+def ssd_bound(b: int, s: int, dims, chunk: int):
+    """Least time for one mixer call: xBC, z and dt read and the output
+    written once a token in bf16, against the chunked form's FLOPs at the
+    published chunk at the bf16 peak (``benchmark/flops_hybrid.py``'s
+    count)."""
+    nh, p, n = dims.heads, dims.head_dim, dims.state
+    t_bytes = b * s * 2 * (dims.conv_dim + 2 * dims.d_inner + nh) / HBM_BYTES_PER_S * 1e3
+    sq = (s // chunk) * chunk ** 2 + (s % chunk) ** 2
+    flops = b * (2.0 * sq * (n + nh * p) + 4.0 * s * nh * p * n)
+    t_ops = flops / PEAK_OPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssd(gen, results) -> None:
+    """S1, the state-space mixer between Granite-4.0-H's projections (conv
+    and SiLU, the chunked scan, the D skip, the gate and the gated norm's
+    sums), at the hybrid embed cell's shape against the fp32 recurrence;
+    the plain version (fp32, the chunked form at 256) and the parts S1
+    takes into its launches, as PyTorch would run them alone on bf16 (the
+    conv and SiLU of xBC; the gate and the RMSNorm over 8,192 channels),
+    are timed beside it."""
+    import torch.nn.functional as F
+
+    from arxiv_rag_tpu_torch.models.granite_hybrid import GraniteHybridConfig
+    from arxiv_rag_tpu_torch.ops import ssd
+
+    print("== phase 2 (ssd): S1 at the hybrid embed cell's shape", flush=True)
+    dims = GraniteHybridConfig().ssd_dims
+    b, s = SSD_SHAPE
+    zxbcdt, params = ssd_inputs(gen, b, s, dims)
+    ssd.reset_launches()
+    gw, rstd = ssd.mixer(zxbcdt, *params, SSD_EPS, dims)
+    launches = dict(ssd.LAUNCHES)
+    got = gw.float() * rstd[..., None]
+    want = ssd_recurrence(zxbcdt, params, dims, SSD_EPS)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    within = ((got - want).abs() <= SSD_TOL * (want.abs() + rms)).float().mean().item()
+    row_rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    del gw, rstd, got, want, rms
+    if within < SSD_MIN_WITHIN:
+        fail(f"ssd {b} x {s}: {100 * within:.4f}% of outputs within {SSD_TOL:g} of the "
+             f"recurrence's (size plus row rms), worst row {row_rel:.4f}")
+    z, xbc, dt = zxbcdt.split([dims.d_inner, dims.conv_dim, dims.heads], dim=-1)
+    conv_w = params[0][:, None, :]
+    y = torch.randn(b, s, dims.d_inner, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def conv_alone():
+        return F.silu(F.conv1d(xbc.transpose(1, 2), conv_w, params[1], padding=dims.conv - 1,
+                               groups=dims.conv_dim)[..., :s])
+
+    def gate_norm_alone():
+        g = y * F.silu(z)
+        return g * torch.rsqrt(g.float().pow(2).mean(-1, keepdim=True) + SSD_EPS).to(
+            g.dtype) * params[5]
+
+    f32 = [t.float() for t in params]
+    c = {"b": b, "s": s, "heads": dims.heads, "head_dim": dims.head_dim, "state": dims.state,
+         "kernel_chunk": ssd.CHUNK, "launches": launches, "within_share": within,
+         "worst_row_rel": row_rel,
+         "ms": median_ms(lambda: ssd.mixer(zxbcdt, *params, SSD_EPS, dims)),
+         "plain_ms": median_ms(lambda: ssd.mixer_plain(zxbcdt.float(), *f32, SSD_EPS, dims,
+                                                       SSD_CHUNK), runs=PLAIN_RUNS),
+         "conv_alone_ms": median_ms(conv_alone, runs=PLAIN_RUNS),
+         "gate_norm_alone_ms": median_ms(gate_norm_alone, runs=PLAIN_RUNS)}
+    c["bound_ms"], c["bound_by"] = ssd_bound(b, s, dims, SSD_CHUNK)
+    print(f"  ssd {b} x {s}, {dims.heads} heads x {dims.head_dim}, state {dims.state}: S1 "
+          f"{c['ms']:.4f} ms ({launches}), plain {c['plain_ms']:.4f} ms, bound "
+          f"{c['bound_ms']:.4f} ms ({c['bound_by']}), {100 * c['bound_ms'] / c['ms']:.1f}% of "
+          f"the bound; alone in PyTorch: conv + SiLU {c['conv_alone_ms']:.4f} ms, gate + norm "
+          f"{c['gate_norm_alone_ms']:.4f} ms; {100 * within:.4f}% of outputs within "
+          f"{SSD_TOL:g} of the recurrence's, worst row {row_rel:.5f}", flush=True)
+    results["ssd_cases"] = [c]
+    del zxbcdt, params, f32, y
+    torch.cuda.empty_cache()
 
 
 class GCPauses:
@@ -4323,6 +4463,24 @@ def kernels_line(results, launches, w8a8_launches) -> dict:
         "library_ms": main["library_ms"],
         "cases": cases,
     })
+    cases = results["ssd_cases"]
+    main = cases[0]
+    out.append({
+        "name": f"ssd (S1: Mamba-2's conv, chunked scan, D skip, gate and gated-norm sums, "
+                f"{main['b']} x {main['s']} tokens, {main['heads']} heads x {main['head_dim']}, "
+                f"state {main['state']})",
+        "route": "cuda",
+        "source": "arxiv_rag_tpu_torch/csrc/ssd.cu",
+        "kernel": "conv_bc_kernel + ssd_scan_kernel (mma.sync m16n8k16, a block a (head, "
+                  "sequence), chunks of 64, the state in registers)",
+        "replaces": "none: the JAX package has no state-space layer",
+        "launches": main["launches"],
+        "within_share": min(c["within_share"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "cases": cases,
+    })
     merges = results["sharded"]["kernels"]
     main = next(c for c in merges if c["kind"] == "bf16" and c["q"] == 512)
     out.append({
@@ -4436,6 +4594,7 @@ def main() -> int:
     phase_attention(gen, results)
     phase_dense(gen, results)
     phase_layer_norm(gen, results)
+    phase_ssd(gen, results)
 
     reset_all_launches()  # the path of slices 1-2 starts here
     engines, texts = phase_slice(indexes, ivfs, args.seed, results)

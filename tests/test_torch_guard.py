@@ -267,7 +267,7 @@ def test_kernel_build_is_not_touched_on_import():
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
 
 
-KERNELS = ("fused_topk", "w8a8", "attention", "dense", "layer_norm")  # csrc/<name>.cu
+KERNELS = ("fused_topk", "w8a8", "attention", "dense", "layer_norm", "ssd")  # csrc/<name>.cu
 
 
 def test_an_edited_header_rebuilds_every_kernel(tmp_path, monkeypatch):
